@@ -5,24 +5,37 @@
 1. prints the environment and the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from corbslam_tpu_torch/csrc/ (nvcc) and
    prints nvcc's register and spill counts per kernel;
-3. drives the main path — `build_frame_stereo` through `entry.entry()` — on
+3. drives the front end — `build_frame_stereo` through `entry.entry()` — on
    3 warm-up and 20 timed stereo frames with all launch counters reset just
-   before, checks every kernel was launched, the outputs are finite and the
-   feature / stereo counts are sane, and holds the frame on the entry input
-   against the plain path run on the CPU;
-4. holds each kernel against its plain PyTorch version on the card, on the
+   before, checks its four kernels were launched, the outputs are finite and
+   the feature / stereo counts are sane;
+4. drives the tracking path — `track_frame_stereo` through
+   `entry.track_entry()`: the bench camera, KITTI_STEREO at full capacity and
+   the bench's PlanarWorld rendered on the card — with all counters reset
+   just before: frame 0 seeds the map, frames 1..20 are tracked with a
+   keyframe inserted after frames 5, 10, 15 and 20; checks every frame is
+   ok with >= 1000 local-map inliers and a camera-centre error <= 0.075 m,
+   all seven kernels were launched and the outputs are finite; prints the
+   tracked-frame times;
+5. holds the front end's entry frame, and tracked frames 1..3, against the
+   plain path run on the CPU from the same state;
+6. holds each kernel against its plain PyTorch version on the card, on the
    same inputs at the flagship shapes (1241x376, 2048 features, 8 levels,
-   both stereo images), and times the kernel's wrapper, the plain version
-   and, where one PyTorch call computes the same function, that call. The
-   times are device times (torch.profiler: the summed time of every kernel
-   and copy a call runs on the card); the host-inclusive time of the
-   wrappers (CUDA events around eager calls) is printed beside them. The
-   stereo kernel is also held against its plain version where every feature
-   passes, so that its median cut is live;
-5. writes every measurement (per-frame times, nvcc's full -Xptxas -v log) to
-   chiprun_out/chip_smoke_report.json in the checkout, and prints the
-   kernels' JSON line, the nvidia-smi line, and as the last line
-   {"ok": true, "device": {...}}.
+   both stereo images; for K5..K7 the calls of tracked frame 12: 2048 x 2048
+   frame-to-frame and descriptor matching, 2048 x 8192 projection matching,
+   2048-observation pose LM, the local map over 131072 points, also with a
+   1024-row window so that the compaction truncates), and times
+   the kernel's wrapper, the plain version and, where one PyTorch call
+   computes the same function, that call. The times are device times
+   (torch.profiler: the summed time of every kernel and copy a call runs on
+   the card); the host-inclusive time of the wrappers (CUDA events around
+   eager calls) is printed beside them. The stereo kernel is also held
+   against its plain version where every feature passes, so that its median
+   cut is live;
+7. writes every measurement (per-frame times and counts, nvcc's full
+   -Xptxas -v log) to chiprun_out/chip_smoke_report.json in the checkout,
+   and prints the kernels' JSON line, the nvidia-smi line, and as the last
+   line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero without the last line.
 Without CUDA it exits non-zero before printing anything of a result.
@@ -30,6 +43,7 @@ Without CUDA it exits non-zero before printing anything of a result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -44,10 +58,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from corbslam_tpu_torch import kernels  # noqa: E402
-from corbslam_tpu_torch.entry import CAM, CFG, entry, stereo_pair  # noqa: E402
+from corbslam_tpu_torch.entry import (  # noqa: E402
+    CAM, CFG, TrackState, add_keyframe, center_error, entry, gt_pose, seed_map, stereo_pair,
+    track_entry, track_step)
 from corbslam_tpu_torch.frontend import frame as frame_mod  # noqa: E402
+from corbslam_tpu_torch.frontend import track_ops  # noqa: E402
+from corbslam_tpu_torch.geometry import se3  # noqa: E402
+from corbslam_tpu_torch.mapstate import mapstate as ms  # noqa: E402
+from corbslam_tpu_torch.matching import matcher  # noqa: E402
 from corbslam_tpu_torch.ops import brief, fast, orb, pyramid, stereo  # noqa: E402
 from corbslam_tpu_torch.ops.orb import Features  # noqa: E402
+from corbslam_tpu_torch.optim import pose_opt, reproj  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and f32 rate outside the
 # tensor cores; every kernel here runs on the CUDA cores.
@@ -60,8 +81,12 @@ REPLACES = {
     "fast_cells": "corbslam_tpu/ops/fast.py:180",
     "orb_describe": "corbslam_tpu/ops/brief.py:149",
     "stereo_match": "corbslam_tpu/ops/stereo.py:38",
+    "match_masked": "corbslam_tpu/matching/matcher.py:75",
+    "pose_opt": "corbslam_tpu/optim/pose_opt.py:60",
+    "local_map": "corbslam_tpu/frontend/track_ops.py:220",
 }
 SOURCES = {k: f"corbslam_tpu_torch/csrc/{k}.cu" for k in REPLACES}
+FRONT_END_KERNELS = ("pyramid", "fast_cells", "orb_describe", "stereo_match")
 REPORT = os.path.join(ROOT, "chiprun_out", "chip_smoke_report.json")
 
 
@@ -265,17 +290,7 @@ def check_kernels(imgs: torch.Tensor, prm, timed: bool = True) -> tuple[list, di
                  8 * Nl * Nr + 23 * n_masked_in + Nl * 11 * 121 * 3),
         depth_max_abs_err=d_err, candidate_pairs=n_masked_in, right_patches_used=n_right_used)
 
-    # Host-inclusive times first: a torch.profiler session may leave tracing
-    # hooks that slow later host work.
-    for r in rows:
-        kernel_fn, plain_fn, _, reps = r["fns"]
-        r["host_ms"] = host_ms(kernel_fn)
-        r["plain_host_ms"] = host_ms(plain_fn, reps=reps, warmup=min(3, reps))
-    for r in rows:
-        kernel_fn, plain_fn, library_fn, reps = r.pop("fns")
-        r["ms"] = device_ms(kernel_fn)
-        r["plain_ms"] = device_ms(plain_fn, reps=reps, warmup=min(3, reps))
-        r["library_ms"] = device_ms(library_fn) if library_fn else None
+    time_rows(rows)
     return rows, dict(ok_count=int(m_k.ok.sum()), valid_count=int(kp_k.valid[0].sum()),
                       padded_slots=int((kp_k.resp == 0).sum()))
 
@@ -407,9 +422,9 @@ def run_main_path(fwd, entry_imgs) -> dict:
                 require(bool(torch.isfinite(t).all()), f"non-finite values in {name}")
         valid.append(int(fd.fvalid.sum()))
         ok.append(int((fd.uright >= 0).sum()))
-    launches = dict(kernels.LAUNCHES)
+    launches = {k: kernels.LAUNCHES[k] for k in FRONT_END_KERNELS}
     for name, n in launches.items():
-        require(n > 0, f"kernel {name} was not launched on the main path")
+        require(n > 0, f"kernel {name} was not launched on the front end")
     ev, eo = int(entry_fd.fvalid.sum()), int((entry_fd.uright >= 0).sum())
     require(ev >= 1800, f"entry input: {ev} valid features < 1800")
     require(eo >= 1500, f"entry input: {eo} stereo matches < 1500")
@@ -422,6 +437,341 @@ def run_main_path(fwd, entry_imgs) -> dict:
         frame_ms=times, valid=valid, stereo_ok=ok,
         entry_valid=ev, entry_stereo_ok=eo, entry_frame=entry_fd,
     )
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the tracking path (track_frame_stereo on the bench sequence)
+# ---------------------------------------------------------------------------
+
+TRACK_FRAMES = 20
+# A fixed keyframe schedule stands in for the keyframe policy, which comes
+# with the tracker (StereoTracker): a keyframe after these tracked frames.
+KEYFRAME_AFTER = (5, 10, 15, 20)
+CHECK_FRAME = 12   # the kernels are held against their plain versions on this frame's inputs
+CPU_FRAMES = 3     # frames 1..3 are tracked again by the plain path on the CPU
+TRUNCATED_L = 1024  # a local-map window smaller than the frame's local map
+
+
+def state_to(st: TrackState, device) -> TrackState:
+    """An independent copy of the tracking state on `device`."""
+    cp = lambda t: t.to(device, copy=True)  # noqa: E731
+    return TrackState(ms.MapState(ms.KeyFrames(*map(cp, st.m.kf)), ms.MapPoints(*map(cp, st.m.mp)),
+                                  cp(st.m.n_kf), cp(st.m.n_mp)),
+                      frame_mod.FrameData(*map(cp, st.prev)), cp(st.velocity), cp(st.ref_kf),
+                      cp(st.local_rows), cp(st.local_ok))
+
+
+def translation_error(Tcw: torch.Tensor, i: int) -> float:
+    """Distance in metres between the translation of Tcw and that of frame
+    i's true pose in the map seeded at frame 0 (the other error definition
+    beside `center_error`; it also moves with the rotation error)."""
+    T_gt = se3.compose(gt_pose(i), se3.inverse(gt_pose(0)))
+    return float(torch.linalg.norm(Tcw[:3, 3] - T_gt[:3, 3]))
+
+
+def summary_row(summary: torch.Tensor, i: int) -> dict:
+    s = summary.cpu()
+    T = s[8:].view(4, 4)
+    return dict(frame=i, n_track=int(s[0]), used_ref=int(s[1]), n_local=int(s[2]),
+                ref_kf=int(s[3]), ok=int(s[6]), err_m=center_error(T, i),
+                t_err_m=translation_error(T, i), Tcw=s[8:].tolist())
+
+
+def run_tracking_path(te, dev) -> dict:
+    """Seed at frame 0, track frames 1..20 with the keyframe schedule, all
+    launch counters reset just before; returns per-frame rows, the tracked
+    frames' times (keyframe insertion not included), the launches, the CPU
+    copy of the state before frame 1 and the card state before CHECK_FRAME."""
+    imgs = [te.world.render_stereo(gt_pose(i)) for i in range(TRACK_FRAMES + 1)]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    st = seed_map(te, *imgs[0], dev)
+    n_seed = int(st.m.n_mp)
+    cpu_start = state_to(st, "cpu")
+    check_state, rows, times = None, [], []
+    for i in range(1, TRACK_FRAMES + 1):
+        if i == CHECK_FRAME:
+            check_state = state_to(st, dev)
+        t0 = time.perf_counter()
+        st, summary = track_step(te, st, *imgs[i], dev)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i in KEYFRAME_AFTER:
+            st = add_keyframe(te, st, i)
+        rows.append(summary_row(summary, i))
+        for name, t in [("summary", summary), ("velocity", st.velocity), ("Tcw", st.prev.Tcw)]:
+            require(bool(torch.isfinite(t).all()), f"frame {i}: non-finite {name}")
+    launches = dict(kernels.LAUNCHES)
+    for name, t in [("mp.pos", st.m.mp.pos), ("mp.normal", st.m.mp.normal),
+                    ("kf.Tcw", st.m.kf.Tcw)]:
+        require(bool(torch.isfinite(t).all()), f"non-finite map field {name}")
+    for name, n in launches.items():
+        require(n > 0, f"kernel {name} was not launched on the tracking path")
+    require(all(r["ok"] for r in rows), f"a frame was not ok: {[r['ok'] for r in rows]}")
+    require(min(r["n_local"] for r in rows) >= 1000,
+            f"n_local below 1000: {[r['n_local'] for r in rows]}")
+    max_err = max(r["err_m"] for r in rows)
+    require(max_err <= 0.075, f"largest camera-centre error {max_err:.4f} m > 0.075 m")
+
+    # Build-only time of the same frames, for the track-only share.
+    build = []
+    for i in range(1, TRACK_FRAMES + 1):
+        t0 = time.perf_counter()
+        frame_mod.build_frame_stereo(*imgs[i], te.cam, te.cfg.orb, device=dev)
+        torch.cuda.synchronize()
+        build.append((time.perf_counter() - t0) * 1e3)
+    timed = slice(3, TRACK_FRAMES)  # frames 4..20
+    track_only = [a - b for a, b in zip(times[timed], build[timed])]
+    return dict(
+        frames=TRACK_FRAMES, keyframe_after=KEYFRAME_AFTER, seed_points=n_seed,
+        final_points=int(st.m.n_mp), final_keyframes=int(st.m.n_kf), launches=launches,
+        frame_ms=times, build_ms=build,
+        frame_ms_p50=float(np.percentile(times[timed], 50)),
+        frame_ms_p90=float(np.percentile(times[timed], 90)),
+        track_only_ms_p50=float(np.percentile(track_only, 50)),
+        track_only_ms_p90=float(np.percentile(track_only, 90)),
+        max_err_m=max_err, rows=rows, imgs=imgs, cpu_start=cpu_start, check_state=check_state)
+
+
+def center_distance(Ta: torch.Tensor, Tb: torch.Tensor) -> float:
+    """Distance in metres between the camera centres of two poses."""
+    return float(torch.linalg.norm(se3.translation(se3.inverse(Ta))
+                                   - se3.translation(se3.inverse(Tb))))
+
+
+def compare_tracking_with_cpu(te, tp: dict) -> list:
+    """Frames 1..CPU_FRAMES again through the plain path on the CPU, from the
+    card's state before frame 1: poses within 1e-3 m, n_local within 2 %."""
+    st = tp["cpu_start"]
+    out = []
+    for i in range(1, CPU_FRAMES + 1):
+        img_l, img_r = (im.cpu() for im in tp["imgs"][i])
+        st, summary = track_step(te, st, img_l, img_r, "cpu")
+        if i in KEYFRAME_AFTER:
+            st = add_keyframe(te, st, i)
+        c, g = summary_row(summary, i), tp["rows"][i - 1]
+        d = center_distance(torch.tensor(c["Tcw"]).view(4, 4), torch.tensor(g["Tcw"]).view(4, 4))
+        require(d <= 1e-3, f"frame {i}: card and CPU poses {d:.2e} m apart > 1e-3 m")
+        require(abs(c["n_local"] - g["n_local"]) <= 0.02 * g["n_local"],
+                f"frame {i}: n_local card {g['n_local']} vs CPU {c['n_local']}")
+        out.append(dict(frame=i, center_diff_m=d, n_local_card=g["n_local"],
+                        n_local_cpu=c["n_local"], n_track_card=g["n_track"],
+                        n_track_cpu=c["n_track"]))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: K5..K7 against their plain versions on one tracked frame's inputs
+# ---------------------------------------------------------------------------
+
+def same_match(q: dict, name: str):
+    k, p = matcher.match_select(**q), matcher.match_select_plain(**q)
+    torch.cuda.synchronize()
+    for f in ("idx", "dist", "ok"):
+        a, b = getattr(k, f), getattr(p, f)
+        require(torch.equal(a, b.to(a.dtype)),
+                f"match_masked ({name}): {f} differs in {(a != b.to(a.dtype)).sum().item()} places")
+    return k
+
+
+def match_cost(q: dict) -> tuple:
+    """(bytes, ops, unmasked pairs) of one K5 call, counted from these inputs
+    as the work the function needs. Ops: each query's validity; for a valid
+    query, each target's validity; with a window, the window test of each
+    valid query x valid target pair; XOR, popcount and the running top-2
+    only for the pairs that pass. Bytes: the flags once, the window fields
+    and angles of valid rows, the descriptors of rows in at least one pair
+    that passes, idx / dist / ok out."""
+    Nq, Nt = q["desc_q"].shape[0], q["desc_t"].shape[0]
+    n_vq, n_vt = int(q["valid_q"].sum()), int(q["valid_t"].sum())
+    w = q.get("window")
+    if w is not None:
+        mask = matcher.projection_window_mask(w.uv, q["valid_t"], w.xy, w.octave, q["valid_q"],
+                                              w.radius, w.scale_factors, w.pred_octave, w.slack,
+                                              w.slack_up)
+    else:
+        mask = q["valid_t"][:, None] & q["valid_q"][None, :]
+    n_pass = int(mask.sum())
+    t_used, q_used = int(mask.any(1).sum()), int(mask.any(0).sum())
+    per_row = (12 if w is not None else 0) + (4 if q.get("angle_q") is not None else 0)
+    n_bytes = Nq + Nt + (n_vq + n_vt) * per_row + (q_used + t_used) * 32 + Nq * 9
+    # The window test: 2 sub + 3 mul + 1 add + 1 compare + 1 sub + 2
+    # compares; an unmasked pair: 8 XOR + 8 popc + 7 adds and the top-2 (~4).
+    ops = Nq + n_vq * Nt + (n_vq * n_vt * 10 if w is not None else 0) + n_pass * 27
+    return n_bytes, ops, n_pass
+
+
+def pose_errors(k, p, cam, X, obs, inv_s2, stereo_mask, valid) -> dict:
+    """K6 against the plain version: translation and rotation differences,
+    and inlier flips, allowed only where the final chi2 lies within 1e-3
+    (relative) of its gate."""
+    dt = float((k.Tcw[:3, 3] - p.Tcw[:3, 3]).abs().max())
+    drot = float(torch.linalg.norm(k.Tcw[:3, :3] - p.Tcw[:3, :3]) / 2 ** 0.5)
+    res = reproj.linearize(cam, p.Tcw, X, obs, inv_s2, stereo_mask)
+    c2 = reproj.chi2(res.r, res.w)
+    d2 = reproj.chi2_threshold(stereo_mask)
+    flips = k.inliers != p.inliers
+    near = (c2 - d2).abs() <= 1e-3 * d2
+    return dict(t_max_abs=dt, rot_rad=drot, flips=int(flips.sum()), flips_off_gate=int(
+        (flips & ~near).sum()), n_inliers_kernel=int(k.n_inliers), n_inliers_plain=int(p.n_inliers),
+        n_valid=int(valid.sum()))
+
+
+def same_pose(cam, T0, inputs, name: str) -> tuple:
+    k = pose_opt.optimize_pose(cam, T0, *inputs)
+    p = pose_opt.optimize_pose_plain(cam, T0, *inputs)
+    torch.cuda.synchronize()
+    e = pose_errors(k, p, cam, *inputs)
+    require(e["t_max_abs"] <= 1e-4 and e["rot_rad"] <= 1e-5,
+            f"pose_opt ({name}): pose differs by {e['t_max_abs']:.2e} m / {e['rot_rad']:.2e} rad")
+    require(e["flips_off_gate"] == 0, f"pose_opt ({name}): {e['flips_off_gate']} inlier flips "
+            "away from the chi2 gate")
+    return k, e
+
+
+def check_tracking_kernels(te, st: TrackState, img_l, img_r, timed: bool = True):
+    """Replays the kernel calls of `_track_core` for one frame on the card's
+    state and holds K5 (all three callers), K6 (both calls) and K7 against
+    their plain versions; with `timed`, rows for the kernels' line."""
+    cam, cfg, _ = te
+    dev = st.m.mp.pos.device
+    m, prev = st.m, st.prev
+    cur = frame_mod.build_frame_stereo(img_l, img_r, cam, cfg.orb, device=dev)
+    T_pred = se3.compose(st.velocity, prev.Tcw)
+    q_ff = track_ops.motion_model_query(cam, m, prev, cur, T_pred, cfg)
+    ff = same_match(q_ff, "frame-frame")
+    match_mp = track_ops.lookup(ff.idx, prev.mp_idx)
+    pin1 = track_ops.pose_inputs(cur, m.mp.pos, match_mp)
+    po1, e1 = same_pose(cam, T_pred, pin1, "motion model")
+    Tcw0 = po1.Tcw
+    mp0 = torch.where(po1.inliers, match_mp, torch.full_like(match_mp, -1))
+
+    q_desc, _ = track_ops.reference_kf_query(m, cur, st.ref_kf)
+    desc = same_match(q_desc, "descriptor")
+
+    args = (cam, m, mp0, st.local_rows, st.local_ok, st.ref_kf, Tcw0, cfg)
+    win = track_ops.local_map_window(*args)
+    win_p = track_ops.local_map_window_plain(*args)
+    torch.cuda.synchronize()
+    for f in ("cand", "cand_ok", "local_rows", "local_ok", "ref_kf", "cur_mask", "pmask", "rows",
+              "rows_ok"):
+        a, b = getattr(win, f), getattr(win_p, f)
+        require(torch.equal(a, b.to(a.dtype)),
+                f"local_map: {f} differs in {(a != b.to(a.dtype)).sum().item()} places")
+    k7 = dict(uv_max_abs=float((win.uv - win_p.uv).abs().max()),
+              visible_flips=int((win.visible != win_p.visible).sum()),
+              pred_octave_flips=int((win.pred_octave != win_p.pred_octave).sum()),
+              n_pmask=int(win.pmask.sum()), n_rows_ok=int(win.rows_ok.sum()),
+              n_visible=int(win.visible.sum()))
+    require(k7["uv_max_abs"] <= 1e-3, f"local_map: uv differs by {k7['uv_max_abs']}")
+    # The compaction's truncating branch (more local-map points than L rows),
+    # which the sequence's local maps (~2000 points) never reach at L = 8192.
+    cfg_s = cfg.replace(capacity=dataclasses.replace(cfg.capacity, local_window_mps=TRUNCATED_L))
+    args_s = (cam, m, mp0, st.local_rows, st.local_ok, st.ref_kf, Tcw0, cfg_s)
+    win_s, win_sp = track_ops.local_map_window(*args_s), track_ops.local_map_window_plain(*args_s)
+    torch.cuda.synchronize()
+    for f in ("rows", "rows_ok", "uv", "visible", "pred_octave"):
+        a, b = getattr(win_s, f), getattr(win_sp, f)
+        require(torch.equal(a, b.to(a.dtype)),
+                f"local_map (L = {TRUNCATED_L}): {f} differs in {(a != b).sum().item()} places")
+    require(bool(win_s.rows_ok.all()), f"local_map: fewer than {TRUNCATED_L} points, so the "
+            "truncating branch was not reached")
+
+    has = mp0 >= 0
+    q_pr = track_ops.local_map_query(m, cur, win, has, cfg)
+    pr = same_match(q_pr, "projection")
+    merged = torch.where(has, mp0, track_ops.lookup(pr.idx, win.rows))
+    pin2 = track_ops.pose_inputs(cur, m.mp.pos, merged)
+    _, e2 = same_pose(cam, Tcw0, pin2, "local map")
+    info = dict(frame_frame_ok=int(ff.ok.sum()), descriptor_ok=int(desc.ok.sum()),
+                projection_ok=int(pr.ok.sum()), pose_motion=e1, pose_local=e2, local_map=k7)
+    if not timed:
+        return [], info
+
+    # Bounds from this frame's inputs.
+    cost = [match_cost(q) for q in (q_ff, q_pr)]
+    info["match_pairs_unmasked"] = [c[2] for c in cost]
+
+    def pose_cost(pin):
+        # Per valid observation and pass: ~45 flops for the residual and
+        # chi2, ~70 with the Jacobian, ~180 to accumulate H and g; 4 rounds
+        # of (1 + 10 x 2 + 1) passes. Inputs: X, obs, inv_sigma2, flags.
+        kv = int(pin[4].sum())
+        K = pin[0].shape[0]
+        return K * 30 + 64 + K + 72, 4 * kv * (45 + 10 * (70 + 180 + 45) + 45)
+    pc = [pose_cost(pin1), pose_cost(pin2)]
+    M, N, F = m.mp.capacity, m.kf.capacity, m.kf.n_features
+    C, L, K1 = win.cand.shape[0], win.rows.shape[0], win.local_rows.shape[0]
+    n_tracked = int((mp0 >= 0).sum())
+    # Keyframe rows whose observations the function reads: the distinct valid
+    # candidates (the local window is a subset of them).
+    cand_read = torch.unique(win.cand[win.cand_ok & m.kf.valid[win.cand.long()]])
+    n_contrib = int(((m.kf.mp_idx[cand_read.long()] >= 0) & m.kf.fvalid[cand_read.long()]).sum())
+    n_local = int(win.local_ok.sum())
+    tested = track_ops.covis.local_map_mask(m, win.local_rows, win.local_ok) & ~win.cur_mask
+    n_tests = int(tested.sum())
+    geo = tested.clone()
+    geo[win.rows.long()] = True  # points whose pos / normal / distances are read, once each
+    # K7 bytes: the features' point rows and the tracked points' anchors; the
+    # candidate rows' indices and flags (4 + 1 bytes per feature), the flags
+    # and window in; per point the four byte masks (valid, tracked, observed,
+    # result); pos, normal and distances (32 bytes) of the observed untracked
+    # points and of the compacted rows; candidates, window, rows and their
+    # projections (rows 4, ok 1, uv 8, visible 1, octave 4) out.
+    k7_bytes = (F * 4 + n_tracked * 4 + len(cand_read) * (F * 5 + 1) + K1 * 5 + M * 4
+                + int(geo.sum()) * 32 + C * 5 + K1 * 5 + L * 18)
+    # K7 ops: an anchor count per tracked feature and a top-k selection over
+    # N anchor counts (N log2 C compares); a shared-point test per contributing
+    # observation; dedupe and top-K1 of C candidates (C log2 C); the window's
+    # scatter and 3 mask ops per point; a frustum test (~45 flops) per
+    # observed untracked point; the compaction (2 ops per point); the
+    # matching frustum and octave (~60) per compacted row.
+    lg = lambda n: max(1, int(np.ceil(np.log2(n))))  # noqa: E731
+    k7_ops = (n_tracked + N * lg(C) + 2 * n_contrib + 2 * C * lg(C) + n_local * F + M * 3
+              + n_tests * 45 + M * 2 + L * 60)
+    info["bound_inputs"] = dict(
+        match_bytes_ops=[c[:2] for c in cost], local_map_bytes=k7_bytes, local_map_ops=k7_ops,
+        tracked=n_tracked, candidate_rows_read=len(cand_read), observed_untracked=n_tests,
+        geometry_rows_read=int(geo.sum()))
+    key_mask = win.pmask
+    row_ids = torch.arange(M, device=dev)
+
+    def library_compact():
+        torch.topk(key_mask.to(torch.int64) * (M + 1) + row_ids, L)
+
+    def plain_pose():
+        pose_opt.optimize_pose_plain(cam, T_pred, *pin1)
+        pose_opt.optimize_pose_plain(cam, Tcw0, *pin2)
+
+    rows = [
+        dict(name="match_masked", max_abs_err=0.0,
+             bound=bound_ms(sum(c[0] for c in cost), sum(c[1] for c in cost)),
+             fns=(lambda: (matcher.match_select(**q_ff), matcher.match_select(**q_pr)),
+                  lambda: (matcher.match_select_plain(**q_ff),
+                           matcher.match_select_plain(**q_pr)), None, 20)),
+        dict(name="pose_opt", max_abs_err=max(e1["t_max_abs"], e2["t_max_abs"]),
+             bound=bound_ms(sum(c[0] for c in pc), sum(c[1] for c in pc)),
+             fns=(lambda: (pose_opt.optimize_pose(cam, T_pred, *pin1),
+                           pose_opt.optimize_pose(cam, Tcw0, *pin2)), plain_pose, None, 3)),
+        dict(name="local_map", max_abs_err=k7["uv_max_abs"], bound=bound_ms(k7_bytes, k7_ops),
+             fns=(lambda: track_ops.local_map_window(*args),
+                  lambda: track_ops.local_map_window_plain(*args), library_compact, 5)),
+    ]
+    return rows, info
+
+
+def time_rows(rows: list) -> None:
+    """Host-inclusive times first (a profiler session may slow later host
+    work), then device times, for rows of (kernel, plain, library, reps)."""
+    for r in rows:
+        kernel_fn, plain_fn, _, reps = r["fns"]
+        r["host_ms"] = host_ms(kernel_fn)
+        r["plain_host_ms"] = host_ms(plain_fn, reps=reps, warmup=min(3, reps))
+    for r in rows:
+        kernel_fn, plain_fn, library_fn, reps = r.pop("fns")
+        r["ms"] = device_ms(kernel_fn)
+        r["plain_ms"] = device_ms(plain_fn, reps=reps, warmup=min(3, reps))
+        r["library_ms"] = device_ms(library_fn) if library_fn else None
 
 
 def main() -> int:
@@ -442,44 +792,73 @@ def main() -> int:
     print(f"build: {build_s:.1f} s ({kernels.BUILD_INFO.get('path')})", flush=True)
     print("ptxas (registers, spill bytes): " + json.dumps(ptxas), flush=True)
 
-    # The main path first, so that its frame times precede every profiler
-    # session of the kernel checks.
+    # The main paths first, so that their frame times precede every
+    # profiler session of the kernel checks: the front end, then tracking.
+    dev = torch.device("cuda")
     fwd, entry_imgs = entry("cuda")
     mp = run_main_path(fwd, entry_imgs)
-    cmp = compare_frames(mp.pop("entry_frame"),
-                         frame_mod.build_frame_stereo(*entry_imgs, CAM, CFG, device="cpu"))
-    print(f"main path: {mp['frames']} stereo frames p50 {mp['frame_ms_p50']:.3f} ms "
+    print(f"front end: {mp['frames']} stereo frames p50 {mp['frame_ms_p50']:.3f} ms "
           f"p90 {mp['frame_ms_p90']:.3f} ms; valid min {min(mp['valid'])} "
           f"stereo-ok min {min(mp['stereo_ok'])}; entry valid {mp['entry_valid']} "
-          f"stereo-ok {mp['entry_stereo_ok']}; launches {mp['launches']}")
-    print(f"vs CPU plain path on the entry input: {cmp}", flush=True)
+          f"stereo-ok {mp['entry_stereo_ok']}; launches {mp['launches']}", flush=True)
+    t0 = time.perf_counter()
+    te = track_entry("cuda")
+    texture_s = time.perf_counter() - t0
+    tp = run_tracking_path(te, dev)
+    for r in tp["rows"]:
+        print(f"track frame {r['frame']:2d}: n_track {r['n_track']} used_ref {r['used_ref']} "
+              f"n_local {r['n_local']} ok {r['ok']} err {r['err_m']:.4f} m "
+              f"(translation {r['t_err_m']:.4f} m) "
+              f"({tp['frame_ms'][r['frame'] - 1]:.2f} ms)")
+    print(f"tracking: {tp['frames']} frames (texture {texture_s:.1f} s, seed "
+          f"{tp['seed_points']} points, final {tp['final_keyframes']} KF / "
+          f"{tp['final_points']} points); tracked frame (build + track) p50 "
+          f"{tp['frame_ms_p50']:.3f} ms p90 {tp['frame_ms_p90']:.3f} ms over frames 4..20; "
+          f"track-only p50 {tp['track_only_ms_p50']:.3f} ms p90 {tp['track_only_ms_p90']:.3f} ms; "
+          f"max err {tp['max_err_m']:.4f} m (translation "
+          f"{max(r['t_err_m'] for r in tp['rows']):.4f} m); launches {tp['launches']}", flush=True)
 
-    dev = torch.device("cuda")
+    cmp = compare_frames(mp.pop("entry_frame"),
+                         frame_mod.build_frame_stereo(*entry_imgs, CAM, CFG, device="cpu"))
+    print(f"front end vs CPU plain path on the entry input: {cmp}", flush=True)
+    track_cmp = compare_tracking_with_cpu(te, tp)
+    print(f"tracking vs CPU plain path, frames 1..{CPU_FRAMES}: {track_cmp}", flush=True)
+
     imgs = orb.as_images(list(entry_imgs), dev)
     prm = orb.params(CFG, imgs.shape[1], imgs.shape[2], str(dev))
     rows, kinfo = check_kernels(imgs, prm)
     kinfo["stereo_median"] = check_stereo_median(prm)
     kinfo["small_geometry"] = check_small_geometry(dev)
+    trows, tinfo = check_tracking_kernels(te, tp.pop("check_state"), *tp["imgs"][CHECK_FRAME])
+    time_rows(trows)
+    kinfo["tracking"] = tinfo
+    launches = dict(mp["launches"], **{k: tp["launches"][k] for k in
+                                       ("match_masked", "pose_opt", "local_map")})
+    rows += trows
     for r in rows:
         print(f"kernel {r['name']}: device ms {r['ms']:.5f} (host-inclusive {r['host_ms']:.4f}) "
               f"plain device ms {r['plain_ms']:.4f} (host-inclusive {r['plain_host_ms']:.3f}) "
               f"library ms {r['library_ms']} bound ms {r['bound'][0]:.5f} ({r['bound'][1]}) "
-              f"max_abs_err {r['max_abs_err']:.3g}", flush=True)
+              f"max_abs_err {r['max_abs_err']:.3g} launches {launches[r['name']]}", flush=True)
     print(f"stereo median case: {kinfo['stereo_median']}", flush=True)
+    print(f"tracking kernel checks (frame {CHECK_FRAME}): {tinfo}", flush=True)
 
     kernels_line = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],
-         "replaces": REPLACES[r["name"]], "launches": mp["launches"][r["name"]],
+         "replaces": REPLACES[r["name"]], "launches": launches[r["name"]],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
         for r in rows
     ]}
+    tp.pop("imgs")
+    tp.pop("cpu_start")
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)
     with open(REPORT, "w") as fh:
         json.dump(dict(nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
                        build_s=build_s, ptxas=ptxas, build_log=kernels.BUILD_INFO.get("log", ""),
                        kernels=rows, kernel_check_counts=kinfo, main_path=mp,
-                       vs_cpu=cmp), fh, indent=1)
+                       vs_cpu=cmp, tracking=tp, tracking_vs_cpu=track_cmp,
+                       texture_s=texture_s), fh, indent=1)
     print(json.dumps(kernels_line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,5 +11,7 @@ CPU tensor runs the plain PyTorch version (the tests' path), a CUDA tensor
 launches the kernel.
 
 Ported so far: the stereo ORB front end (`frontend.frame.build_frame_stereo`,
-`build_frame_mono`, `ops.orb.extract`).
+`build_frame_mono`, `ops.orb.extract`) and stereo tracking against the map
+(`frontend.track_ops.track_frame_stereo`, `track_frame_stereo2`,
+`insert_keyframe_with_points`).
 """

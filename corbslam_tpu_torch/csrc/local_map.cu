@@ -1,0 +1,395 @@
+// K7 `local_map`: the local keyframe window and the compacted local map of a
+// tracked frame.
+//
+// Replaces corbslam_tpu/frontend/track_ops.py _candidate_local_kfs together
+// with corbslam_tpu/mapstate/covisibility.py local_map_mask, compact_indices
+// and dedupe_candidate_weights, and corbslam_tpu/geometry/camera.py
+// in_frustum over all map points and over the compacted rows (the frustum
+// half of matcher.search_by_projection_points, with its octave prediction).
+//
+// Bound on the H100: bytes. Every point costs its four byte masks (valid,
+// tracked, observed by the window, result: 0.5 MB at 131072 points); the
+// valid candidate keyframes' observation rows are read once (at most 160 x
+// 2048 indices and flags, 1.3 MB); positions, normals and distances only for
+// the observed, untracked points and the L compacted rows. The arithmetic
+// (a frustum test per such point) is small. The reference's form,
+// a top_k over a [M] key and scatters into [M] masks, is a handful of
+// passes over M; the costs to avoid are a sort of M keys and host syncs.
+// Design: seven launches with no PyTorch op between them. (1) a scatter of
+// the tracked points into a byte mask and atomic anchor counts;
+// (2) one block ranks the anchor counts (#greater, or equal at a lower
+// row — lax.top_k's order) and lays out the candidate list in the
+// reference's order: anchors, last local window, newest keyframes, then
+// [ref_kf, 0]; (3) one block per candidate sums its shared points;
+// (4) one block drops duplicate candidates (first valid kept, invalid
+// entries keyed -1-i), takes the first argmax as the new reference keyframe
+// and ranks the top K1; (5) a scatter of the window's observations, then one
+// thread per point for valid & observed & untracked & in the wide frustum;
+// (6) one block compacts newest-first with two block scans from the top of
+// [M] (True rows descending, then False rows descending, which is exactly
+// top_k(mask * (M + 1) + row, L)); (7) one thread per compacted row for the
+// matching frustum and the predicted octave. Frustum arithmetic uses
+// explicitly rounded f32 operations in the reference's order, so no FMA
+// moves a point across a gate.
+
+#include <math.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int BLOCK = 256;
+constexpr int SCAN_THREADS = 1024;
+constexpr int MAX_CAND = 1024;
+
+struct CamArgs {
+    float fx, fy, cx, cy;
+    int width, height;
+};
+
+struct View {
+    float R[9], t[3], c[3];  // world->camera rotation, translation, camera centre
+};
+
+__device__ __forceinline__ View load_view(const float* T) {
+    View V;
+    for (int i = 0; i < 3; ++i) {
+        for (int j = 0; j < 3; ++j) V.R[i * 3 + j] = T[i * 4 + j];
+        V.t[i] = T[i * 4 + 3];
+    }
+    // -R^T t, summed in the order of se3.inverse.
+    for (int i = 0; i < 3; ++i)
+        V.c[i] = -__fadd_rn(__fadd_rn(__fmul_rn(V.R[i], V.t[0]), __fmul_rn(V.R[3 + i], V.t[1])),
+                            __fmul_rn(V.R[6 + i], V.t[2]));
+    return V;
+}
+
+struct Frustum {
+    bool ok;
+    float u, v, dist;
+};
+
+// camera.in_frustum for one point, in the reference's operation order.
+__device__ __forceinline__ Frustum frustum(const View& V, const CamArgs& cam, const float* p,
+                                           float min_d, float max_d, const float* n,
+                                           float cos_limit) {
+    float q[3];
+    for (int i = 0; i < 3; ++i)
+        q[i] = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(V.R[i * 3], p[0]),
+                                             __fmul_rn(V.R[i * 3 + 1], p[1])),
+                                   __fmul_rn(V.R[i * 3 + 2], p[2])),
+                         V.t[i]);
+    const float z = q[2];
+    const float iz = __fdiv_rn(1.0f, fabsf(z) < 1e-9f ? 1e-9f : z);
+    Frustum f;
+    f.u = __fadd_rn(__fmul_rn(__fmul_rn(cam.fx, q[0]), iz), cam.cx);
+    f.v = __fadd_rn(__fmul_rn(__fmul_rn(cam.fy, q[1]), iz), cam.cy);
+    const float po0 = __fsub_rn(p[0], V.c[0]), po1 = __fsub_rn(p[1], V.c[1]),
+                po2 = __fsub_rn(p[2], V.c[2]);
+    f.dist = __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(po0, po0), __fmul_rn(po1, po1)),
+                                  __fmul_rn(po2, po2)));
+    const float vc = __fdiv_rn(
+        __fadd_rn(__fadd_rn(__fmul_rn(po0, n[0]), __fmul_rn(po1, n[1])), __fmul_rn(po2, n[2])),
+        fmaxf(f.dist, 1e-9f));
+    f.ok = z > 0.f && f.u >= 0.f && f.u < (float)cam.width && f.v >= 0.f &&
+           f.v < (float)cam.height && f.dist >= min_d && f.dist <= max_d && vc > cos_limit;
+    return f;
+}
+
+__global__ void scatter_current_kernel(const int* __restrict__ mp_idx, int F,
+                                       const int* __restrict__ ref_kf, int N,
+                                       bool* __restrict__ cur_mask, int* __restrict__ counts) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= F) return;
+    const int idx = mp_idx[i];
+    if (idx < 0) return;
+    cur_mask[idx] = true;
+    const int a = ref_kf[idx];
+    if (a >= 0 && a < N) atomicAdd(&counts[a], 1);
+}
+
+__global__ void __launch_bounds__(SCAN_THREADS) candidates_kernel(
+        const int* __restrict__ counts, int N, const int* __restrict__ n_kf,
+        const int* __restrict__ prev_rows, const bool* __restrict__ prev_ok,
+        const int* __restrict__ ref_kf, int K1, int n_anchor, int n_recent,
+        int* __restrict__ cand, bool* __restrict__ cand_ok) {
+    extern __shared__ int s_cnt[];
+    const int t = threadIdx.x;
+    for (int i = t; i < N; i += blockDim.x) s_cnt[i] = counts[i];
+    __syncthreads();
+    for (int i = t; i < N; i += blockDim.x) {
+        const int v = s_cnt[i];
+        int rank = 0;
+        for (int j = 0; j < N && rank < n_anchor; ++j) {
+            const int u = s_cnt[j];
+            rank += (u > v) | ((u == v) & (j < i));
+        }
+        if (rank < n_anchor) {
+            cand[rank] = i;
+            cand_ok[rank] = v > 0;
+        }
+    }
+    for (int k = t; k < K1; k += blockDim.x) {
+        cand[n_anchor + k] = prev_rows[k];
+        cand_ok[n_anchor + k] = prev_ok[k];
+    }
+    const int nk = *n_kf;
+    for (int k = t; k < n_recent; k += blockDim.x) {
+        const int r = nk - 1 - k;
+        cand[n_anchor + K1 + k] = max(r, 0);
+        cand_ok[n_anchor + K1 + k] = r >= 0;
+    }
+    if (t == 0) {
+        const int c = n_anchor + K1 + n_recent;
+        cand[c] = *ref_kf;
+        cand_ok[c] = true;
+        cand[c + 1] = 0;
+        cand_ok[c + 1] = true;
+    }
+}
+
+__global__ void __launch_bounds__(BLOCK) weights_kernel(
+        const int* __restrict__ cand, const bool* __restrict__ cand_ok, int N,
+        const int* __restrict__ kf_mp_idx, const bool* __restrict__ kf_fvalid,
+        const bool* __restrict__ kf_valid, int F, const bool* __restrict__ cur_mask,
+        int* __restrict__ w) {
+    __shared__ int red[BLOCK / 32];
+    const int ci = blockIdx.x, t = threadIdx.x;
+    const int c = min(max(cand[ci], 0), N - 1);  // a gather clamps its index
+    int s = 0;
+    if (cand_ok[ci] && kf_valid[c]) {
+        const int* idx = kf_mp_idx + (size_t)c * F;
+        const bool* fv = kf_fvalid + (size_t)c * F;
+        for (int f = t; f < F; f += BLOCK) {
+            const int i = idx[f];
+            s += (i >= 0 && fv[f] && cur_mask[i]) ? 1 : 0;
+        }
+    }
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+    if ((t & 31) == 0) red[t >> 5] = s;
+    __syncthreads();
+    if (t == 0) {
+        int total = 0;
+        for (int k = 0; k < BLOCK / 32; ++k) total += red[k];
+        w[ci] = total;
+    }
+}
+
+__global__ void __launch_bounds__(MAX_CAND) select_kernel(
+        const int* __restrict__ cand, const bool* __restrict__ cand_ok,
+        const int* __restrict__ w_in, int C, int K1, int* __restrict__ local_rows,
+        bool* __restrict__ local_ok, int* __restrict__ ref_new) {
+    __shared__ int s_key[MAX_CAND], s_w[MAX_CAND];
+    const int i = threadIdx.x;
+    if (i < C) s_key[i] = cand_ok[i] ? cand[i] : -1 - i;
+    __syncthreads();
+    if (i < C) {
+        bool dup = false;
+        for (int j = 0; j < i; ++j) dup |= s_key[j] == s_key[i];
+        s_w[i] = (dup || !cand_ok[i]) ? 0 : w_in[i];
+    }
+    __syncthreads();
+    if (i < C) {
+        const int v = s_w[i];
+        int rank = 0;
+        for (int j = 0; j < C; ++j) rank += (s_w[j] > v) | ((s_w[j] == v) & (j < i));
+        if (rank < K1) {
+            local_rows[rank] = cand[i];
+            local_ok[rank] = v > 0;
+        }
+        if (rank == 0) *ref_new = cand[i];
+    }
+}
+
+__global__ void __launch_bounds__(BLOCK) scatter_window_kernel(
+        const int* __restrict__ local_rows, const bool* __restrict__ local_ok,
+        const int* __restrict__ kf_mp_idx, const bool* __restrict__ kf_fvalid, int F,
+        bool* __restrict__ obs_mask) {
+    const int k = blockIdx.x;
+    if (!local_ok[k]) return;
+    const size_t base = (size_t)local_rows[k] * F;
+    for (int f = threadIdx.x; f < F; f += BLOCK) {
+        const int i = kf_mp_idx[base + f];
+        if (i >= 0 && kf_fvalid[base + f]) obs_mask[i] = true;
+    }
+}
+
+__global__ void __launch_bounds__(BLOCK) points_kernel(
+        const bool* __restrict__ obs_mask, const bool* __restrict__ mp_valid,
+        const bool* __restrict__ cur_mask, const float* __restrict__ pos,
+        const float* __restrict__ min_dist, const float* __restrict__ max_dist,
+        const float* __restrict__ normal, const float* __restrict__ T, int M, CamArgs cam,
+        bool* __restrict__ pmask) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= M) return;
+    bool m = obs_mask[i] && mp_valid[i] && !cur_mask[i];
+    if (m) {
+        const View V = load_view(T);
+        m = frustum(V, cam, pos + 3 * i, __fmul_rn(min_dist[i], 0.5f),
+                    __fmul_rn(max_dist[i], 2.0f), normal + 3 * i, -1.0f).ok;
+    }
+    pmask[i] = m;
+}
+
+// Inclusive block scan of one int per thread (blockDim.x == SCAN_THREADS).
+__device__ int block_inclusive_scan(int v, int* s_warp) {
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, v, o);
+        if (lane >= o) v += u;
+    }
+    if (lane == 31) s_warp[warp] = v;
+    __syncthreads();
+    if (warp == 0) {
+        int w = s_warp[lane];
+        for (int o = 1; o < 32; o <<= 1) {
+            const int u = __shfl_up_sync(0xffffffffu, w, o);
+            if (lane >= o) w += u;
+        }
+        s_warp[lane] = w;
+    }
+    __syncthreads();
+    const int r = v + (warp ? s_warp[warp - 1] : 0);
+    __syncthreads();
+    return r;
+}
+
+__global__ void __launch_bounds__(SCAN_THREADS) compact_kernel(
+        const bool* __restrict__ pmask, int M, int L, int* __restrict__ rows,
+        bool* __restrict__ rows_ok) {
+    __shared__ int s_warp[32];
+    __shared__ int s_total;
+    const int t = threadIdx.x;
+    const int chunk = (M + SCAN_THREADS - 1) / SCAN_THREADS;
+    const int hi = M - 1 - t * chunk;                 // this thread's rows, from the top
+    const int lo = max(hi - chunk + 1, 0);
+    const int n = hi >= 0 ? hi - lo + 1 : 0;
+    int n_true = 0;
+    for (int r = hi; r >= lo && n; --r) n_true += pmask[r];
+    const int incl = block_inclusive_scan(n_true, s_warp);
+    if (t == SCAN_THREADS - 1) s_total = incl;
+    __syncthreads();
+    const int total = s_total;
+    int pos_t = incl - n_true;
+    const int incl_f = block_inclusive_scan(n - n_true, s_warp);
+    int pos_f = total + incl_f - (n - n_true);
+    for (int r = hi; r >= lo && n; --r) {
+        if (pmask[r]) {
+            if (pos_t < L) {
+                rows[pos_t] = r;
+                rows_ok[pos_t] = true;
+            }
+            ++pos_t;
+        } else {
+            if (pos_f < L) {
+                rows[pos_f] = r;
+                rows_ok[pos_f] = false;
+            }
+            ++pos_f;
+        }
+    }
+}
+
+__global__ void __launch_bounds__(BLOCK) frustum_rows_kernel(
+        const int* __restrict__ rows, const bool* __restrict__ rows_ok, int L,
+        const float* __restrict__ pos, const float* __restrict__ min_dist,
+        const float* __restrict__ max_dist, const float* __restrict__ normal,
+        const float* __restrict__ T, CamArgs cam, float log_sf, int n_levels,
+        float2* __restrict__ uv, bool* __restrict__ visible, int* __restrict__ pred) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= L) return;
+    const int r = rows[i];
+    const View V = load_view(T);
+    const float maxd = max_dist[r];
+    const Frustum f = frustum(V, cam, pos + 3 * r, __fdiv_rn(min_dist[r], 1.2f),
+                              __fmul_rn(maxd, 1.2f), normal + 3 * r, 0.5f);
+    uv[i] = make_float2(f.u, f.v);
+    visible[i] = f.ok && rows_ok[i];
+    // PredictScale: ceil(log(maxd / d) / log(s) - 1e-3), clipped to the levels.
+    const float ratio = __fdiv_rn(fmaxf(maxd, 1e-6f), fmaxf(f.dist, 1e-6f));
+    const int lvl = (int)ceilf(__fsub_rn(__fdiv_rn(logf(ratio), log_sf), 1e-3f));
+    pred[i] = min(max(lvl, 0), n_levels - 1);
+}
+
+int blocks(int n) { return (n + BLOCK - 1) / BLOCK; }
+
+}  // namespace
+
+// (1) Tracked-point mask over [M] and anchor-keyframe counts over [N].
+C_ENTRY int local_scatter_current(const int* mp_idx, int F, const int* mp_ref_kf, int M, int N,
+                                  bool* cur_mask, int* counts, cudaStream_t stream) {
+    cudaMemsetAsync(cur_mask, 0, (size_t)M, stream);
+    cudaMemsetAsync(counts, 0, (size_t)N * sizeof(int), stream);
+    scatter_current_kernel<<<blocks(F), BLOCK, 0, stream>>>(mp_idx, F, mp_ref_kf, N, cur_mask,
+                                                            counts);
+    return (int)cudaGetLastError();
+}
+
+// (2) Candidate keyframe list (C = n_anchor + K1 + n_recent + 2) and its ok flags.
+C_ENTRY int local_candidates(const int* counts, int N, const int* n_kf, const int* prev_rows,
+                             const bool* prev_ok, const int* ref_kf, int K1, int n_anchor,
+                             int n_recent, int* cand, bool* cand_ok, cudaStream_t stream) {
+    const size_t shm = (size_t)N * sizeof(int);
+    if (shm > 48 * 1024) return (int)cudaErrorInvalidValue;
+    candidates_kernel<<<1, SCAN_THREADS, shm, stream>>>(counts, N, n_kf, prev_rows, prev_ok,
+                                                        ref_kf, K1, n_anchor, n_recent, cand,
+                                                        cand_ok);
+    return (int)cudaGetLastError();
+}
+
+// (3) Shared-point weight of each candidate.
+C_ENTRY int local_weights(const int* cand, const bool* cand_ok, int C, int N,
+                          const int* kf_mp_idx, const bool* kf_fvalid, const bool* kf_valid,
+                          int F, const bool* cur_mask, int* w, cudaStream_t stream) {
+    weights_kernel<<<C, BLOCK, 0, stream>>>(cand, cand_ok, N, kf_mp_idx, kf_fvalid, kf_valid, F,
+                                            cur_mask, w);
+    return (int)cudaGetLastError();
+}
+
+// (4) Dedupe, new reference keyframe, top-K1 local window (C <= 1024).
+C_ENTRY int local_select(const int* cand, const bool* cand_ok, const int* w, int C, int K1,
+                         int* local_rows, bool* local_ok, int* ref_new, cudaStream_t stream) {
+    if (C > MAX_CAND) return (int)cudaErrorInvalidValue;
+    select_kernel<<<1, MAX_CAND, 0, stream>>>(cand, cand_ok, w, C, K1, local_rows, local_ok,
+                                              ref_new);
+    return (int)cudaGetLastError();
+}
+
+// (5) Local-map point mask: observed by the window, valid, untracked, in the
+// wide frustum (distance band [min/2, 2 max], any viewing angle).
+C_ENTRY int local_points(const int* local_rows, const bool* local_ok, int K1,
+                         const int* kf_mp_idx, const bool* kf_fvalid, int F,
+                         const bool* mp_valid, const bool* cur_mask, const float* pos,
+                         const float* min_dist, const float* max_dist, const float* normal,
+                         const float* T, int M, float fx, float fy, float cx, float cy, int width,
+                         int height, bool* obs_mask, bool* pmask, cudaStream_t stream) {
+    cudaMemsetAsync(obs_mask, 0, (size_t)M, stream);
+    scatter_window_kernel<<<K1, BLOCK, 0, stream>>>(local_rows, local_ok, kf_mp_idx, kf_fvalid,
+                                                    F, obs_mask);
+    const CamArgs cam{fx, fy, cx, cy, width, height};
+    points_kernel<<<blocks(M), BLOCK, 0, stream>>>(obs_mask, mp_valid, cur_mask, pos, min_dist,
+                                                   max_dist, normal, T, M, cam, pmask);
+    return (int)cudaGetLastError();
+}
+
+// (6) Newest-first compaction of pmask [M] to L rows.
+C_ENTRY int local_compact(const bool* pmask, int M, int L, int* rows, bool* rows_ok,
+                          cudaStream_t stream) {
+    compact_kernel<<<1, SCAN_THREADS, 0, stream>>>(pmask, M, L, rows, rows_ok);
+    return (int)cudaGetLastError();
+}
+
+// (7) Matching frustum (distance band [min/1.2, 1.2 max], view cos > 0.5),
+// projection and predicted octave of the L compacted rows.
+C_ENTRY int local_frustum(const int* rows, const bool* rows_ok, int L, const float* pos,
+                          const float* min_dist, const float* max_dist, const float* normal,
+                          const float* T, float fx, float fy, float cx, float cy, int width,
+                          int height, float log_sf, int n_levels, float* uv, bool* visible,
+                          int* pred, cudaStream_t stream) {
+    const CamArgs cam{fx, fy, cx, cy, width, height};
+    frustum_rows_kernel<<<blocks(L), BLOCK, 0, stream>>>(rows, rows_ok, L, pos, min_dist,
+                                                         max_dist, normal, T, cam, log_sf,
+                                                         n_levels, reinterpret_cast<float2*>(uv),
+                                                         visible, pred);
+    return (int)cudaGetLastError();
+}

@@ -1,5 +1,5 @@
-"""Pinhole camera model (port of `corbslam_tpu/geometry/camera.py`, the part
-the front end needs; frustum tests and triangulation come with tracking).
+"""Pinhole camera model (port of `corbslam_tpu/geometry/camera.py`: projection,
+undistortion and the frustum test; triangulation comes with local mapping).
 
 `u` runs along columns (x), `v` along rows (y), origin at the top-left
 pixel centre. Operations keep the reference's order: `(u - cx) / fx * fx + cx`
@@ -11,6 +11,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from . import se3
 
 
 class Intrinsics(NamedTuple):
@@ -108,3 +110,37 @@ def in_image(cam: Intrinsics, uv: torch.Tensor, margin: float = 0.0) -> torch.Te
         & (uv[..., 1] >= margin)
         & (uv[..., 1] < cam.height - margin)
     )
+
+
+def world_to_cam(Tcw: torch.Tensor, p_world: torch.Tensor) -> torch.Tensor:
+    return se3.transform(Tcw, p_world)
+
+
+def cam_to_world(Tcw: torch.Tensor, p_cam: torch.Tensor) -> torch.Tensor:
+    return se3.transform(se3.inverse(Tcw), p_cam)
+
+
+def norm3(v: torch.Tensor) -> torch.Tensor:
+    """Euclidean length of [..., 3] as sqrt((x*x + y*y) + z*z)."""
+    return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1] + v[..., 2] * v[..., 2])
+
+
+def in_frustum(cam: Intrinsics, Tcw: torch.Tensor, p_world: torch.Tensor,
+               min_dist: torch.Tensor, max_dist: torch.Tensor, normal: torch.Tensor,
+               view_cos_limit: float = 0.5):
+    """Batched `Frame::isInFrustum`: positive depth, inside the image, inside
+    the scale-distance band, viewing angle within the limit of the point's
+    mean normal. Returns (visible [...], uv [..., 2], inv_z [...],
+    view_cos [...], dist [...]). The local-map kernel (`csrc/local_map.cu`)
+    evaluates the same operations in the same order."""
+    p_cam = world_to_cam(Tcw, p_world)
+    z = p_cam[..., 2]
+    uv = project(cam, p_cam)
+    po = p_world - se3.translation(se3.inverse(Tcw))
+    dist = norm3(po)
+    view_cos = (po[..., 0] * normal[..., 0] + po[..., 1] * normal[..., 1]
+                + po[..., 2] * normal[..., 2]) / dist.clamp_min(1e-9)
+    ok = ((z > 0.0) & in_image(cam, uv) & (dist >= min_dist) & (dist <= max_dist)
+          & (view_cos > view_cos_limit))
+    inv_z = 1.0 / z.clamp_min(1e-9)
+    return ok, uv, inv_z, view_cos, dist

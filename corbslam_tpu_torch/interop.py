@@ -11,6 +11,12 @@ reused by every frame.
 `features_to_numpy` gives any NamedTuple of tensors (the port's `Features`,
 `FrameData`) back as a dict of numpy arrays for comparison with the JAX
 package's outputs.
+
+`map_from_numpy` / `map_to_numpy` and `frame_from_numpy` carry the tracking
+state across: every `KeyFrames` and `MapPoints` field plus the `n_kf` /
+`n_mp` cursors, and every `FrameData` field. The "from" functions read any
+object with the same attribute names whose leaves `np.asarray` accepts, so a
+map or frame built by the JAX package feeds the port directly.
 """
 
 from __future__ import annotations
@@ -161,3 +167,38 @@ def features_to_numpy(nt) -> dict:
         k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v)
         for k, v in nt._asdict().items()
     }
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def map_from_numpy(m, device="cpu"):
+    """A MapState on `device` from `map_to_numpy`'s dict or from any map with
+    the port's field names (`m.kf.<field>`, `m.mp.<field>`, `m.n_kf`,
+    `m.n_mp`), e.g. the JAX one."""
+    from .mapstate import mapstate as ms  # ops.orb imports this module
+
+    if isinstance(m, dict):
+        kf_d, mp_d, n_kf, n_mp = m["kf"], m["mp"], m["n_kf"], m["n_mp"]
+    else:
+        kf_d = {f: getattr(m.kf, f) for f in ms.KeyFrames._fields}
+        mp_d = {f: getattr(m.mp, f) for f in ms.MapPoints._fields}
+        n_kf, n_mp = m.n_kf, m.n_mp
+    kf = ms.KeyFrames(*(_tensor(kf_d[f], device) for f in ms.KeyFrames._fields))
+    mp = ms.MapPoints(*(_tensor(mp_d[f], device) for f in ms.MapPoints._fields))
+    cursor = lambda v: torch.tensor(int(np.asarray(v)), dtype=torch.int32, device=device)  # noqa: E731
+    return ms.MapState(kf, mp, cursor(n_kf), cursor(n_mp))
+
+
+def map_to_numpy(m) -> dict:
+    """{"kf": {field: array}, "mp": {field: array}, "n_kf": int, "n_mp": int}."""
+    return dict(kf=features_to_numpy(m.kf), mp=features_to_numpy(m.mp),
+                n_kf=int(m.n_kf), n_mp=int(m.n_mp))
+
+
+def frame_from_numpy(fd, device="cpu"):
+    """A FrameData on `device` from any frame with its field names."""
+    from .frontend.frame import FrameData  # ops.orb imports this module
+
+    return FrameData(*(_tensor(getattr(fd, f), device) for f in FrameData._fields))

@@ -1,4 +1,5 @@
-"""Synthetic imagery (port of `corbslam_tpu/io/synthetic.random_texture`).
+"""Synthetic imagery (port of `corbslam_tpu/io/synthetic.py`: `random_texture`,
+`bilinear_sample`, `PlanarWorld`).
 
 `jax.image.resize(..., "bilinear")` upsampling of each noise octave is a
 half-pixel triangle filter whose edge taps are renormalized, which for
@@ -9,7 +10,9 @@ the port applies it as `Ry @ layer @ Rx^T` in f32 numpy.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from ..geometry import se3
 from ..ops.pyramid import _resize_matrix
 
 
@@ -25,3 +28,66 @@ def random_texture(h: int, w: int, seed: int = 0, octaves: int = 4) -> np.ndarra
     img -= img.min()
     img /= max(img.max(), 1e-6)
     return (img * 255.0).astype(np.float32)
+
+
+def bilinear_sample(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """Bilinear interpolation with clamping. img [H, W]; ys/xs any shape."""
+    h, w = img.shape
+    x0 = torch.floor(xs)
+    y0 = torch.floor(ys)
+    dx = xs - x0
+    dy = ys - y0
+    x0 = x0.to(torch.int64).clamp(0, w - 1)
+    y0 = y0.to(torch.int64).clamp(0, h - 1)
+    x1 = (x0 + 1).clamp(0, w - 1)
+    y1 = (y0 + 1).clamp(0, h - 1)
+    flat = img.reshape(-1)
+    return (flat[y0 * w + x0] * (1 - dy) * (1 - dx) + flat[y0 * w + x1] * (1 - dy) * dx
+            + flat[y1 * w + x0] * dy * (1 - dx) + flat[y1 * w + x1] * dy * dx)
+
+
+class PlanarWorld:
+    """A textured plane z = plane_dist (world frame) rendered from any pose:
+    each pixel's ray is intersected with the plane and the texture is read
+    bilinearly at (x, y) * texture_scale + size / 2. Stereo pairs and
+    sequences are exactly consistent, with known poses. Renders on `device`
+    in f32; the texture is `random_texture(texture_size, texture_size, seed)`.
+    """
+
+    def __init__(self, cam, texture_size: int = 4096, plane_dist: float = 12.0,
+                 texture_scale: float = 50.0, seed: int = 0, device="cpu"):
+        self.cam = cam
+        self.plane_dist = float(plane_dist)
+        self.texture_scale = float(texture_scale)
+        self.tex_size = texture_size
+        self.device = torch.device(device)
+        self.tex = torch.from_numpy(random_texture(texture_size, texture_size, seed)).to(self.device)
+        self.Kinv = torch.linalg.inv(cam.K).to(self.device)
+
+    def render(self, Tcw: torch.Tensor) -> torch.Tensor:
+        """The view from pose Tcw (world -> camera): [H, W] f32; rays that miss
+        the plane render as 128."""
+        cam = self.cam
+        Twc = se3.inverse(Tcw.to(self.device, torch.float32))
+        R, t = se3.rotation(Twc), se3.translation(Twc)
+        h, w = cam.height, cam.width
+        yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=self.device),
+                                torch.arange(w, dtype=torch.float32, device=self.device),
+                                indexing="ij")
+        pix = torch.stack([xx, yy, torch.ones_like(xx)])
+        rays = torch.einsum("ij,jhw->ihw", self.Kinv, pix)
+        dirs = torch.einsum("ij,jhw->ihw", R, rays)
+        denom = dirs[2]
+        lam = (self.plane_dist - t[2]) / torch.where(denom.abs() < 1e-6,
+                                                     torch.full_like(denom, 1e-6), denom)
+        c = self.tex_size / 2.0
+        tx = (t[0] + lam * dirs[0]) * self.texture_scale + c
+        ty = (t[1] + lam * dirs[1]) * self.texture_scale + c
+        img = bilinear_sample(self.tex, ty, tx)
+        return torch.where(lam > 0, img, torch.full_like(img, 128.0))
+
+    def render_stereo(self, Tcw: torch.Tensor):
+        """(left, right); the right camera sits `baseline` along +x."""
+        T_rl = se3.from_Rt(torch.eye(3), torch.tensor([-self.cam.baseline, 0.0, 0.0]))
+        Tcw = Tcw.to(torch.float32).cpu()
+        return self.render(Tcw), self.render(se3.compose(T_rl, Tcw))

@@ -1,10 +1,12 @@
 """Binary (ORB/BRIEF) descriptor ops: packing, popcount, batched Hamming.
 
 Port of `corbslam_tpu/ops/descriptors.py`. Descriptors are uint8 [..., 32]
-(256 bits, LSB-first per byte). These are the plain PyTorch forms; the stereo
-matcher's masked best match runs inside the `stereo_match` kernel
-(`csrc/stereo_match.cu`) as XOR + popcount, without storing the [N, M]
-matrix.
+(256 bits, LSB-first per byte). These are the plain PyTorch forms; on the
+card the masked best match runs as XOR + popcount without storing the
+[N, M] matrix, inside the `stereo_match` kernel (`csrc/stereo_match.cu`) for
+stereo and inside the `match_masked` kernel (`csrc/match_masked.cu`, wrapped
+by `matching.matcher.match_select`, since its mask is the matcher's) for
+the searches of tracking.
 """
 
 from __future__ import annotations

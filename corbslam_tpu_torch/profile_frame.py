@@ -1,14 +1,22 @@
 """Where a stereo frame's time goes on the card.
 
-    python -m corbslam_tpu_torch.profile_frame [--frames 10] [--trace PATH]
+    python -m corbslam_tpu_torch.profile_frame [--frames 10] [--trace PATH] [--track]
 
-Runs `build_frame_stereo` at the flagship geometry (1241x376, 2048 features,
-8 levels) on the entry input, warms up, then traces `--frames` frames with
-torch.profiler (CPU + CUDA activities) and prints one JSON object: the wall
-time per frame, the device time per frame of each kernel (the port's
-hand-written kernels and PyTorch's own), the launches per frame, and the
-device's idle share of the wall time. `--trace PATH` also writes the chrome
-trace. Needs a CUDA device.
+Without `--track`: runs `build_frame_stereo` at the flagship geometry
+(1241x376, 2048 features, 8 levels) on the entry input, warms up, then
+traces `--frames` frames.
+
+With `--track`: the tracked frame of `entry.track_entry()` (the bench's
+camera, KITTI_STEREO at full capacity, its PlanarWorld on the card): frame
+0 seeds the map, frames 1..5 warm up (a keyframe after frame 5), then
+`--frames` further frames go through `track_frame_stereo` under the trace,
+chained, with no keyframe inserted inside the traced window.
+
+Either way the trace is torch.profiler's (CPU + CUDA activities), and one
+JSON object is printed: the wall time per frame, the device time per frame
+of each kernel (the port's hand-written kernels and PyTorch's own), the
+launches per frame, and the device's idle share of the wall time. `--trace
+PATH` also writes the chrome trace. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -21,26 +29,52 @@ from collections import defaultdict
 
 import torch
 
-from .entry import entry
+from . import entry as entry_mod
+
+WARM_FRAMES = 5
+
+
+def tracked_frames(n: int):
+    """A callable that tracks the next bench frame on the card, after the
+    seed and WARM_FRAMES warm-up frames; `n` frames are pre-rendered."""
+    te = entry_mod.track_entry("cuda")
+    imgs = [te.world.render_stereo(entry_mod.gt_pose(i)) for i in range(WARM_FRAMES + n + 1)]
+    st = entry_mod.seed_map(te, *imgs[0])
+    for i in range(1, WARM_FRAMES + 1):
+        st, _ = entry_mod.track_step(te, st, *imgs[i])
+    st = entry_mod.add_keyframe(te, st, WARM_FRAMES)
+    nxt = iter(range(WARM_FRAMES + 1, WARM_FRAMES + n + 1))
+
+    def step():
+        nonlocal st
+        st, _ = entry_mod.track_step(te, st, *imgs[next(nxt)])
+
+    return step
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--trace", help="write the chrome trace to this file")
+    ap.add_argument("--track", action="store_true",
+                    help="profile the tracked frame (track_frame_stereo) instead of the front end")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame: needs a CUDA device")
-    fwd, imgs = entry("cuda")
-    for _ in range(5):
-        fwd(*imgs)
+    if args.track:
+        step = tracked_frames(args.frames)
+    else:
+        fwd, imgs = entry_mod.entry("cuda")
+        step = lambda: fwd(*imgs)  # noqa: E731
+        for _ in range(5):
+            step()
     torch.cuda.synchronize()
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.frames):
-            fwd(*imgs)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.frames
     per_kernel = defaultdict(lambda: [0.0, 0])
@@ -51,7 +85,8 @@ def main() -> None:
     device_ms = sum(v[0] for v in per_kernel.values())
     rows = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
     out = dict(
-        device=torch.cuda.get_device_name(0), frames=args.frames,
+        device=torch.cuda.get_device_name(0), mode="track" if args.track else "front_end",
+        frames=args.frames,
         wall_ms_per_frame=wall_ms, device_ms_per_frame=device_ms,
         device_idle_share=max(0.0, 1.0 - device_ms / wall_ms) if wall_ms else None,
         device_launches_per_frame=sum(v[1] for v in per_kernel.values()) / args.frames,

@@ -5,7 +5,9 @@ CUDA kernels as the ctypes bindings declare it.
 Everything compared here is exact, except `random_texture`: the port
 upsamples each noise octave as two f32 matrix products where the reference
 runs jax.image.resize, so values differ by float rounding; they are held
-within 5e-3 on the 0..255 scale (2e-5 relative).
+within 5e-3 on the 0..255 scale (2e-5 relative). `PlanarWorld.render`
+samples that texture along rays computed in f32 in another summation order,
+and is held to the same 5e-3.
 """
 
 import dataclasses
@@ -19,15 +21,19 @@ import pytest
 import torch
 
 import corbslam_tpu.config as jconfig
+from corbslam_tpu.geometry import camera as jcamera
+from corbslam_tpu.geometry import se3 as jse3
 from corbslam_tpu.io import synthetic as jsynthetic
 from corbslam_tpu.ops import brief as jbrief
 from corbslam_tpu.ops import fast as jfast
 from corbslam_tpu.ops import pyramid as jpyramid
 from corbslam_tpu_torch import config, entry, interop, kernels
-from corbslam_tpu_torch.frontend import frame
+from corbslam_tpu_torch.frontend import frame, track_ops
 from corbslam_tpu_torch.geometry import camera
 from corbslam_tpu_torch.io import synthetic
+from corbslam_tpu_torch.matching import matcher
 from corbslam_tpu_torch.ops import brief, fast, orb, pyramid
+from corbslam_tpu_torch.optim import pose_opt
 
 torch.set_num_threads(2)
 
@@ -52,7 +58,9 @@ def test_import_leaves_out_jax_and_the_reference():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout) == len(MODULES) >= 14
+    assert int(out.stdout) == len(MODULES) >= 24
+    for sub in ("mapstate", "matching", "optim"):
+        assert f"corbslam_tpu_torch.{sub}" in MODULES
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -67,7 +75,7 @@ def _tiny_inputs():
     return img, camera.Intrinsics.create(100, 100, 48, 32, bf=10.0, width=96, height=64)
 
 
-@pytest.mark.parametrize("call", ["extract", "stereo", "mono", "entry"])
+@pytest.mark.parametrize("call", ["extract", "stereo", "mono", "entry", "track_entry"])
 def test_entry_points_default_to_cuda_and_raise_without_it(call):
     assert not torch.cuda.is_available()
     img, cam = _tiny_inputs()
@@ -79,6 +87,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(call):
             frame.build_frame_stereo(img, img, cam, cfg)
         elif call == "mono":
             frame.build_frame_mono(img, cam, cfg)
+        elif call == "track_entry":
+            entry.track_entry()
         else:
             fwd, imgs = entry.entry()
             fwd(*imgs)
@@ -117,6 +127,39 @@ def test_config_tree_equals_the_reference():
     for name in ("KITTI_STEREO", "TUM_RGBD"):
         assert (dataclasses.asdict(getattr(config, name))
                 == dataclasses.asdict(getattr(jconfig, name)))
+
+
+@pytest.mark.parametrize("name", ["CapacityConfig", "MatcherConfig", "TrackingConfig"])
+def test_tracking_configs_equal_the_reference(name):
+    ours, ref = getattr(config, name)(), getattr(jconfig, name)()
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert [f.name for f in dataclasses.fields(ours)] == [f.name for f in dataclasses.fields(ref)]
+
+
+def test_planar_world_render_within_5e3_of_the_reference():
+    kw = dict(fx=320.0, fy=320.0, cx=160.0, cy=120.0, bf=160.0, width=320, height=240)
+    ref_w = jsynthetic.PlanarWorld(jcamera.Intrinsics.create(**kw), texture_size=512,
+                                   plane_dist=10.0, texture_scale=40.0, seed=3)
+    ours_w = synthetic.PlanarWorld(camera.Intrinsics.create(**kw), texture_size=512,
+                                   plane_dist=10.0, texture_scale=40.0, seed=3)
+    T = jse3.exp(np.asarray([-0.3, 0.1, -0.2, 0.35, 0.05, 0.01], np.float32))
+    ref = [np.asarray(a) for a in ref_w.render_stereo(T)]
+    ours = ours_w.render_stereo(torch.from_numpy(np.array(T)))
+    for a, b in zip(ours, ref):
+        assert a.dtype == torch.float32 and tuple(a.shape) == (240, 320)
+        np.testing.assert_allclose(a.numpy(), b, rtol=0, atol=5e-3)
+
+
+def test_bench_trajectory_equals_the_reference():
+    """entry.gt_pose is bench.py's gt_pose (tilt 0.35 rad, 0.3 m / frame),
+    within 2e-5: at a 0.002 rad yaw step se3.exp's B = (1 - cos t) / t^2
+    cancels in f32, so the two packages' cos roundings move t by ~1e-5 m."""
+    tilt = jse3.exp(np.asarray([0, 0, 0, 0.35, 0, 0], np.float32))
+    for i in (0, 1, 7, 20):
+        xi = np.asarray([-(i * 0.3), 0.0, -(i * 0.05), 0.0, i * 0.002, 0.0], np.float32)
+        ref = np.asarray(jse3.compose(tilt, jse3.exp(xi)))
+        np.testing.assert_allclose(entry.gt_pose(i).numpy(), ref, rtol=0, atol=2e-5)
+    assert entry.center_error(entry.gt_pose(3) @ torch.linalg.inv(entry.gt_pose(0)), 3) < 1e-5
 
 
 @pytest.mark.parametrize("h,w,seed", [(376, 1241, 0), (97, 131, 5)])
@@ -192,7 +235,8 @@ def test_chip_smoke_fails_without_cuda():
     assert '"ok": true' not in out.stdout
 
 
-@pytest.mark.parametrize("wrapper", ["pyramid", "fast", "describe", "stereo"])
+@pytest.mark.parametrize("wrapper", ["pyramid", "fast", "describe", "stereo", "match", "pose",
+                                     "local_map"])
 def test_wrappers_refuse_devices_other_than_cpu_and_cuda(wrapper):
     """A wrapper takes its plain version only for a CPU tensor; a tensor on
     another device is refused, never silently moved."""
@@ -209,6 +253,15 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda(wrapper):
             fast.detect_pyramid(pyr, prm)
         elif wrapper == "describe":
             brief.describe(pyr, None, prm)
+        elif wrapper == "match":
+            d = torch.empty(8, 32, dtype=torch.uint8, device="meta")
+            matcher.match_select(d, d, meta, meta, 50)
+        elif wrapper == "pose":
+            pose_opt.optimize_pose(None, meta, torch.empty(8, 3, device="meta"), None, None, None,
+                                   None)
+        elif wrapper == "local_map":
+            track_ops.local_map_window(None, None, torch.empty(8, dtype=torch.int32, device="meta"),
+                                       None, None, None, meta, None)
         else:
             f = orb.Features(*(torch.empty(64, 2, device="meta") for _ in range(7)))
             stereo.stereo_match(f, f, prm.scales, 1.0)

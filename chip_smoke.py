@@ -43,6 +43,7 @@ Without CUDA it exits non-zero before printing anything of a result.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -59,16 +60,22 @@ sys.path.insert(0, ROOT)
 
 from corbslam_tpu_torch import kernels  # noqa: E402
 from corbslam_tpu_torch.entry import (  # noqa: E402
-    CAM, CFG, TrackState, add_keyframe, center_error, entry, gt_pose, seed_map, stereo_pair,
-    track_entry, track_step)
+    BENCH_FRAMES, BENCH_WARM, BENCH_WINDOW, CAM, CFG, TrackState, add_keyframe, bench_config,
+    center_error, entry, gt_pose, run_bench_schedule, seed_map, stereo_pair, track_entry,
+    track_step, tracker_entry)
 from corbslam_tpu_torch.frontend import frame as frame_mod  # noqa: E402
 from corbslam_tpu_torch.frontend import track_ops  # noqa: E402
+from corbslam_tpu_torch.frontend.tracking import StereoTracker  # noqa: E402
+from corbslam_tpu_torch.frontend.tracking import TrackState as TrackerState  # noqa: E402
 from corbslam_tpu_torch.geometry import se3  # noqa: E402
+from corbslam_tpu_torch.io import trajectory  # noqa: E402
+from corbslam_tpu_torch.mapping import local_mapping  # noqa: E402
+from corbslam_tpu_torch.mapstate import covisibility as covis  # noqa: E402
 from corbslam_tpu_torch.mapstate import mapstate as ms  # noqa: E402
 from corbslam_tpu_torch.matching import matcher  # noqa: E402
 from corbslam_tpu_torch.ops import brief, fast, orb, pyramid, stereo  # noqa: E402
 from corbslam_tpu_torch.ops.orb import Features  # noqa: E402
-from corbslam_tpu_torch.optim import pose_opt, reproj  # noqa: E402
+from corbslam_tpu_torch.optim import ba_dense, pose_opt, reproj  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and f32 rate outside the
 # tensor cores; every kernel here runs on the CUDA cores.
@@ -84,9 +91,13 @@ REPLACES = {
     "match_masked": "corbslam_tpu/matching/matcher.py:75",
     "pose_opt": "corbslam_tpu/optim/pose_opt.py:60",
     "local_map": "corbslam_tpu/frontend/track_ops.py:220",
+    "covisibility": "corbslam_tpu/mapstate/covisibility.py:145",
+    "ba_dense": "corbslam_tpu/optim/ba_dense.py:434",
 }
 SOURCES = {k: f"corbslam_tpu_torch/csrc/{k}.cu" for k in REPLACES}
+SOURCES["covisibility"] = "corbslam_tpu_torch/csrc/local_map.cu"  # K7's mapping-stage launches
 FRONT_END_KERNELS = ("pyramid", "fast_cells", "orb_describe", "stereo_match")
+TRACKING_KERNELS = FRONT_END_KERNELS + ("match_masked", "pose_opt", "local_map")
 REPORT = os.path.join(ROOT, "chiprun_out", "chip_smoke_report.json")
 
 
@@ -505,8 +516,8 @@ def run_tracking_path(te, dev) -> dict:
     for name, t in [("mp.pos", st.m.mp.pos), ("mp.normal", st.m.mp.normal),
                     ("kf.Tcw", st.m.kf.Tcw)]:
         require(bool(torch.isfinite(t).all()), f"non-finite map field {name}")
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} was not launched on the tracking path")
+    for name in TRACKING_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the tracking path")
     require(all(r["ok"] for r in rows), f"a frame was not ok: {[r['ok'] for r in rows]}")
     require(min(r["n_local"] for r in rows) >= 1000,
             f"n_local below 1000: {[r['n_local'] for r in rows]}")
@@ -708,7 +719,7 @@ def check_tracking_kernels(te, st: TrackState, img_l, img_r, timed: bool = True)
     cand_read = torch.unique(win.cand[win.cand_ok & m.kf.valid[win.cand.long()]])
     n_contrib = int(((m.kf.mp_idx[cand_read.long()] >= 0) & m.kf.fvalid[cand_read.long()]).sum())
     n_local = int(win.local_ok.sum())
-    tested = track_ops.covis.local_map_mask(m, win.local_rows, win.local_ok) & ~win.cur_mask
+    tested = track_ops.covis.local_map_mask_plain(m, win.local_rows, win.local_ok) & ~win.cur_mask
     n_tests = int(tested.sum())
     geo = tested.clone()
     geo[win.rows.long()] = True  # points whose pos / normal / distances are read, once each
@@ -760,6 +771,407 @@ def check_tracking_kernels(te, st: TrackState, img_l, img_r, timed: bool = True)
     return rows, info
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the tracker on the flagship schedule (StereoTracker + local mapping)
+# ---------------------------------------------------------------------------
+
+# The JAX reference's aligned whole-trajectory ATE on this schedule (on the
+# CPU, JAX 0.9.0; the script is in PERF.md); the port must stay within 2x.
+JAX_SCHEDULE_ATE_M = 0.0213
+CPU_PREFIX = 8  # frames 1..7 (with the 6 forced keyframes) again on the CPU plain path
+TRACKER_COUNTERS = ("pyramid", "fast_cells", "orb_describe", "stereo_match", "match_masked",
+                    "pose_opt", "local_map", "covisibility", "ba_dense")
+
+
+def aligned_ate(traj) -> float:
+    """bench.py's window ATE: camera centres of the Twc's aligned (rigid) to
+    the ground truth's."""
+    est = np.asarray([np.linalg.inv(np.asarray(T, np.float64)) for _, T in traj])
+    gtw = np.asarray([np.linalg.inv(gt_pose(i).numpy().astype(np.float64))
+                      for i in range(len(est))])
+    return trajectory.ate_rmse(est, gtw, align=True)
+
+
+def map_finite(m) -> list:
+    """Names of float map fields holding a non-finite value."""
+    return [f"{part}.{name}" for part in ("kf", "mp")
+            for name, t in getattr(m, part)._asdict().items()
+            if t.is_floating_point() and not bool(torch.isfinite(t).all())]
+
+
+def newest_keyframe(m) -> int:
+    """The newest valid keyframe row (a culled row observes nothing)."""
+    return int(torch.nonzero(m.kf.valid).max())
+
+
+def run_tracker_phase() -> dict:
+    """The flagship schedule (entry.run_bench_schedule) on the card: 78
+    frames rendered on the card first, all counters reset just before; each
+    measured frame's process_stereo wall time (its mapping stages included)
+    and each window's closing flush. Keeps the first local-BA problem."""
+    tracker, te = tracker_entry("cuda")
+    imgs = [te.world.render_stereo(gt_pose(i)) for i in range(BENCH_FRAMES)]
+    torch.cuda.synchronize()
+    kept = {}
+    build = tracker._stage_local_ba_build
+
+    def build_and_keep(kf_row, st):
+        build(kf_row, st)
+        if not kept:
+            kept.update(kf_row=kf_row, prob=st["prob"], sel=st["sel"])
+
+    tracker._stage_local_ba_build = build_and_keep
+    times, flushes = {}, []
+
+    def step(i, fn):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        if i is None:
+            flushes.append(dt)
+        else:
+            times[i] = dt
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    run_bench_schedule(tracker, imgs, step=step)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    del tracker._stage_local_ba_build
+    states = [s.name for s in tracker.frame_states]
+    require(len(states) == BENCH_FRAMES and all(s == "OK" for s in states),
+            f"tracker: frame states {states}")
+    for name in TRACKER_COUNTERS:
+        require(launches[name] > 0, f"kernel {name} was not launched by the tracker")
+    bad = map_finite(tracker.map)
+    require(not bad, f"tracker: non-finite map fields {bad}")
+    ate = aligned_ate(tracker.trajectory)
+    require(ate <= 2 * JAX_SCHEDULE_ATE_M,
+            f"tracker: ATE {ate:.4f} m > 2 x the JAX reference's {JAX_SCHEDULE_ATE_M} m")
+    require("prob" in kept, "tracker: no local BA was built")
+    # bench.py's per-frame latency: a pair's two calls amortized over its frames.
+    meas = [times[i] for i in sorted(times)]
+    pairs = [(meas[k] + meas[k + 1]) / 2 for k in range(0, len(meas) - 1, 2)]
+    amortized = [v for v in pairs for _ in (0, 1)]
+    windows = [BENCH_WINDOW / ((sum(meas[w * BENCH_WINDOW:(w + 1) * BENCH_WINDOW]) + flushes[w])
+                               / 1e3) for w in range(len(flushes))]
+    return dict(
+        tracker=tracker, imgs=imgs, kept=kept, frame_ms=meas, flush_ms=flushes,
+        frame_ms_p50=float(np.percentile(amortized, 50)),
+        frame_ms_p90=float(np.percentile(amortized, 90)), frame_ms_max=float(max(amortized)),
+        call_ms_max=float(max(meas)), fps_windows=windows, fps=float(max(windows)),
+        wall_s=wall_s, launches=launches, keyframes=tracker.stats.n_keyframes,
+        keyframe_rows=int(tracker.map.n_kf), valid_keyframes=int(tracker.map.kf.valid.sum()),
+        valid_points=int(tracker.map.mp.valid.sum()), allocated_points=int(tracker.map.n_mp),
+        stages=dict(tracker.stats.stages), ate_m=ate, states=states)
+
+
+def tracker_to(src: StereoTracker, device) -> StereoTracker:
+    """An independent copy of an idle tracker (nothing in flight, no stage
+    queued) on `device`."""
+    if src._pending or src._pair_buf or src._stage_q:
+        raise ValueError("tracker_to: the tracker has work in flight")
+    dst = StereoTracker(src.cam, src.cfg, client=src.client, device=device)
+    for name, v in vars(src).items():
+        if name == "device":
+            continue
+        if isinstance(v, ms.MapState):
+            v = ms.clone(ms.MapState(ms.KeyFrames(*(t.to(device) for t in v.kf)),
+                                     ms.MapPoints(*(t.to(device) for t in v.mp)),
+                                     v.n_kf.to(device), v.n_mp.to(device)))
+        elif isinstance(v, frame_mod.FrameData):
+            v = frame_mod.FrameData(*(t.to(device, copy=True) for t in v))
+        elif isinstance(v, torch.Tensor):
+            v = v.to(device, copy=True)
+        elif isinstance(v, (list, dict)) or dataclasses.is_dataclass(v):
+            v = copy.deepcopy(v)
+        setattr(dst, name, v)
+    return dst
+
+
+def compare_tracker_with_cpu(imgs) -> dict:
+    """Frames 1..CPU_PREFIX-1 of the schedule (the 6 forced keyframes and
+    their mapping stages, local-BA writebacks included, run at frame 6) by a
+    fresh tracker on the card and by its copy on the CPU plain path, both
+    from the card's frame 0 (the first keyframe: features built on the card,
+    as the tracking phase's CPU check starts from the card's seeded map):
+    per-frame states and keyframe schedule exact, n_local within 1 %, camera
+    centres within 1e-3 m."""
+    g = StereoTracker(CAM, bench_config(), device="cuda")
+    g.process_stereo(*imgs[0], 0.0)
+    c = tracker_to(g, "cpu")
+    run_bench_schedule(g, imgs[:CPU_PREFIX], stop=CPU_PREFIX, start=1)
+    run_bench_schedule(c, [(l.cpu(), r.cpu()) for l, r in imgs[:CPU_PREFIX]], stop=CPU_PREFIX,
+                       start=1)
+    sg, sc = [s.name for s in g.frame_states], [s.name for s in c.frame_states]
+    n = int(g.map.n_kf)
+    lg, lc = np.asarray(g.stats.inliers_history), np.asarray(c.stats.inliers_history)
+    d = [center_distance(torch.from_numpy(a), torch.from_numpy(b))
+         for (_, a), (_, b) in zip(g.trajectory, c.trajectory)]
+    out = dict(frames=CPU_PREFIX, states=sg, keyframes=n, stages=dict(c.stats.stages),
+               n_local_card=lg.tolist(), n_local_cpu=lc.tolist(), center_diff_m=d,
+               map_pos_diff_m=float((g.map.mp.pos.cpu() - c.map.mp.pos).abs().max()),
+               kf_pose_diff=float((g.map.kf.Tcw.cpu() - c.map.kf.Tcw).abs().max()))
+    print(f"tracker vs CPU plain path (before the checks): {out}", flush=True)
+    require(sg == sc, f"tracker prefix: states card {sg} vs CPU {sc}")
+    require(n == int(c.map.n_kf) and torch.equal(g.map.kf.frame_id[:n].cpu(), c.map.kf.frame_id[:n])
+            and torch.equal(g.map.kf.valid.cpu(), c.map.kf.valid),
+            "tracker prefix: keyframe schedule differs from the CPU plain path")
+    require(c.stats.stages["ba_b"] >= 1, "tracker prefix: no local-BA writeback ran")
+    require(lg.shape == lc.shape and bool((np.abs(lg - lc) <= 0.01 * lc).all()),
+            f"tracker prefix: n_local card {lg.tolist()} vs CPU {lc.tolist()}")
+    require(max(d) <= 1e-3, f"tracker prefix: camera centres {max(d):.2e} m apart > 1e-3 m")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: K8 and K7's mapping launches against their plain versions
+# ---------------------------------------------------------------------------
+
+def ba_errors(k, p, cam, pb) -> dict:
+    """K8 against the plain version: pose and point differences, cost
+    relative difference, and inlier flips, allowed only where the final chi2
+    lies within 1e-3 (relative) of its gate."""
+    Tk, Tp = k.Tcw, p.Tcw
+    dt = float((Tk[:, :3, 3] - Tp[:, :3, 3]).abs().max())
+    drot = float((Tk[:, :3, :3] @ Tp[:, :3, :3].transpose(1, 2)
+                  - torch.eye(3, device=Tk.device)).abs().max())
+    dx = (k.X - p.X).abs().max(dim=1).values
+    c2 = ba_dense._chi2(ba_dense._linearize(cam, pb._replace(Tcw=p.Tcw, X=p.X)))
+    d2 = reproj.chi2_threshold(pb.obs_stereo)
+    flips = k.inlier != p.inlier
+    return dict(t_max_abs=dt, rot=drot, x_max_abs=float(dx.max()),
+                x_frac_1mm=float((dx <= 1e-3).float().mean()),
+                cost_rel=abs(float(k.cost) - float(p.cost)) / max(abs(float(p.cost)), 1e-12),
+                flips=int(flips.sum()),
+                flips_off_gate=int((flips & ((c2 - d2).abs() > 1e-3 * d2)).sum()),
+                trace_kernel=k.trace.tolist(), trace_plain=p.trace.tolist(),
+                inliers=int(k.inlier.sum()))
+
+
+def same_ba(cam, pb, n_iters, huber_iters, name, one_step=False) -> tuple:
+    k = ba_dense.optimize(cam, pb, n_iters, 16, huber_iters)
+    p = ba_dense.optimize_plain(cam, pb, n_iters, 16, huber_iters)
+    torch.cuda.synchronize()
+    e = ba_errors(k, p, cam, pb)
+    require(e["cost_rel"] <= 1e-3, f"ba_dense ({name}): cost differs by {e['cost_rel']:.2e} (rel)")
+    require(e["flips_off_gate"] == 0, f"ba_dense ({name}): {e['flips_off_gate']} inlier flips "
+            "away from the chi2 gate")
+    if one_step:
+        # Points: 99.5 % within 1e-3 m; a point whose active observations
+        # barely fix its depth (one mono ray) moves on rounding alone.
+        require(e["t_max_abs"] <= 1e-4 and e["rot"] <= 1e-4 and e["x_frac_1mm"] >= 0.995,
+                f"ba_dense ({name}): one LM iteration differs by {e['t_max_abs']:.2e} m / "
+                f"{e['rot']:.2e} rad, {e['x_frac_1mm']:.2%} of the points within 1e-3 m")
+    return k, e
+
+
+def same_point_major(obs_mp, active, P, K, name) -> dict:
+    k = ba_dense.build_point_major(obs_mp, active, P, K)
+    p = ba_dense.build_point_major_plain(obs_mp, active, P, K)
+    torch.cuda.synchronize()
+    for a, b, f in zip(k, p, ("pm_src", "pm_ok", "active")):
+        require(torch.equal(a, b), f"ba_point_major ({name}): {f} differs in "
+                f"{(a != b).sum().item()} places")
+    count = torch.zeros(P + 1, dtype=torch.long, device=obs_mp.device).index_add_(
+        0, torch.where(active, obs_mp, torch.full_like(obs_mp, P)).reshape(-1).long(),
+        torch.ones(obs_mp.numel(), dtype=torch.long, device=obs_mp.device))[:P]
+    return dict(max_obs_per_point=int(count.max()), overflowing_points=int((count > K).sum()),
+                dropped=int((active & ~k[2]).sum()))
+
+
+def overflow_problem(dev, seed=3, C=6, Fb=64, P=40, K=4):
+    """A small problem whose points are seen ~8 times (some twice in a row)
+    with K = 4 table slots, so the even-stride overflow rule is live.
+    Returns (BADense with its table, the active mask before the table)."""
+    rng = np.random.default_rng(seed)
+    X = np.stack([rng.uniform(-3, 3, P), rng.uniform(-1, 1, P), rng.uniform(8, 12, P)], -1)
+    T = np.stack([se3.exp(torch.tensor([rng.uniform(-.5, .5), 0, rng.uniform(-.3, .3), 0,
+                                        rng.uniform(-.02, .02), 0], dtype=torch.float32)).numpy()
+                  for _ in range(C)])
+    obs_mp = rng.integers(0, P, (C, Fb)).astype(np.int32)
+    pc = np.einsum("cij,cfj->cfi", T[:, :3, :3], X[obs_mp]) + T[:, None, :3, 3]
+    u = CAM.fx * pc[..., 0] / pc[..., 2] + CAM.cx + rng.normal(0, 1, (C, Fb))
+    v = CAM.fy * pc[..., 1] / pc[..., 2] + CAM.cy + rng.normal(0, 1, (C, Fb))
+    ur = np.where(rng.random((C, Fb)) < 0.7, u - CAM.bf / pc[..., 2], -1.0)
+    active = rng.random((C, Fb)) < 0.8
+    t = lambda a, dt=torch.float32: torch.tensor(np.asarray(a), dtype=dt, device=dev)  # noqa: E731
+    obs, raw = t(obs_mp, torch.int32), t(active, torch.bool)
+    pm_src, pm_ok, act = ba_dense.build_point_major_plain(obs, raw, P, K)
+    T0 = T.copy()
+    T0[1:, :3, 3] += rng.normal(0, 0.05, (C - 1, 3))
+    return ba_dense.BADense(
+        t(T0), t(np.arange(C) == 0, torch.bool), t(X + rng.normal(0, 0.05, X.shape)),
+        t(np.zeros(P, bool), torch.bool), obs, t(np.stack([u, v, ur])),
+        t(np.ones((C, Fb))), t(ur > 0, torch.bool), act, pm_src, pm_ok), raw
+
+
+def check_mapping_kernels(tp: dict, timed: bool = True) -> tuple:
+    """K8 on the run's first full-width local-BA problem at the schedule's
+    two calls (and one LM iteration), its table, a small overflowing problem;
+    K7's top_covisible_of (k 8 / 16 / 32, self weight 0 and 2**30), window
+    mask and compaction on the run's final map. Rows for the kernels' line."""
+    tracker, kept = tp["tracker"], tp["kept"]
+    cam, cfg = tracker.cam, tracker.cfg
+    pb = kept["prob"]
+    P, K = pb.pm_src.shape
+    info = dict(problem=dict(C=pb.Tcw.shape[0], Fb=pb.obs_mp.shape[1], P=P, K=K,
+                             active=int(pb.obs_active.sum()), kf_row=kept["kf_row"],
+                             window_rows=kept["sel"].kf_rows.tolist(),
+                             window_ok=kept["sel"].kf_ok.tolist()))
+    info["table"] = same_point_major(pb.obs_mp, pb.obs_active, P, K, "local BA")
+    _, info["one_iteration"] = same_ba(cam, pb, 1, 3, "one LM iteration", one_step=True)
+    n1 = max(cfg.mapping.local_ba_iters - 2, 1)
+    ka, info["call_a"] = same_ba(cam, pb, n1, 3, "schedule call a")
+    pb2 = pb._replace(Tcw=ka.Tcw, X=ka.X, obs_active=pb.obs_active & ka.inlier)
+    _, info["call_b"] = same_ba(cam, pb2, 2, 0, "schedule call b")
+    small, raw = overflow_problem(pb.X.device)
+    info["overflow_table"] = same_point_major(small.obs_mp, raw, small.X.shape[0], 4, "overflow")
+    require(info["overflow_table"]["overflowing_points"] > 0, "overflow case has no overflow")
+    _, info["overflow_optimize"] = same_ba(cam, small, 3, 2, "overflow problem")
+
+    m = tracker.map
+    q = newest_keyframe(m)
+    tops = {}
+    for k in (8, 16, 32):
+        for sw in (0, covis.SELF_WEIGHT_PINNED):
+            a = covis.top_covisible_of(m, q, k, self_weight=sw)
+            b = covis.top_covisible_plain(m, q, k, self_weight=sw)
+            torch.cuda.synchronize()
+            require(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+                    f"top_covisible_of (k={k}, self_weight={sw}): kernel and plain differ")
+            tops[f"k{k}_w{sw}"] = dict(rows=a[0].tolist(), ok=a[1].tolist())
+    win_rows, win_ok = covis.top_covisible_of(m, q, cfg.mapping.local_ba_window,
+                                              self_weight=covis.SELF_WEIGHT_PINNED)
+    pmask = covis.local_map_mask(m, win_rows, win_ok)
+    require(torch.equal(pmask, covis.local_map_mask_plain(m, win_rows, win_ok)),
+            "local_map_mask: kernel and plain differ")
+    F = m.kf.n_features
+    for k in (2 * F, 4 * F):
+        a, b = covis.compact_indices(pmask, k), covis.compact_indices_plain(pmask, k)
+        require(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+                f"compact_indices (k={k}): kernel and plain differ")
+    info["top_covisible"] = dict(q=q, window_points=int(pmask.sum()), **tops)
+    if not timed:
+        return [], info
+
+    # K8's bound, from this problem and the CG iterations call a ran. Bytes:
+    # every slot's active flag; obs_mp, u, v, u_right, inverse sigma^2 and the
+    # stereo flag (21 bytes) of the active slots; the table's flags and its
+    # ok entries; points and their fixed flags; poses and flags; the poses,
+    # points, inlier mask and cost out. Operations per LM iteration: ~500 per
+    # active observation (linearize + camera blocks ~210, point blocks ~60,
+    # the RHS ~80, back-substitution and the cost at the new state ~150) and
+    # ~200 per active observation and 30 per point for each Schur product
+    # (the warm start's and one per CG iteration).
+    C, Fb = pb.obs_mp.shape
+    n_act = int(pb.obs_active.sum())
+    n_pm = int(pb.pm_ok.sum())
+    k8_bytes = (C * Fb + n_act * 21 + P * K + n_pm * 4 + P * 13 + C * 65
+                + C * 64 + P * 12 + C * Fb + 4)
+    k8_ops = sum(n_act * 500 + (int(cg) + 1) * (n_act * 200 + P * 30) for cg, _ in
+                 info["call_a"]["trace_kernel"])
+    # K7's mapping launches of one window selection: top_covisible_of (q's
+    # row and its points' anchors, the distinct valid candidates' rows once),
+    # the window's rows again for the point mask (+ the M validity flags),
+    # the compaction of the [M] mask; out the window, mask and 4F rows.
+    M, N = m.mp.capacity, m.kf.capacity
+    cand, _ = covis.candidate_covis_weights(m, q)
+    cand_rows = torch.unique(cand[m.kf.valid[cand.long()]])
+    n_q = int(((m.kf.mp_idx[q] >= 0) & m.kf.fvalid[q]).sum())
+    n_cand_obs = int(((m.kf.mp_idx[cand_rows.long()] >= 0) & m.kf.fvalid[cand_rows.long()]).sum())
+    W = win_rows.shape[0]
+    n_win_obs = int(((m.kf.mp_idx[win_rows[win_ok].long()] >= 0)
+                     & m.kf.fvalid[win_rows[win_ok].long()]).sum())
+    k7_bytes = (F * 5 + n_q * 4 + len(cand_rows) * (F * 5 + 1) + W * 5
+                + int(win_ok.sum()) * F * 5 + M + M + 4 * F * 5)
+    lg = lambda n: max(1, int(np.ceil(np.log2(n))))  # noqa: E731
+    C7 = cand.shape[0]
+    k7_ops = (n_q + N * lg(C7) + 2 * n_cand_obs + 2 * C7 * lg(C7) + n_win_obs + M + 2 * M)
+    info["bound_inputs"] = dict(ba_active=n_act, ba_pm_ok=n_pm, ba_bytes=k8_bytes, ba_ops=k8_ops,
+                                covis_bytes=k7_bytes, covis_ops=k7_ops,
+                                candidate_rows_read=len(cand_rows))
+    row_ids = torch.arange(M, device=pmask.device)
+
+    def covis_kernel():
+        r, o = covis.top_covisible_of(m, q, W, self_weight=covis.SELF_WEIGHT_PINNED)
+        covis.compact_indices(covis.local_map_mask(m, r, o), 4 * F)
+
+    def covis_plain():
+        r, o = covis.top_covisible_plain(m, q, W, self_weight=covis.SELF_WEIGHT_PINNED)
+        covis.compact_indices_plain(covis.local_map_mask_plain(m, r, o), 4 * F)
+
+    rows = [
+        dict(name="covisibility", max_abs_err=0.0, bound=bound_ms(k7_bytes, k7_ops),
+             fns=(covis_kernel, covis_plain,
+                  lambda: torch.topk(pmask.to(torch.int64) * (M + 1) + row_ids, 4 * F), 5)),
+        dict(name="ba_dense", max_abs_err=info["call_a"]["t_max_abs"],
+             bound=bound_ms(k8_bytes, k8_ops),
+             fns=(lambda: ba_dense.optimize(cam, pb, n1, 16, 3),
+                  lambda: ba_dense.optimize_plain(cam, pb, n1, 16, 3), None, 1)),
+    ]
+    return rows, info
+
+
+def time_stages(tp: dict, reps: int = 2) -> dict:
+    """Per mapping stage, for the newest keyframe of the run's final map and
+    each call on its own copy of the map (the stages write in place): the
+    device time of one call (torch.profiler's kernel sum), the span between
+    CUDA events around one call on the stream, and the host-inclusive time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tracker = tp["tracker"]
+    cam, cfg = tracker.cam, tracker.cfg
+    m0, q = tracker.map, newest_keyframe(tracker.map)
+    cg = cfg.mapping.local_ba_cg_iters
+    sel, prob = local_mapping.local_ba_build(ms.clone(m0), q, cfg)
+    n1 = max(cfg.mapping.local_ba_iters - 2, 1)
+    res_a = ba_dense.optimize(cam, prob, n1, cg, 3)
+    prob2 = prob._replace(Tcw=res_a.Tcw, X=res_a.X, obs_active=prob.obs_active & res_a.inlier)
+
+    def ba_b(m):
+        r = ba_dense.optimize(cam, prob2, 2, cg, 0)
+        return local_mapping.local_ba_writeback(m, sel.kf_rows, sel.kf_free, sel.kf_ok,
+                                                sel.mp_rows, sel.mp_ok, r.Tcw, r.X, r.inlier,
+                                                prob.obs_active)
+
+    stages = {
+        "fuse": lambda m: local_mapping.fuse_into_kf(cam, m, q, cfg),
+        "cull_points": lambda m: local_mapping.cull_map_points(m, q, cfg),
+        "refresh": lambda m: local_mapping.refresh_point_geometry(m, q, cfg),
+        "ba_build": lambda m: local_mapping.local_ba_build(m, q, cfg),
+        "ba_a": lambda m: ba_dense.optimize(cam, prob, n1, cg, 3),
+        "ba_b": ba_b,
+        "cull_keyframes": lambda m: local_mapping.cull_keyframes(m, q, cfg),
+        "sweep": local_mapping.sweep_detached,
+    }
+    out = {}
+    for name, run in stages.items():
+        maps = [ms.clone(m0) for _ in range(reps + 2)]
+        run(maps[0])
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        run(maps[1])
+        end.record()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for mm in maps[2:]:
+                run(mm)
+            torch.cuda.synchronize()
+        us = sum(ev.device_time_total for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA)
+        out[name] = dict(device_ms=us / 1e3 / reps, event_ms=start.elapsed_time(end),
+                         host_ms=host)
+        del maps
+    return out
+
+
+
 def time_rows(rows: list) -> None:
     """Host-inclusive times first (a profiler session may slow later host
     work), then device times, for rows of (kernel, plain, library, reps)."""
@@ -793,7 +1205,16 @@ def main() -> int:
     print("ptxas (registers, spill bytes): " + json.dumps(ptxas), flush=True)
 
     # The main paths first, so that their frame times precede every
-    # profiler session of the kernel checks: the front end, then tracking.
+    # profiler session of the kernel checks: the front end, tracking, then
+    # the tracker with local mapping.
+    phase_s = {"build": build_s}
+    clock = [time.perf_counter()]
+
+    def phase(name):
+        now = time.perf_counter()
+        phase_s[name] = now - clock[0]
+        clock[0] = now
+
     dev = torch.device("cuda")
     fwd, entry_imgs = entry("cuda")
     mp = run_main_path(fwd, entry_imgs)
@@ -801,6 +1222,7 @@ def main() -> int:
           f"p90 {mp['frame_ms_p90']:.3f} ms; valid min {min(mp['valid'])} "
           f"stereo-ok min {min(mp['stereo_ok'])}; entry valid {mp['entry_valid']} "
           f"stereo-ok {mp['entry_stereo_ok']}; launches {mp['launches']}", flush=True)
+    phase("front_end")
     t0 = time.perf_counter()
     te = track_entry("cuda")
     texture_s = time.perf_counter() - t0
@@ -817,12 +1239,31 @@ def main() -> int:
           f"track-only p50 {tp['track_only_ms_p50']:.3f} ms p90 {tp['track_only_ms_p90']:.3f} ms; "
           f"max err {tp['max_err_m']:.4f} m (translation "
           f"{max(r['t_err_m'] for r in tp['rows']):.4f} m); launches {tp['launches']}", flush=True)
+    phase("tracking")
+    kp = run_tracker_phase()
+    print(f"tracker: {BENCH_FRAMES} frames of the flagship schedule in {kp['wall_s']:.1f} s; "
+          f"measured frames {BENCH_WARM}..{BENCH_FRAMES - 1} (pair-amortized, mapping stages "
+          f"included) p50 {kp['frame_ms_p50']:.3f} ms p90 {kp['frame_ms_p90']:.3f} ms max "
+          f"{kp['frame_ms_max']:.3f} ms (largest call {kp['call_ms_max']:.3f} ms); fps "
+          f"{kp['fps']:.2f} (windows {[round(f, 2) for f in kp['fps_windows']]}, closing flushes "
+          f"{[round(f, 2) for f in kp['flush_ms']]} ms); keyframes {kp['keyframes']} "
+          f"({kp['valid_keyframes']} valid of {kp['keyframe_rows']} rows); points "
+          f"{kp['valid_points']} valid of {kp['allocated_points']}; stages {kp['stages']}; "
+          f"ATE {kp['ate_m']:.4f} m (JAX reference {JAX_SCHEDULE_ATE_M} m); "
+          f"launches {kp['launches']}", flush=True)
+    print("tracker frame ms: " + json.dumps([round(v, 3) for v in kp["frame_ms"]]), flush=True)
+    phase("tracker")
 
     cmp = compare_frames(mp.pop("entry_frame"),
                          frame_mod.build_frame_stereo(*entry_imgs, CAM, CFG, device="cpu"))
     print(f"front end vs CPU plain path on the entry input: {cmp}", flush=True)
     track_cmp = compare_tracking_with_cpu(te, tp)
     print(f"tracking vs CPU plain path, frames 1..{CPU_FRAMES}: {track_cmp}", flush=True)
+    phase("tracking_vs_cpu")
+    tracker_cmp = compare_tracker_with_cpu(kp["imgs"])
+    print(f"tracker vs CPU plain path, frames 1..{CPU_PREFIX - 1} of the schedule: ok",
+          flush=True)
+    phase("tracker_vs_cpu")
 
     imgs = orb.as_images(list(entry_imgs), dev)
     prm = orb.params(CFG, imgs.shape[1], imgs.shape[2], str(dev))
@@ -832,16 +1273,33 @@ def main() -> int:
     trows, tinfo = check_tracking_kernels(te, tp.pop("check_state"), *tp["imgs"][CHECK_FRAME])
     time_rows(trows)
     kinfo["tracking"] = tinfo
+    phase("kernels_k1_k7")
+    mrows, minfo = check_mapping_kernels(kp)
+    time_rows(mrows)
+    kinfo["mapping"] = minfo
+    stage_times = time_stages(kp)
+    phase("kernels_k7_mapping_k8")
+    # Launches: each row's count from the main path that runs it (the front
+    # end, the tracking step, the tracker's mapping stages).
     launches = dict(mp["launches"], **{k: tp["launches"][k] for k in
-                                       ("match_masked", "pose_opt", "local_map")})
-    rows += trows
+                                       ("match_masked", "pose_opt", "local_map")},
+                    **{k: kp["launches"][k] for k in ("covisibility", "ba_dense")})
+    rows += trows + mrows
     for r in rows:
         print(f"kernel {r['name']}: device ms {r['ms']:.5f} (host-inclusive {r['host_ms']:.4f}) "
               f"plain device ms {r['plain_ms']:.4f} (host-inclusive {r['plain_host_ms']:.3f}) "
               f"library ms {r['library_ms']} bound ms {r['bound'][0]:.5f} ({r['bound'][1]}) "
               f"max_abs_err {r['max_abs_err']:.3g} launches {launches[r['name']]}", flush=True)
+    for name in ("covisibility", "ba_dense"):
+        n = kp["launches"][name]
+        print(f"tracker launches of {name}: {n} ({n / BENCH_FRAMES:.2f} per frame, "
+              f"{n / kp['keyframes']:.2f} per keyframe)", flush=True)
     print(f"stereo median case: {kinfo['stereo_median']}", flush=True)
     print(f"tracking kernel checks (frame {CHECK_FRAME}): {tinfo}", flush=True)
+    print(f"mapping kernel checks: {minfo}", flush=True)
+    print(f"mapping stage times (ms, final map): {json.dumps(stage_times)}", flush=True)
+    print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}",
+          flush=True)
 
     kernels_line = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],
@@ -852,12 +1310,15 @@ def main() -> int:
     ]}
     tp.pop("imgs")
     tp.pop("cpu_start")
+    for k in ("tracker", "imgs", "kept"):
+        kp.pop(k)
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)
     with open(REPORT, "w") as fh:
         json.dump(dict(nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
                        build_s=build_s, ptxas=ptxas, build_log=kernels.BUILD_INFO.get("log", ""),
                        kernels=rows, kernel_check_counts=kinfo, main_path=mp,
-                       vs_cpu=cmp, tracking=tp, tracking_vs_cpu=track_cmp,
+                       vs_cpu=cmp, tracking=tp, tracking_vs_cpu=track_cmp, tracker=kp,
+                       tracker_vs_cpu=tracker_cmp, stage_times=stage_times, phase_s=phase_s,
                        texture_s=texture_s), fh, indent=1)
     print(json.dumps(kernels_line))
     print(smi)

@@ -1,11 +1,17 @@
 // K7 `local_map`: the local keyframe window and the compacted local map of a
-// tracked frame.
+// tracked frame, and the top covisible keyframes of a keyframe.
 //
 // Replaces corbslam_tpu/frontend/track_ops.py _candidate_local_kfs together
 // with corbslam_tpu/mapstate/covisibility.py local_map_mask, compact_indices
 // and dedupe_candidate_weights, and corbslam_tpu/geometry/camera.py
 // in_frustum over all map points and over the compacted rows (the frustum
-// half of matcher.search_by_projection_points, with its octave prediction).
+// half of matcher.search_by_projection_points, with its octave prediction);
+// and corbslam_tpu/mapstate/covisibility.py top_covisible_of with
+// candidate_covis_weights, anchor_candidates and point_mask_of_kf, which run
+// launches (1)-(4) with the keyframe's own row as the query (its valid
+// features), no previous window, 112 anchors, 47 recent rows and the extra
+// [q], and q's weight replaced by `self_weight` on every copy of q before
+// the top k.
 //
 // Bound on the H100: bytes. Every point costs its four byte masks (valid,
 // tracked, observed by the window, result: 0.5 MB at 131072 points); the
@@ -30,7 +36,11 @@
 // top_k(mask * (M + 1) + row, L)); (7) one thread per compacted row for the
 // matching frustum and the predicted octave. Frustum arithmetic uses
 // explicitly rounded f32 operations in the reference's order, so no FMA
-// moves a point across a gate.
+// moves a point across a gate. The mapping stages launch (1)-(4) for
+// top_covisible_of (candidates: anchors, newest keyframes, [q]; every copy
+// of q weighted self_weight in (4)), local_window_mask (the window scatter
+// of (5) and the point validity) for local_map_mask, and (6) alone for
+// compact_indices.
 
 #include <math.h>
 
@@ -96,13 +106,14 @@ __device__ __forceinline__ Frustum frustum(const View& V, const CamArgs& cam, co
     return f;
 }
 
-__global__ void scatter_current_kernel(const int* __restrict__ mp_idx, int F,
+__global__ void scatter_current_kernel(const int* __restrict__ mp_idx,
+                                       const bool* __restrict__ fvalid, int F,
                                        const int* __restrict__ ref_kf, int N,
                                        bool* __restrict__ cur_mask, int* __restrict__ counts) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= F) return;
     const int idx = mp_idx[i];
-    if (idx < 0) return;
+    if (idx < 0 || (fvalid && !fvalid[i])) return;
     cur_mask[idx] = true;
     const int a = ref_kf[idx];
     if (a >= 0 && a < N) atomicAdd(&counts[a], 1);
@@ -110,8 +121,8 @@ __global__ void scatter_current_kernel(const int* __restrict__ mp_idx, int F,
 
 __global__ void __launch_bounds__(SCAN_THREADS) candidates_kernel(
         const int* __restrict__ counts, int N, const int* __restrict__ n_kf,
-        const int* __restrict__ prev_rows, const bool* __restrict__ prev_ok,
-        const int* __restrict__ ref_kf, int K1, int n_anchor, int n_recent,
+        const int* __restrict__ prev_rows, const bool* __restrict__ prev_ok, int K1,
+        int n_anchor, int n_recent, const int* __restrict__ extra_dev, int extra_host,
         int* __restrict__ cand, bool* __restrict__ cand_ok) {
     extern __shared__ int s_cnt[];
     const int t = threadIdx.x;
@@ -140,11 +151,15 @@ __global__ void __launch_bounds__(SCAN_THREADS) candidates_kernel(
         cand_ok[n_anchor + K1 + k] = r >= 0;
     }
     if (t == 0) {
-        const int c = n_anchor + K1 + n_recent;
-        cand[c] = *ref_kf;
-        cand_ok[c] = true;
-        cand[c + 1] = 0;
-        cand_ok[c + 1] = true;
+        int c = n_anchor + K1 + n_recent;
+        if (extra_dev) {
+            cand[c] = *extra_dev;
+            cand_ok[c++] = true;
+        }
+        if (extra_host >= 0) {
+            cand[c] = extra_host;
+            cand_ok[c] = true;
+        }
     }
 }
 
@@ -177,8 +192,8 @@ __global__ void __launch_bounds__(BLOCK) weights_kernel(
 
 __global__ void __launch_bounds__(MAX_CAND) select_kernel(
         const int* __restrict__ cand, const bool* __restrict__ cand_ok,
-        const int* __restrict__ w_in, int C, int K1, int* __restrict__ local_rows,
-        bool* __restrict__ local_ok, int* __restrict__ ref_new) {
+        const int* __restrict__ w_in, int C, int K1, int self_q, int self_weight, int min_ok,
+        int* __restrict__ local_rows, bool* __restrict__ local_ok, int* __restrict__ ref_new) {
     __shared__ int s_key[MAX_CAND], s_w[MAX_CAND];
     const int i = threadIdx.x;
     if (i < C) s_key[i] = cand_ok[i] ? cand[i] : -1 - i;
@@ -186,7 +201,7 @@ __global__ void __launch_bounds__(MAX_CAND) select_kernel(
     if (i < C) {
         bool dup = false;
         for (int j = 0; j < i; ++j) dup |= s_key[j] == s_key[i];
-        s_w[i] = (dup || !cand_ok[i]) ? 0 : w_in[i];
+        s_w[i] = cand[i] == self_q ? self_weight : ((dup || !cand_ok[i]) ? 0 : w_in[i]);
     }
     __syncthreads();
     if (i < C) {
@@ -195,9 +210,13 @@ __global__ void __launch_bounds__(MAX_CAND) select_kernel(
         for (int j = 0; j < C; ++j) rank += (s_w[j] > v) | ((s_w[j] == v) & (j < i));
         if (rank < K1) {
             local_rows[rank] = cand[i];
-            local_ok[rank] = v > 0;
+            local_ok[rank] = v >= min_ok;
         }
-        if (rank == 0) *ref_new = cand[i];
+        if (rank == 0 && ref_new) *ref_new = cand[i];
+    }
+    for (int j = C + i; j < K1; j += blockDim.x) {  // k > C: padding rows
+        local_rows[j] = 0;
+        local_ok[j] = false;
     }
 }
 
@@ -311,29 +330,40 @@ __global__ void __launch_bounds__(BLOCK) frustum_rows_kernel(
     pred[i] = min(max(lvl, 0), n_levels - 1);
 }
 
+__global__ void and_valid_kernel(bool* __restrict__ mask, const bool* __restrict__ valid, int M) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < M) mask[i] = mask[i] && valid[i];
+}
+
 int blocks(int n) { return (n + BLOCK - 1) / BLOCK; }
 
 }  // namespace
 
-// (1) Tracked-point mask over [M] and anchor-keyframe counts over [N].
-C_ENTRY int local_scatter_current(const int* mp_idx, int F, const int* mp_ref_kf, int M, int N,
-                                  bool* cur_mask, int* counts, cudaStream_t stream) {
+// (1) Tracked-point mask over [M] and anchor-keyframe counts over [N]; with
+// `fvalid` (a keyframe's own row) only its valid features count.
+C_ENTRY int local_scatter_current(const int* mp_idx, const bool* fvalid, int F,
+                                  const int* mp_ref_kf, int M, int N, bool* cur_mask, int* counts,
+                                  cudaStream_t stream) {
     cudaMemsetAsync(cur_mask, 0, (size_t)M, stream);
     cudaMemsetAsync(counts, 0, (size_t)N * sizeof(int), stream);
-    scatter_current_kernel<<<blocks(F), BLOCK, 0, stream>>>(mp_idx, F, mp_ref_kf, N, cur_mask,
-                                                            counts);
+    scatter_current_kernel<<<blocks(F), BLOCK, 0, stream>>>(mp_idx, fvalid, F, mp_ref_kf, N,
+                                                            cur_mask, counts);
     return (int)cudaGetLastError();
 }
 
-// (2) Candidate keyframe list (C = n_anchor + K1 + n_recent + 2) and its ok flags.
+// (2) Candidate keyframe list and its ok flags: n_anchor anchors, the K1
+// rows of the previous window (K1 = 0: none), n_recent newest rows, then
+// *extra_dev (if not null) and extra_host (if >= 0). The tracking step
+// passes [ref_kf, 0], top_covisible_of [q].
 C_ENTRY int local_candidates(const int* counts, int N, const int* n_kf, const int* prev_rows,
-                             const bool* prev_ok, const int* ref_kf, int K1, int n_anchor,
-                             int n_recent, int* cand, bool* cand_ok, cudaStream_t stream) {
+                             const bool* prev_ok, int K1, int n_anchor, int n_recent,
+                             const int* extra_dev, int extra_host, int* cand, bool* cand_ok,
+                             cudaStream_t stream) {
     const size_t shm = (size_t)N * sizeof(int);
     if (shm > 48 * 1024) return (int)cudaErrorInvalidValue;
-    candidates_kernel<<<1, SCAN_THREADS, shm, stream>>>(counts, N, n_kf, prev_rows, prev_ok,
-                                                        ref_kf, K1, n_anchor, n_recent, cand,
-                                                        cand_ok);
+    candidates_kernel<<<1, SCAN_THREADS, shm, stream>>>(counts, N, n_kf, prev_rows, prev_ok, K1,
+                                                        n_anchor, n_recent, extra_dev, extra_host,
+                                                        cand, cand_ok);
     return (int)cudaGetLastError();
 }
 
@@ -346,12 +376,16 @@ C_ENTRY int local_weights(const int* cand, const bool* cand_ok, int C, int N,
     return (int)cudaGetLastError();
 }
 
-// (4) Dedupe, new reference keyframe, top-K1 local window (C <= 1024).
+// (4) Dedupe (first valid kept), every copy of self_q weighted self_weight
+// (self_q = -1: none), the top K1 in lax.top_k order with ok = weight >=
+// min_ok, rows past C padded with (0, false), and the first as ref_new (if
+// not null). C <= 1024.
 C_ENTRY int local_select(const int* cand, const bool* cand_ok, const int* w, int C, int K1,
-                         int* local_rows, bool* local_ok, int* ref_new, cudaStream_t stream) {
+                         int self_q, int self_weight, int min_ok, int* local_rows, bool* local_ok,
+                         int* ref_new, cudaStream_t stream) {
     if (C > MAX_CAND) return (int)cudaErrorInvalidValue;
-    select_kernel<<<1, MAX_CAND, 0, stream>>>(cand, cand_ok, w, C, K1, local_rows, local_ok,
-                                              ref_new);
+    select_kernel<<<1, MAX_CAND, 0, stream>>>(cand, cand_ok, w, C, K1, self_q, self_weight,
+                                              min_ok, local_rows, local_ok, ref_new);
     return (int)cudaGetLastError();
 }
 
@@ -369,6 +403,16 @@ C_ENTRY int local_points(const int* local_rows, const bool* local_ok, int K1,
     const CamArgs cam{fx, fy, cx, cy, width, height};
     points_kernel<<<blocks(M), BLOCK, 0, stream>>>(obs_mask, mp_valid, cur_mask, pos, min_dist,
                                                    max_dist, normal, T, M, cam, pmask);
+    return (int)cudaGetLastError();
+}
+
+// Valid points observed by the ok rows of a keyframe list (local_map_mask).
+C_ENTRY int local_window_mask(const int* rows, const bool* ok, int K, const int* kf_mp_idx,
+                              const bool* kf_fvalid, int F, const bool* mp_valid, int M, bool* mask,
+                              cudaStream_t stream) {
+    cudaMemsetAsync(mask, 0, (size_t)M, stream);
+    scatter_window_kernel<<<K, BLOCK, 0, stream>>>(rows, ok, kf_mp_idx, kf_fvalid, F, mask);
+    and_valid_kernel<<<blocks(M), BLOCK, 0, stream>>>(mask, mp_valid, M);
     return (int)cudaGetLastError();
 }
 

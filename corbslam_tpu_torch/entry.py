@@ -14,10 +14,18 @@ ground-truth trajectory `gt_pose(i)`: a camera pitched by 0.35 rad moving
 `seed_map`, `track_step` and `add_keyframe` drive it: frame 0 seeds the map,
 each later frame is tracked, and the caller decides after which frames to
 insert a keyframe.
+
+`tracker_entry()` is the flagship cell itself (`bench.py:281-327`): the same
+camera, world and trajectory with `frames_per_dispatch=2`, driven through
+`frontend.tracking.StereoTracker`; `run_bench_schedule` replays the bench's
+schedule on a tracker: 6 frames, 6 forced keyframes, 12 more warm frames and
+a flush, then two windows of 30 frames, each followed by a flush (no waits,
+no timers).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -27,6 +35,7 @@ from . import kernels
 from .config import KITTI_STEREO, OrbConfig, SlamConfig
 from .frontend import frame as frame_mod
 from .frontend import track_ops
+from .frontend.tracking import StereoTracker
 from .geometry import camera, se3
 from .io import synthetic
 from .mapstate import mapstate as ms
@@ -122,3 +131,59 @@ def track_entry(device="cuda") -> TrackEntry:
     world = synthetic.PlanarWorld(CAM, texture_size=4096, plane_dist=12.0, texture_scale=60.0,
                                   seed=0, device=dev)
     return TrackEntry(CAM, KITTI_STEREO, world)
+
+
+BENCH_WARM, BENCH_FORCED_KF, BENCH_WINDOW, BENCH_WINDOWS = 18, 6, 30, 2
+BENCH_FRAMES = BENCH_WARM + BENCH_WINDOW * BENCH_WINDOWS
+
+
+def bench_config() -> SlamConfig:
+    """KITTI_STEREO with frames_per_dispatch=2, the flagship cell's config."""
+    return KITTI_STEREO.replace(tracking=dataclasses.replace(KITTI_STEREO.tracking,
+                                                             frames_per_dispatch=2))
+
+
+def tracker_entry(device="cuda"):
+    """(StereoTracker on `device`, TrackEntry): the flagship cell's tracker,
+    camera, config and world; frames come from
+    `world.render_stereo(gt_pose(i))`."""
+    dev = kernels.resolve_device(device)
+    te = track_entry(dev)._replace(cfg=bench_config())
+    return StereoTracker(te.cam, te.cfg, device=dev), te
+
+
+def run_bench_schedule(tracker: StereoTracker, frames, step=None, stop=None, start=0) -> None:
+    """The flagship schedule of bench.py:314-327,357-380 on `tracker`, for
+    `frames` [(left, right)]; frame i has timestamp 0.1 i. `step(i, fn)`
+    runs each measured frame's `process_stereo` (fn()) and, with i None, the
+    flush that ends each measured window (bench.py times it inside the
+    window); by default it just calls fn. With `stop`, only frames 0 ..
+    stop - 1 of the schedule are fed (stop > 6, after the forced keyframes),
+    then the tracker is flushed; with `start` (< 6) the tracker has had
+    frames 0 .. start - 1 already."""
+    n = BENCH_FRAMES if stop is None else stop
+    if n <= BENCH_FORCED_KF or len(frames) < n or not 0 <= start < BENCH_FORCED_KF:
+        raise ValueError(f"run_bench_schedule: {len(frames)} frames, stop={stop}: needs "
+                         f"{BENCH_FORCED_KF} < stop <= frames and 0 <= start < "
+                         f"{BENCH_FORCED_KF}")
+    if step is None:
+        def step(_, fn):
+            fn()
+
+    def feed(i):
+        return tracker.process_stereo(frames[i][0], frames[i][1], i * 0.1)
+
+    for i in range(start, BENCH_FORCED_KF):
+        feed(i)
+    for k in range(BENCH_FORCED_KF):
+        tracker._create_keyframe(tracker.last_frame, 0.05 * k, 120)
+    for i in range(BENCH_FORCED_KF, min(BENCH_WARM, n)):
+        feed(i)
+    tracker.flush()
+    for w in range(BENCH_WINDOWS):
+        first = BENCH_WARM + w * BENCH_WINDOW
+        if first >= n:
+            break
+        for i in range(first, min(first + BENCH_WINDOW, n)):
+            step(i, lambda i=i: feed(i))
+        step(None, tracker.flush)

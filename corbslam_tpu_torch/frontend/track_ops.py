@@ -22,9 +22,13 @@ reads the inlier count once per frame (one `.item()`) and runs the fallback
 only when it is needed, which gives the same results. The map is updated in
 place (the counters; `insert_keyframe_with_points` also writes the new
 keyframe and points), where the reference donates its buffers.
-`track_motion_model`, `track_reference_kf`, `track_local_map`,
-`update_tracking_stats`, `track_frame_rgbd` and `track_frame_mono` come with
-the tracker, RGB-D and mono slices.
+
+`track_motion_model`, `track_reference_kf`, `track_local_map` and
+`update_tracking_stats` are the separate programs the tracker runs when it
+re-acquires a LOST track (Tracking.cc:886, :775, :951); `track_local_map`
+weighs all keyframes, not the candidate window, and shares K7's point-mask,
+compaction and frustum launches with the fused step. `track_frame_rgbd` and
+`track_frame_mono` come with the RGB-D and mono slice.
 """
 
 from __future__ import annotations
@@ -87,7 +91,7 @@ def reference_kf_query(m: ms.MapState, cur: FrameData, ref_kf) -> tuple[dict, to
     """The K5 query of the reference-keyframe fallback (`search_by_descriptor`
     against the keyframe's features that carry a point), and those features'
     point rows."""
-    r = ref_kf.long()
+    r = torch.as_tensor(ref_kf).long()
     kf_mp = m.kf.mp_idx[r]
     q = dict(desc_q=cur.desc, desc_t=m.kf.desc[r], valid_q=cur.fvalid,
              valid_t=m.kf.fvalid[r] & (kf_mp >= 0), max_dist=50, ratio=0.7, mutual=True)
@@ -145,12 +149,6 @@ class LocalWindow(NamedTuple):
     pmask: torch.Tensor        # [M] bool local-map points before compaction
 
 
-def _topk_stable(vals: torch.Tensor, k: int):
-    """`lax.top_k` order: descending, lower index first on ties."""
-    v, i = torch.sort(vals, descending=True, stable=True)
-    return v[:k], i[:k]
-
-
 def _candidate_local_kfs(m: ms.MapState, mp_idx, prev_local_rows, prev_local_ok, ref_kf,
                          K1: int):
     """Local-keyframe selection over a bounded candidate set: the anchor
@@ -170,7 +168,7 @@ def _candidate_local_kfs(m: ms.MapState, mp_idx, prev_local_rows, prev_local_ok,
         0, torch.where(hit, anchors, torch.zeros_like(anchors)).long(), hit.to(torch.int32))
     n_anchor = min(N_CANDIDATES - K1 - 2, N)
     n_recent = min(K1, N)
-    a_vals, a_rows = _topk_stable(anchor_count, n_anchor)
+    a_vals, a_rows = covis.topk_stable(anchor_count, n_anchor)
     recent = m.n_kf - 1 - torch.arange(n_recent, dtype=torch.int32, device=dev)
     ref = torch.as_tensor(ref_kf, dtype=torch.int32, device=dev).reshape(1)
     cand = torch.cat([a_rows.to(torch.int32), prev_local_rows.to(torch.int32),
@@ -187,29 +185,39 @@ def _candidate_local_kfs(m: ms.MapState, mp_idx, prev_local_rows, prev_local_ok,
     w = torch.where(cand_ok, w, torch.zeros_like(w))
 
     ref_new = cand[torch.argmax(w)]
-    vals, li = _topk_stable(w, K1)
+    vals, li = covis.topk_stable(w, K1)
     return cand[li], vals > 0, ref_new, cur_mask, cand, cand_ok
 
 
-def local_map_window_plain(cam, m: ms.MapState, mp_idx_in, prev_local_rows, prev_local_ok,
-                           ref_kf, T_init, cfg: SlamConfig) -> LocalWindow:
-    """Plain version of K7: candidate keyframes, the local-map point mask
-    (observed by the window, valid, not tracked, in the wide frustum at
-    T_init), newest-first compaction to L rows, and the matching frustum of
-    those rows."""
-    K1, L = cfg.capacity.local_window_kfs, cfg.capacity.local_window_mps
-    local_rows, local_ok, ref_new, cur_mask, cand, cand_ok = _candidate_local_kfs(
-        m, mp_idx_in, prev_local_rows, prev_local_ok, ref_kf, K1)
-    pmask = covis.local_map_mask(m, local_rows, local_ok) & ~cur_mask
+def _local_points_plain(cam, m: ms.MapState, local_rows, local_ok, cur_mask, T_init,
+                        cfg: SlamConfig):
+    """The local-map point mask (observed by the window, valid, not tracked,
+    in the wide frustum at T_init), its newest-first compaction to L rows and
+    the matching frustum of those rows: (rows, rows_ok, uv, visible,
+    pred_octave, pmask)."""
+    L = cfg.capacity.local_window_mps
+    pmask = covis.local_map_mask_plain(m, local_rows, local_ok) & ~cur_mask
     pmask &= cam_mod.in_frustum(cam, T_init, m.mp.pos, m.mp.min_dist * 0.5,
                                 m.mp.max_dist * 2.0, m.mp.normal, view_cos_limit=-1.0)[0]
-    rows, rows_ok = covis.compact_indices(pmask, L)
+    rows, rows_ok = covis.compact_indices_plain(pmask, L)
     r = rows.long()
     visible, uv, pred = matcher.project_map_points(
         cam, T_init, m.mp.pos[r], rows_ok, m.mp.min_dist[r], m.mp.max_dist[r],
         m.mp.normal[r], cfg.orb.scale_factor, cfg.orb.n_levels)
-    return LocalWindow(local_rows, local_ok, ref_new, cur_mask, rows, rows_ok, uv,
-                       visible & rows_ok, pred, cand, cand_ok, pmask)
+    return rows, rows_ok, uv, visible & rows_ok, pred, pmask
+
+
+def local_map_window_plain(cam, m: ms.MapState, mp_idx_in, prev_local_rows, prev_local_ok,
+                           ref_kf, T_init, cfg: SlamConfig) -> LocalWindow:
+    """Plain version of K7: candidate keyframes, then `_local_points_plain`
+    over the chosen window."""
+    K1 = cfg.capacity.local_window_kfs
+    local_rows, local_ok, ref_new, cur_mask, cand, cand_ok = _candidate_local_kfs(
+        m, mp_idx_in, prev_local_rows, prev_local_ok, ref_kf, K1)
+    rows, rows_ok, uv, visible, pred, pmask = _local_points_plain(
+        cam, m, local_rows, local_ok, cur_mask, T_init, cfg)
+    return LocalWindow(local_rows, local_ok, ref_new, cur_mask, rows, rows_ok, uv, visible, pred,
+                       cand, cand_ok, pmask)
 
 
 def _local_map_window_cuda(cam, m, mp_idx_in, prev_local_rows, prev_local_ok, ref_kf, T_init,
@@ -243,25 +251,41 @@ def _local_map_window_cuda(cam, m, mp_idx_in, prev_local_rows, prev_local_ok, re
             ("mp.normal", m.mp.normal, torch.float32, (M, 3))):
         chk(t, name, dt, shape, dev)
     p = kernels.ptr
+
+    def out(*shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    cur_mask, counts = out(M, dtype=torch.bool), out(N, dtype=torch.int32)
+    kernels.launch("local_map", "local_scatter_current", p(mp_idx_in), None, Fc, p(m.mp.ref_kf), M,
+                   N, p(cur_mask), p(counts))
+    cand, cand_ok = out(C, dtype=torch.int32), out(C, dtype=torch.bool)
+    kernels.launch("local_map", "local_candidates", p(counts), N, p(m.n_kf), p(prev_local_rows),
+                   p(prev_local_ok), K1, n_anchor, n_recent, p(ref_kf), 0, p(cand), p(cand_ok))
+    w = out(C, dtype=torch.int32)
+    kernels.launch("local_map", "local_weights", p(cand), p(cand_ok), C, N, p(m.kf.mp_idx),
+                   p(m.kf.fvalid), p(m.kf.valid), F, p(cur_mask), p(w))
+    local_rows, local_ok = out(K1, dtype=torch.int32), out(K1, dtype=torch.bool)
+    ref_new = out(dtype=torch.int32)
+    kernels.launch("local_map", "local_select", p(cand), p(cand_ok), p(w), C, K1, -1, 0, 1,
+                   p(local_rows), p(local_ok), p(ref_new))
+    rows, rows_ok, uv, visible, pred, pmask = _local_points_cuda(
+        cam, m, local_rows, local_ok, cur_mask, T_init, cfg)
+    return LocalWindow(local_rows, local_ok, ref_new, cur_mask, rows, rows_ok, uv, visible, pred,
+                       cand, cand_ok, pmask)
+
+
+def _local_points_cuda(cam, m, local_rows, local_ok, cur_mask, T_init, cfg: SlamConfig):
+    """K7's launches (5)-(7) for any window rows (`_local_points_plain`)."""
+    F, M = m.kf.n_features, m.mp.capacity
+    K1, L = local_rows.shape[0], cfg.capacity.local_window_mps
+    dev = local_rows.device
+    p = kernels.ptr
     camf = [float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy), int(cam.width),
             int(cam.height)]
 
     def out(*shape, dtype):
         return torch.empty(shape, dtype=dtype, device=dev)
 
-    cur_mask, counts = out(M, dtype=torch.bool), out(N, dtype=torch.int32)
-    kernels.launch("local_map", "local_scatter_current", p(mp_idx_in), Fc, p(m.mp.ref_kf), M, N,
-                   p(cur_mask), p(counts))
-    cand, cand_ok = out(C, dtype=torch.int32), out(C, dtype=torch.bool)
-    kernels.launch("local_map", "local_candidates", p(counts), N, p(m.n_kf), p(prev_local_rows),
-                   p(prev_local_ok), p(ref_kf), K1, n_anchor, n_recent, p(cand), p(cand_ok))
-    w = out(C, dtype=torch.int32)
-    kernels.launch("local_map", "local_weights", p(cand), p(cand_ok), C, N, p(m.kf.mp_idx),
-                   p(m.kf.fvalid), p(m.kf.valid), F, p(cur_mask), p(w))
-    local_rows, local_ok = out(K1, dtype=torch.int32), out(K1, dtype=torch.bool)
-    ref_new = out(dtype=torch.int32)
-    kernels.launch("local_map", "local_select", p(cand), p(cand_ok), p(w), C, K1, p(local_rows),
-                   p(local_ok), p(ref_new))
     obs_mask, pmask = out(M, dtype=torch.bool), out(M, dtype=torch.bool)
     kernels.launch("local_map", "local_points", p(local_rows), p(local_ok), K1, p(m.kf.mp_idx),
                    p(m.kf.fvalid), F, p(m.mp.valid), p(cur_mask), p(m.mp.pos), p(m.mp.min_dist),
@@ -274,8 +298,7 @@ def _local_map_window_cuda(cam, m, mp_idx_in, prev_local_rows, prev_local_ok, re
                    p(m.mp.min_dist), p(m.mp.max_dist), p(m.mp.normal), p(T_init), *camf,
                    matcher.log_scale(cfg.orb.scale_factor), cfg.orb.n_levels, p(uv), p(visible),
                    p(pred))
-    return LocalWindow(local_rows, local_ok, ref_new, cur_mask, rows, rows_ok, uv, visible, pred,
-                       cand, cand_ok, pmask)
+    return rows, rows_ok, uv, visible, pred, pmask
 
 
 def local_map_window(cam, m: ms.MapState, mp_idx_in, prev_local_rows, prev_local_ok, ref_kf,
@@ -419,3 +442,70 @@ def insert_keyframe_with_points(cam, m: ms.MapState, cur: FrameData, frame_id, t
                                    cur.uright, cur.depth, cur.fvalid, mp_idx, frame_id, timestamp,
                                    client=client)
     return m, kf_row, mp_idx
+
+
+# ---------------------------------------------------------------------------
+# The separate programs of LOST re-acquisition (StereoTracker._track)
+# ---------------------------------------------------------------------------
+
+def track_motion_model(cam, mp_pos, prev: FrameData, cur: FrameData, T_pred, scale_factors,
+                       radius: float = 15.0):
+    """TrackWithMotionModel: the last frame's points projected at T_pred,
+    matched (K5) and the pose optimized (K6). Returns (Tcw, mp_idx [F],
+    n_inliers)."""
+    q = matcher.frame_frame_query(
+        cam, T_pred, mp_pos[prev.mp_idx.clamp_min(0).long()], (prev.mp_idx >= 0) & prev.fvalid,
+        prev.xy, prev.octave, prev.desc, prev.angle, cur.xy, cur.octave, cur.desc, cur.angle,
+        cur.fvalid, scale_factors, radius=radius, max_dist=100)
+    res = matcher.match_select(**q)
+    return _pose_opt_from_matches(cam, T_pred, cur, mp_pos, lookup(res.idx, prev.mp_idx))
+
+
+def track_reference_kf(cam, m: ms.MapState, ref_kf, cur: FrameData, T_init):
+    """TrackReferenceKeyFrame: descriptor match against one keyframe's
+    features that carry a point, then the pose from T_init."""
+    q, kf_mp = reference_kf_query(m, cur, ref_kf)
+    res = matcher.match_select(**q)
+    return _pose_opt_from_matches(cam, T_init, cur, m.mp.pos, lookup(res.idx, kf_mp))
+
+
+def track_local_map(cam, m: ms.MapState, cur: FrameData, T_init, mp_idx_in,
+                    cfg: SlamConfig) -> LocalTrackResult:
+    """TrackLocalMap with the local window picked over ALL keyframes by
+    shared points with the current matches (Tracking.cc:1259), then the
+    local points as in the fused step (K7's launches (5)-(7) on the card),
+    projection matching (K5) and the pose (K6)."""
+    K1, M = cfg.capacity.local_window_kfs, m.mp.capacity
+    has = mp_idx_in >= 0
+    cur_mask = covis.scatter_mask(mp_idx_in, has, M)
+    idx = m.kf.mp_idx
+    contrib = (idx >= 0) & m.kf.fvalid & m.kf.valid[:, None]
+    kf_weight = (contrib & cur_mask[idx.clamp_min(0).long()]).sum(dim=1, dtype=torch.int32)
+    ref_kf = torch.argmax(kf_weight).to(torch.int32)
+    vals, local_rows = covis.topk_stable(kf_weight, K1)
+    local_rows, local_ok = local_rows.to(torch.int32), vals > 0
+    T_init = T_init.contiguous()
+    if idx.is_cuda:
+        pts = _local_points_cuda(cam, m, local_rows, local_ok, cur_mask, T_init, cfg)
+    elif idx.device.type == "cpu":
+        pts = _local_points_plain(cam, m, local_rows, local_ok, cur_mask, T_init, cfg)
+    else:
+        raise ValueError(f"unsupported device {idx.device}")
+    rows, rows_ok, uv, visible, pred, _ = pts
+    win = LocalWindow(local_rows, local_ok, ref_kf, cur_mask, rows, rows_ok, uv, visible, pred,
+                      local_rows, local_ok, None)
+    res = matcher.match_select(**local_map_query(m, cur, win, has, cfg))
+    merged = torch.where(has, mp_idx_in, lookup(res.idx, rows))
+    Tcw, kept, n_inliers = _pose_opt_from_matches(cam, T_init, cur, m.mp.pos, merged)
+    found = covis.scatter_mask(kept, kept >= 0, M)
+    return LocalTrackResult(Tcw, kept, n_inliers, ref_kf, local_rows, local_ok, rows, visible,
+                            found[rows.long()])
+
+
+def update_tracking_stats(m: ms.MapState, visible_rows, visible_mask, found_rows_mask):
+    """IncreaseVisible / IncreaseFound (MapPoint.cc, Tracking.cc:1168-1226),
+    in place."""
+    r = visible_rows.long()
+    m.mp.n_visible.index_add_(0, r, visible_mask.to(torch.int32))
+    m.mp.n_found.index_add_(0, r, found_rows_mask.to(torch.int32))
+    return m

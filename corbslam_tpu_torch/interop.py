@@ -14,9 +14,11 @@ package's outputs.
 
 `map_from_numpy` / `map_to_numpy` and `frame_from_numpy` carry the tracking
 state across: every `KeyFrames` and `MapPoints` field plus the `n_kf` /
-`n_mp` cursors, and every `FrameData` field. The "from" functions read any
-object with the same attribute names whose leaves `np.asarray` accepts, so a
-map or frame built by the JAX package feeds the port directly.
+`n_mp` cursors, and every `FrameData` field. `problem_from_numpy` /
+`problem_to_numpy` do the same for a bundle-adjustment problem (`BADense`).
+The "from" functions read any object with the same attribute names whose
+leaves `np.asarray` accepts, so a map, frame or problem built by the JAX
+package feeds the port directly.
 """
 
 from __future__ import annotations
@@ -202,3 +204,18 @@ def frame_from_numpy(fd, device="cpu"):
     from .frontend.frame import FrameData  # ops.orb imports this module
 
     return FrameData(*(_tensor(getattr(fd, f), device) for f in FrameData._fields))
+
+
+def problem_from_numpy(pb, device="cpu"):
+    """A `BADense` on `device` from `problem_to_numpy`'s dict or any object
+    with its field names (the JAX one); absent pm_src / pm_ok stay None."""
+    from .optim.ba_dense import BADense  # ops.orb imports this module
+
+    get = (lambda f: pb.get(f)) if isinstance(pb, dict) else (lambda f: getattr(pb, f, None))
+    return BADense(*(None if get(f) is None else _tensor(get(f), device)
+                     for f in BADense._fields))
+
+
+def problem_to_numpy(pb) -> dict:
+    """{field: numpy array or None} of a `BADense`."""
+    return {k: (None if v is None else v.detach().cpu().numpy()) for k, v in pb._asdict().items()}

@@ -35,8 +35,11 @@ NVCC_FLAGS = [
 ]
 
 # Launch counts per kernel wrapper, read by chip_smoke.py around the main path.
+# "covisibility" counts the K7 launches of the mapping stages
+# (`mapstate.covisibility`) apart from the tracking step's ("local_map").
 LAUNCHES = {"pyramid": 0, "fast_cells": 0, "orb_describe": 0, "stereo_match": 0,
-            "match_masked": 0, "pose_opt": 0, "local_map": 0}
+            "match_masked": 0, "pose_opt": 0, "local_map": 0, "covisibility": 0,
+            "ba_dense": 0}
 
 _lib = None
 BUILD_INFO: dict = {}
@@ -64,15 +67,19 @@ _SIGNATURES = {
     # pose_opt.cu
     "pose_opt": [VP] * 6 + [I32] * 4 + [F32] * 5 + [VP] * 4 + [VP],
     # local_map.cu
-    "local_scatter_current": [VP, I32, VP, I32, I32, VP, VP, VP],
-    "local_candidates": [VP, I32] + [VP] * 4 + [I32] * 3 + [VP] * 2 + [VP],
+    "local_scatter_current": [VP, VP, I32, VP, I32, I32, VP, VP, VP],
+    "local_candidates": [VP, I32] + [VP] * 3 + [I32] * 3 + [VP, I32] + [VP] * 2 + [VP],
     "local_weights": [VP] * 2 + [I32] * 2 + [VP] * 3 + [I32] + [VP] * 2 + [VP],
-    "local_select": [VP] * 3 + [I32] * 2 + [VP] * 3 + [VP],
+    "local_select": [VP] * 3 + [I32] * 5 + [VP] * 3 + [VP],
     "local_points": ([VP] * 2 + [I32] + [VP] * 2 + [I32] + [VP] * 7 + [I32] + [F32] * 4
                      + [I32] * 2 + [VP] * 2 + [VP]),
     "local_compact": [VP, I32, I32, VP, VP, VP],
+    "local_window_mask": [VP, VP, I32, VP, VP, I32, VP, I32, VP, VP],
     "local_frustum": ([VP] * 2 + [I32] + [VP] * 5 + [F32] * 4 + [I32] * 2 + [F32, I32]
                       + [VP] * 3 + [VP]),
+    # ba_dense.cu
+    "ba_point_major": [VP, VP] + [I32] * 4 + [VP] * 4 + [VP],
+    "ba_optimize": [VP] * 11 + [I32] * 7 + [F32] * 5 + [VP] * 7 + [VP],
 }
 
 

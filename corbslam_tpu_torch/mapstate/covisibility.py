@@ -1,19 +1,34 @@
-"""Local-map selection helpers derived from the observation table (port of
-`corbslam_tpu/mapstate/covisibility.py`: `local_map_mask`,
-`compact_indices`, `dedupe_candidate_weights`).
+"""Covisibility and local-map selection derived from the observation table
+(port of `corbslam_tpu/mapstate/covisibility.py`: `point_mask_of_kf`,
+`local_map_mask`, `compact_indices`, `dedupe_candidate_weights`,
+`anchor_candidates`, `candidate_covis_weights`, `top_covisible_of`).
 
-These are the plain PyTorch versions. On the tracking path they run inside
-the local-map kernel K7 (`csrc/local_map.cu`), launched by
-`frontend.track_ops.local_map_window`, together with the candidate
-keyframes and the frustum test. `top_covisible_of`, `candidate_covis_weights`
-and the `covis_*` functions come with local mapping.
+The `*_plain` functions are the plain PyTorch versions. On the tracking path
+they run inside the local-map kernel K7 (`csrc/local_map.cu`), launched by
+`frontend.track_ops.local_map_window`, together with the candidate keyframes
+and the frustum test. On a CUDA map the mapping stages' calls launch K7 too:
+`top_covisible_of` its first four kernels, `local_map_mask` its window
+scatter, `compact_indices` its compaction (counted as "covisibility").
+`covis_weights_single`, the `covis_*` matrices and `spanning_parents` come
+with loop closing.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import kernels
 from .mapstate import MapState
+
+N_ANCHOR = 112  # anchor keyframes of the query's points in the candidate window
+N_RECENT = 47   # newest keyframes in the candidate window
+SELF_WEIGHT_PINNED = 2 ** 30  # `self_weight` that ranks the query keyframe first
+
+
+def topk_stable(vals: torch.Tensor, k: int):
+    """`lax.top_k` order: descending, lower index first on ties."""
+    v, i = torch.sort(vals, descending=True, stable=True)
+    return v[:k], i[:k]
 
 
 def scatter_mask(idx: torch.Tensor, ok: torch.Tensor, size: int) -> torch.Tensor:
@@ -25,7 +40,7 @@ def scatter_mask(idx: torch.Tensor, ok: torch.Tensor, size: int) -> torch.Tensor
     return mask.bool()
 
 
-def local_map_mask(m: MapState, kf_rows: torch.Tensor, kf_ok: torch.Tensor) -> torch.Tensor:
+def local_map_mask_plain(m: MapState, kf_rows: torch.Tensor, kf_ok: torch.Tensor) -> torch.Tensor:
     """[M] mask of valid map points observed by any of the given keyframes
     (UpdateLocalPoints, Tracking.cc:1230)."""
     r = kf_rows.long()
@@ -34,7 +49,46 @@ def local_map_mask(m: MapState, kf_rows: torch.Tensor, kf_ok: torch.Tensor) -> t
     return scatter_mask(idx, ok, m.mp.capacity) & m.mp.valid
 
 
+def local_map_mask(m: MapState, kf_rows: torch.Tensor, kf_ok: torch.Tensor) -> torch.Tensor:
+    """`local_map_mask_plain` (K7's window scatter on a CUDA map)."""
+    if not kf_rows.is_cuda:
+        if kf_rows.device.type != "cpu":
+            raise ValueError(f"unsupported device {kf_rows.device}")
+        return local_map_mask_plain(m, kf_rows, kf_ok)
+    N, F, M = m.kf.capacity, m.kf.n_features, m.mp.capacity
+    K = kf_rows.shape[0]
+    dev = kf_rows.device
+    chk = kernels.check
+    chk(kf_rows, "kf_rows", torch.int32, (K,), dev)
+    chk(kf_ok, "kf_ok", torch.bool, (K,), dev)
+    chk(m.kf.mp_idx, "kf.mp_idx", torch.int32, (N, F), dev)
+    chk(m.kf.fvalid, "kf.fvalid", torch.bool, (N, F), dev)
+    chk(m.mp.valid, "mp.valid", torch.bool, (M,), dev)
+    out = torch.empty(M, dtype=torch.bool, device=dev)
+    p = kernels.ptr
+    kernels.launch("covisibility", "local_window_mask", p(kf_rows), p(kf_ok), K, p(m.kf.mp_idx),
+                   p(m.kf.fvalid), F, p(m.mp.valid), M, p(out))
+    return out
+
+
 def compact_indices(mask: torch.Tensor, k: int):
+    """`compact_indices_plain` (K7's compaction on a CUDA mask)."""
+    if not mask.is_cuda:
+        if mask.device.type != "cpu":
+            raise ValueError(f"unsupported device {mask.device}")
+        return compact_indices_plain(mask, k)
+    n = mask.shape[0]
+    if k > n:
+        raise ValueError(f"compact_indices: k={k} > {n} rows")
+    kernels.check(mask, "mask", torch.bool, (n,), mask.device)
+    rows = torch.empty(k, dtype=torch.int32, device=mask.device)
+    ok = torch.empty(k, dtype=torch.bool, device=mask.device)
+    kernels.launch("covisibility", "local_compact", kernels.ptr(mask), n, k, kernels.ptr(rows),
+                   kernels.ptr(ok))
+    return rows, ok
+
+
+def compact_indices_plain(mask: torch.Tensor, k: int):
     """Fixed-size newest-first compaction: the highest-index True rows in
     descending order, then (if fewer than k) the highest-index False rows in
     descending order. Returns (rows [k] i32, ok [k] bool). This is
@@ -62,3 +116,105 @@ def dedupe_candidate_weights(cand: torch.Tensor, w: torch.Tensor, ok=None) -> to
     eq = eff[:, None] == eff[None, :]
     dup = (eq & torch.ones(C, C, dtype=torch.bool, device=cand.device).tril(-1)).any(dim=1)
     return torch.where(dup, torch.zeros_like(w), w)
+
+
+def point_mask_of_kf(m: MapState, q: int) -> torch.Tensor:
+    """[M] bool: map points observed by a valid feature of keyframe row q."""
+    idx = m.kf.mp_idx[q]
+    return scatter_mask(idx, (idx >= 0) & m.kf.fvalid[q], m.mp.capacity)
+
+
+def anchor_candidates(m: MapState, mp_rows, ok, n_anchor: int, n_recent: int, extra_rows=()):
+    """Bounded keyframe candidates for covisibility against a point set: the
+    top anchor keyframes of the points (by hit count, `lax.top_k` order), the
+    n_recent newest keyframes, then the extra rows. Returns (cand, cand_ok)."""
+    N = m.kf.capacity
+    dev = mp_rows.device
+    n_anchor, n_recent = min(n_anchor, N), min(n_recent, N)
+    anchors = m.mp.ref_kf[mp_rows.clamp_min(0).long()]
+    hit = ok & (anchors >= 0) & (anchors < N)
+    cnt = torch.zeros(N, dtype=torch.int32, device=dev).index_add_(
+        0, torch.where(hit, anchors, torch.zeros_like(anchors)).long(), hit.to(torch.int32))
+    a_vals, a_rows = topk_stable(cnt, n_anchor)
+    recent = m.n_kf - 1 - torch.arange(n_recent, dtype=torch.int32, device=dev)
+    extra = torch.tensor(list(extra_rows), dtype=torch.int32, device=dev)
+    return (torch.cat([a_rows.to(torch.int32), recent.clamp_min(0), extra]),
+            torch.cat([a_vals > 0, recent >= 0, torch.ones_like(extra, dtype=torch.bool)]))
+
+
+def candidate_covis_weights(m: MapState, q: int, n_anchor: int = N_ANCHOR,
+                            n_recent: int = N_RECENT):
+    """(cand [C], w [C]): exact shared-point counts between keyframe q and the
+    bounded candidate set (C = n_anchor + n_recent + 1, q included),
+    duplicates zeroed."""
+    idxq = m.kf.mp_idx[q]
+    okq = (idxq >= 0) & m.kf.fvalid[q]
+    cand, cand_ok = anchor_candidates(m, idxq, okq, n_anchor, n_recent, [q])
+    pmask = scatter_mask(idxq, okq, m.mp.capacity)
+    c = cand.long()
+    cidx = m.kf.mp_idx[c]
+    contrib = (cidx >= 0) & m.kf.fvalid[c] & m.kf.valid[c][:, None] & cand_ok[:, None]
+    w = (contrib & pmask[cidx.clamp_min(0).long()]).sum(dim=1, dtype=torch.int32)
+    return cand, dedupe_candidate_weights(cand, w, cand_ok)
+
+
+def top_covisible_plain(m: MapState, q: int, k: int, min_weight: int = 1, self_weight: int = 0):
+    """Plain version of K7's top_covisible_of."""
+    cand, w = candidate_covis_weights(m, q)
+    w = torch.where(cand == q, torch.full_like(w, self_weight), w)
+    vals, li = topk_stable(w, min(k, cand.shape[0]))
+    rows, ok = cand[li], vals >= max(min_weight, 1)
+    pad = k - rows.shape[0]
+    if pad > 0:  # tiny capacities: pad to the asked size
+        rows = torch.cat([rows, torch.zeros(pad, dtype=rows.dtype, device=rows.device)])
+        ok = torch.cat([ok, torch.zeros(pad, dtype=torch.bool, device=ok.device)])
+    return rows, ok
+
+
+def _top_covisible_cuda(m: MapState, q: int, k: int, min_weight: int, self_weight: int):
+    N, F, M = m.kf.capacity, m.kf.n_features, m.mp.capacity
+    n_anchor, n_recent = min(N_ANCHOR, N), min(N_RECENT, N)
+    C = n_anchor + n_recent + 1
+    if C > 1024 or N > 12288 or not 0 <= q < N or k > 1024:
+        raise ValueError(f"top_covisible_of: q={q}, k={k}, C={C}, N={N} outside the kernel's "
+                         "limits (0 <= q < N <= 12288, C <= 1024, k <= 1024)")
+    dev = m.kf.mp_idx.device
+    for name, t, dt, shape in (("kf.mp_idx", m.kf.mp_idx, torch.int32, (N, F)),
+                               ("kf.fvalid", m.kf.fvalid, torch.bool, (N, F)),
+                               ("kf.valid", m.kf.valid, torch.bool, (N,)),
+                               ("mp.ref_kf", m.mp.ref_kf, torch.int32, (M,)),
+                               ("n_kf", m.n_kf, torch.int32, ())):
+        kernels.check(t, name, dt, shape, dev)
+    p = kernels.ptr
+
+    def out(*shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    pmask, counts = out(M, dtype=torch.bool), out(N, dtype=torch.int32)
+    kernels.launch("covisibility", "local_scatter_current", p(m.kf.mp_idx[q]), p(m.kf.fvalid[q]),
+                   F, p(m.mp.ref_kf), M, N, p(pmask), p(counts))
+    cand, cand_ok = out(C, dtype=torch.int32), out(C, dtype=torch.bool)
+    kernels.launch("covisibility", "local_candidates", p(counts), N, p(m.n_kf), None, None, 0,
+                   n_anchor, n_recent, None, q, p(cand), p(cand_ok))
+    w = out(C, dtype=torch.int32)
+    kernels.launch("covisibility", "local_weights", p(cand), p(cand_ok), C, N, p(m.kf.mp_idx),
+                   p(m.kf.fvalid), p(m.kf.valid), F, p(pmask), p(w))
+    rows, ok = out(k, dtype=torch.int32), out(k, dtype=torch.bool)
+    kernels.launch("covisibility", "local_select", p(cand), p(cand_ok), p(w), C, k, q,
+                   self_weight, max(min_weight, 1), p(rows), p(ok), None)
+    return rows, ok
+
+
+def top_covisible_of(m: MapState, q: int, k: int, min_weight: int = 1, self_weight: int = 0):
+    """Top-k covisible keyframe rows of keyframe row q (a host int) over the
+    candidate window, the bounded GetBestCovisibilityKeyFrames (KeyFrame.cc:276).
+    `self_weight=0` leaves q out; SELF_WEIGHT_PINNED ranks q first, and then
+    every copy of q in the candidate list (its anchor entry, its newest-row
+    entry, the extra [q]) is taken, as in the reference. Returns (rows [k]
+    i32, ok [k]). K7 on a CUDA map, the plain version on a CPU map."""
+    q = int(q)
+    if m.kf.mp_idx.is_cuda:
+        return _top_covisible_cuda(m, q, k, min_weight, self_weight)
+    if m.kf.mp_idx.device.type == "cpu":
+        return top_covisible_plain(m, q, k, min_weight, self_weight)
+    raise ValueError(f"unsupported device {m.kf.mp_idx.device}")

@@ -1,6 +1,6 @@
 """Fixed-capacity structure-of-arrays map state (port of
-`corbslam_tpu/mapstate/mapstate.py`: the tables, `empty`, `insert_keyframe`
-and `add_map_points`).
+`corbslam_tpu/mapstate/mapstate.py`: the tables, `empty`, `insert_keyframe`,
+`add_map_points`, `cull_keyframes` and `compact`).
 
 A keyframe is a row across the `KeyFrames` tensors, a landmark a row across
 `MapPoints`, and every cross-reference is an integer row. Observations live
@@ -9,9 +9,10 @@ map-point row or `NO_MP`. `n_kf` and `n_mp` are 0-dim int32 tensors on the
 map's device (allocation cursors), so inserting needs no host sync.
 
 Where the reference donates its buffers to a jitted program, the port writes
-in place: `insert_keyframe`, `add_map_points` and the tracking step's
-counters update the tensors of the map they are given and return a MapState
-that holds the same tensors: copy a map before stepping it twice.
+in place: `insert_keyframe`, `add_map_points`, `cull_keyframes` and the
+tracking step's counters update the tensors of the map they are given and
+return a MapState that holds the same tensors: copy a map (`clone`) before
+stepping it twice. `compact` returns new tensors.
 """
 
 from __future__ import annotations
@@ -169,3 +170,53 @@ def add_map_points(m: MapState, pos, desc, normal, min_dist, max_dist, ref_kf,
         w = write.view(K, *([1] * (arr.dim() - 1)))
         arr.index_copy_(0, tgt, torch.where(w, new, arr.index_select(0, tgt)))
     return m._replace(n_mp=m.n_mp + n_new), rows
+
+
+def clone(m: MapState) -> MapState:
+    """An independent copy of every table and cursor."""
+    return MapState(KeyFrames(*(t.clone() for t in m.kf)), MapPoints(*(t.clone() for t in m.mp)),
+                    m.n_kf.clone(), m.n_mp.clone())
+
+
+def cull_keyframes(m: MapState, kill: torch.Tensor) -> MapState:
+    """Invalidate the keyframes of the [N] mask `kill` (their features stop
+    observing), in place."""
+    m.kf.valid.logical_and_(~kill)
+    m.kf.mp_idx.masked_fill_(kill[:, None], NO_MP)
+    return m
+
+
+class CompactResult(NamedTuple):
+    m: MapState
+    kf_old2new: torch.Tensor  # [N] i32 new row per old row, -1 for dropped
+    mp_old2new: torch.Tensor  # [M] i32
+    kf_order: torch.Tensor    # [N] old row gathered into each new row
+    mp_order: torch.Tensor    # [M]
+
+
+def _plan(valid: torch.Tensor):
+    """Stable repack order (valid rows first), old -> new row map, count."""
+    cap = valid.shape[0]
+    order = torch.sort((~valid).to(torch.uint8), stable=True)[1]
+    n = valid.sum(dtype=torch.int32)
+    slots = torch.arange(cap, dtype=torch.int32, device=valid.device)
+    new_of_old = torch.full((cap,), -1, dtype=torch.int32, device=valid.device)
+    new_of_old[order] = torch.where(slots < n, slots, torch.full_like(slots, -1))
+    return order, new_of_old, n
+
+
+def compact(m: MapState) -> CompactResult:
+    """Repack valid rows to the front, stably (surviving rows keep their
+    order), and remap the cross-references: observations of dropped points
+    become NO_MP, anchors of dropped keyframes become row 0. Hosts remap
+    their own row references through kf_old2new / mp_old2new."""
+    kf_order, kf_map, n_kf = _plan(m.kf.valid)
+    mp_order, mp_map, n_mp = _plan(m.mp.valid)
+    kf = KeyFrames(*(t[kf_order] for t in m.kf))
+    mp = MapPoints(*(t[mp_order] for t in m.mp))
+    idx = kf.mp_idx
+    kf = kf._replace(mp_idx=torch.where(idx >= 0, mp_map[idx.clamp_min(0).long()],
+                                        torch.full_like(idx, NO_MP)))
+    mp = mp._replace(ref_kf=kf_map[mp.ref_kf.clamp_min(0).long()].clamp_min(0),
+                     first_kf=kf_map[mp.first_kf.clamp_min(0).long()].clamp_min(0))
+    return CompactResult(MapState(kf, mp, n_kf, n_mp), kf_map, mp_map, kf_order, mp_order)

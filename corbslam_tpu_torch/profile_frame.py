@@ -1,6 +1,6 @@
 """Where a stereo frame's time goes on the card.
 
-    python -m corbslam_tpu_torch.profile_frame [--frames 10] [--trace PATH] [--track]
+    python -m corbslam_tpu_torch.profile_frame [--frames 10] [--trace PATH] [--track | --tracker]
 
 Without `--track`: runs `build_frame_stereo` at the flagship geometry
 (1241x376, 2048 features, 8 levels) on the entry input, warms up, then
@@ -11,6 +11,12 @@ camera, KITTI_STEREO at full capacity, its PlanarWorld on the card): frame
 0 seeds the map, frames 1..5 warm up (a keyframe after frame 5), then
 `--frames` further frames go through `track_frame_stereo` under the trace,
 chained, with no keyframe inserted inside the traced window.
+
+With `--tracker`: the flagship cell's `StereoTracker` (`entry.tracker_entry`,
+frames_per_dispatch=2): the warm part of the bench schedule (6 frames, 6
+forced keyframes, 12 frames, flush), then `--frames` further frames of the
+schedule go through `process_stereo` under the trace, with their mapping
+stages, ending with the window's flush.
 
 Either way the trace is torch.profiler's (CPU + CUDA activities), and one
 JSON object is printed: the wall time per frame, the device time per frame
@@ -52,16 +58,39 @@ def tracked_frames(n: int):
     return step
 
 
+def tracker_frames(n: int):
+    """A callable that feeds the next bench frame to the flagship tracker
+    after the warm part of the schedule (the last call also flushes)."""
+    tracker, te = entry_mod.tracker_entry("cuda")
+    total = entry_mod.BENCH_WARM + n
+    imgs = [te.world.render_stereo(entry_mod.gt_pose(i)) for i in range(total)]
+    entry_mod.run_bench_schedule(tracker, imgs, stop=entry_mod.BENCH_WARM)
+    nxt = iter(range(entry_mod.BENCH_WARM, total))
+
+    def step():
+        i = next(nxt)
+        tracker.process_stereo(*imgs[i], i * 0.1)
+        if i == total - 1:
+            tracker.flush()
+
+    return step
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--trace", help="write the chrome trace to this file")
-    ap.add_argument("--track", action="store_true",
-                    help="profile the tracked frame (track_frame_stereo) instead of the front end")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--track", action="store_true",
+                      help="profile the tracked frame (track_frame_stereo) instead of the front end")
+    mode.add_argument("--tracker", action="store_true",
+                      help="profile the flagship StereoTracker's frames, mapping stages included")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame: needs a CUDA device")
-    if args.track:
+    if args.tracker:
+        step = tracker_frames(args.frames)
+    elif args.track:
         step = tracked_frames(args.frames)
     else:
         fwd, imgs = entry_mod.entry("cuda")
@@ -85,7 +114,8 @@ def main() -> None:
     device_ms = sum(v[0] for v in per_kernel.values())
     rows = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
     out = dict(
-        device=torch.cuda.get_device_name(0), mode="track" if args.track else "front_end",
+        device=torch.cuda.get_device_name(0),
+        mode="tracker" if args.tracker else "track" if args.track else "front_end",
         frames=args.frames,
         wall_ms_per_frame=wall_ms, device_ms_per_frame=device_ms,
         device_idle_share=max(0.0, 1.0 - device_ms / wall_ms) if wall_ms else None,

@@ -154,3 +154,65 @@ def test_map_round_trip():
     back = interop.map_from_numpy(interop.map_to_numpy(pm))
     _same_map(back, jm)
     assert back.kf.desc.data_ptr() != pm.kf.desc.data_ptr()
+
+
+def _covis_map(n_kf, N):
+    """A random map where keyframe q = n_kf - 1 anchors most of its points,
+    so q is its own top anchor, its newest row and the extra [q]."""
+    rng = np.random.default_rng(N * 100 + n_kf)
+    jm, _ = _random_map(rng, n_kf, N=N)
+    q = n_kf - 1
+    idx = np.asarray(jm.kf.mp_idx[q])
+    ref = np.array(jm.mp.ref_kf)
+    ref[idx[idx >= 0][::2]] = q
+    return jm._replace(mp=jm.mp._replace(ref_kf=jnp.asarray(ref))), q
+
+
+_jtop = jax.jit(jcovis.top_covisible_of, static_argnames=("k", "min_weight", "self_weight"))
+
+
+@pytest.mark.parametrize("self_weight", [0, 2 ** 30], ids=["self_0", "self_pinned"])
+@pytest.mark.parametrize("N,n_kf,k", [(16, 12, 8), (16, 12, 16), (16, 5, 32), (4, 4, 12)],
+                         ids=["k8", "k16", "k32_few_kfs", "k_above_C"])
+def test_top_covisible_of_equals_the_reference(self_weight, N, n_kf, k):
+    """Exact rows and flags, including every copy of q: pinned (2**30) it
+    fills up to three slots (anchor, newest row, extra), all ok; with
+    weight 0 its copies are not ok. k above the candidate count pads."""
+    jm, q = _covis_map(n_kf, N)
+    ref_rows, ref_ok = _jtop(jm, q, k=k, self_weight=self_weight)
+    rows, ok = covis.top_covisible_of(interop.map_from_numpy(jm), q, k, self_weight=self_weight)
+    np.testing.assert_array_equal(rows.numpy(), np.asarray(ref_rows))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(ref_ok))
+    q_ok = int((ok.numpy() & (rows.numpy() == q)).sum())
+    if self_weight:
+        assert q_ok == 3 and bool(ok[0]) and int(rows[0]) == q
+    else:
+        assert q_ok == 0 and int(ok.sum()) >= 1
+
+
+def test_compact_equals_the_reference():
+    rng = np.random.default_rng(21)
+    jm, _ = _random_map(rng, 12)
+    kv = np.array(jm.kf.valid)
+    kv[[2, 5, 6]] = False
+    first = rng.integers(0, 12, jm.mp.capacity).astype(np.int32)
+    jm = jm._replace(kf=jm.kf._replace(valid=jnp.asarray(kv)),
+                     mp=jm.mp._replace(first_kf=jnp.asarray(first)))
+    ref = jax.jit(jms.compact)(jm)
+    got = ms.compact(interop.map_from_numpy(jm))
+    _same_map(got.m, ref.m)
+    for f in ("kf_old2new", "mp_old2new", "kf_order", "mp_order"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(ref, f)),
+                                      err_msg=f)
+    assert int(got.m.n_kf) == 9 and bool((got.m.kf.mp_idx[:9] >= -1).all())
+
+
+def test_cull_keyframes_in_place_equals_the_reference():
+    rng = np.random.default_rng(22)
+    jm, _ = _random_map(rng, 10)
+    kill = rng.random(16) < 0.3
+    ref = jms.cull_keyframes(jm, jnp.asarray(kill))
+    pm = interop.map_from_numpy(jm)
+    got = ms.cull_keyframes(pm, T(kill))
+    _same_map(got, ref)
+    assert got.kf.valid.data_ptr() == pm.kf.valid.data_ptr()

@@ -31,9 +31,11 @@ from corbslam_tpu_torch import config, entry, interop, kernels
 from corbslam_tpu_torch.frontend import frame, track_ops
 from corbslam_tpu_torch.geometry import camera
 from corbslam_tpu_torch.io import synthetic
+from corbslam_tpu_torch.mapstate import covisibility as covis
+from corbslam_tpu_torch.mapstate import mapstate as ms
 from corbslam_tpu_torch.matching import matcher
 from corbslam_tpu_torch.ops import brief, fast, orb, pyramid
-from corbslam_tpu_torch.optim import pose_opt
+from corbslam_tpu_torch.optim import ba_dense, pose_opt
 
 torch.set_num_threads(2)
 
@@ -58,8 +60,9 @@ def test_import_leaves_out_jax_and_the_reference():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout) == len(MODULES) >= 24
-    for sub in ("mapstate", "matching", "optim"):
+    assert int(out.stdout) == len(MODULES) >= 30
+    for sub in ("mapstate", "matching", "optim", "mapping", "frontend.tracking",
+                "mapping.local_mapping", "optim.ba_dense", "optim.smallmat", "io.trajectory"):
         assert f"corbslam_tpu_torch.{sub}" in MODULES
 
 
@@ -75,7 +78,8 @@ def _tiny_inputs():
     return img, camera.Intrinsics.create(100, 100, 48, 32, bf=10.0, width=96, height=64)
 
 
-@pytest.mark.parametrize("call", ["extract", "stereo", "mono", "entry", "track_entry"])
+@pytest.mark.parametrize("call", ["extract", "stereo", "mono", "entry", "track_entry",
+                                  "tracker_entry"])
 def test_entry_points_default_to_cuda_and_raise_without_it(call):
     assert not torch.cuda.is_available()
     img, cam = _tiny_inputs()
@@ -89,6 +93,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(call):
             frame.build_frame_mono(img, cam, cfg)
         elif call == "track_entry":
             entry.track_entry()
+        elif call == "tracker_entry":
+            entry.tracker_entry()
         else:
             fwd, imgs = entry.entry()
             fwd(*imgs)
@@ -236,7 +242,8 @@ def test_chip_smoke_fails_without_cuda():
 
 
 @pytest.mark.parametrize("wrapper", ["pyramid", "fast", "describe", "stereo", "match", "pose",
-                                     "local_map"])
+                                     "local_map", "point_major", "ba_optimize", "top_covisible",
+                                     "window_mask", "compact"])
 def test_wrappers_refuse_devices_other_than_cpu_and_cuda(wrapper):
     """A wrapper takes its plain version only for a CPU tensor; a tensor on
     another device is refused, never silently moved."""
@@ -262,6 +269,21 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda(wrapper):
         elif wrapper == "local_map":
             track_ops.local_map_window(None, None, torch.empty(8, dtype=torch.int32, device="meta"),
                                        None, None, None, meta, None)
+        elif wrapper == "point_major":
+            ba_dense.build_point_major(torch.empty(4, 8, dtype=torch.int32, device="meta"),
+                                       torch.empty(4, 8, dtype=torch.bool, device="meta"), 16, 4)
+        elif wrapper == "ba_optimize":
+            ba_dense.optimize(None, ba_dense.BADense(*[meta] * 9), n_iters=1)
+        elif wrapper in ("top_covisible", "window_mask"):
+            m = ms.empty(config.CapacityConfig(max_keyframes=4, max_map_points=16, max_features=8,
+                                               local_window_kfs=2, local_window_mps=4), "meta")
+            if wrapper == "top_covisible":
+                covis.top_covisible_of(m, 0, 2)
+            else:
+                rows = torch.empty(2, dtype=torch.int32, device="meta")
+                covis.local_map_mask(m, rows, rows.bool())
+        elif wrapper == "compact":
+            covis.compact_indices(torch.empty(16, dtype=torch.bool, device="meta"), 4)
         else:
             f = orb.Features(*(torch.empty(64, 2, device="meta") for _ in range(7)))
             stereo.stereo_match(f, f, prm.scales, 1.0)

@@ -32,7 +32,26 @@
    eager calls) is printed beside them. The stereo kernel is also held
    against its plain version where every feature passes, so that its median
    cut is live;
-7. writes every measurement (per-frame times and counts, nvcc's full
+7. drives loop closing, the loop path's main path: `entry.loop_entry()`
+   (the 320x240 loop-validation config, the shipped vocab32k, global BA
+   off, the room `MultiPlaneWorld` rendered on the card) over the 71-frame
+   orbit with all counters reset just before, then a frame marked LOST by
+   hand and one more frame; checks every orbit frame OK, a loop closed
+   between keyframes more than 20 rows apart and within 3 rows of the JAX
+   yardstick's 48 <-> 7, the aligned ATE <= 2 x its 0.0693 m, finite
+   keyframe poses, the LOST frame relocalized, and K9-K11 launched; prints
+   the detections, attempts, sim3 log, relocalizations, the keyframe ATE
+   after the closure and each loop stage's and the closure's time. Then the
+   flagship schedule again with a loop closer attached (the 256 MB
+   [2048, 32768] database on the card): keyframes, points and ATE must
+   equal the run without it;
+8. holds K9-K11 against their plain versions on the loop phase's first
+   closure (its match set, essential graph and map, PnP and relocalize on
+   the LOST frame) and at the flagship's sizes (2048 features against the
+   whole database, Sim3 and PnP on 2048 matches, the covisibility count of
+   the final map, its essential graph of 2048 vertices and 18464 edges with
+   a synthetic loop edge), and times those full-width calls;
+9. writes every measurement (per-frame times and counts, nvcc's full
    -Xptxas -v log) to chiprun_out/chip_smoke_report.json in the checkout,
    and prints the kernels' JSON line, the nvidia-smi line, and as the last
    line {"ok": true, "device": {...}}.
@@ -60,22 +79,25 @@ sys.path.insert(0, ROOT)
 
 from corbslam_tpu_torch import kernels  # noqa: E402
 from corbslam_tpu_torch.entry import (  # noqa: E402
-    BENCH_FRAMES, BENCH_WARM, BENCH_WINDOW, CAM, CFG, TrackState, add_keyframe, bench_config,
-    center_error, entry, gt_pose, run_bench_schedule, seed_map, stereo_pair, track_entry,
-    track_step, tracker_entry)
+    BENCH_FRAMES, BENCH_WARM, BENCH_WINDOW, CAM, CFG, LOOP_FRAMES, TrackState, add_keyframe,
+    bench_config, center_error, entry, gt_pose, loop_entry, orbit_pose, run_bench_schedule,
+    seed_map, stereo_pair, track_entry, track_step, tracker_entry)
 from corbslam_tpu_torch.frontend import frame as frame_mod  # noqa: E402
-from corbslam_tpu_torch.frontend import track_ops  # noqa: E402
+from corbslam_tpu_torch.frontend import reloc, track_ops  # noqa: E402
 from corbslam_tpu_torch.frontend.tracking import StereoTracker  # noqa: E402
 from corbslam_tpu_torch.frontend.tracking import TrackState as TrackerState  # noqa: E402
-from corbslam_tpu_torch.geometry import se3  # noqa: E402
+from corbslam_tpu_torch.geometry import camera, se3, sim3  # noqa: E402
 from corbslam_tpu_torch.io import trajectory  # noqa: E402
+from corbslam_tpu_torch.loop import loop_closing  # noqa: E402
 from corbslam_tpu_torch.mapping import local_mapping  # noqa: E402
 from corbslam_tpu_torch.mapstate import covisibility as covis  # noqa: E402
 from corbslam_tpu_torch.mapstate import mapstate as ms  # noqa: E402
 from corbslam_tpu_torch.matching import matcher  # noqa: E402
 from corbslam_tpu_torch.ops import brief, fast, orb, pyramid, stereo  # noqa: E402
 from corbslam_tpu_torch.ops.orb import Features  # noqa: E402
-from corbslam_tpu_torch.optim import ba_dense, pose_opt, reproj  # noqa: E402
+from corbslam_tpu_torch.optim import ba_dense, pose_graph, pose_opt, reproj  # noqa: E402
+from corbslam_tpu_torch.place import database, vocab  # noqa: E402
+from corbslam_tpu_torch.solvers import pnp, sim3_solver  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and f32 rate outside the
 # tensor cores; every kernel here runs on the CUDA cores.
@@ -93,9 +115,16 @@ REPLACES = {
     "local_map": "corbslam_tpu/frontend/track_ops.py:220",
     "covisibility": "corbslam_tpu/mapstate/covisibility.py:145",
     "ba_dense": "corbslam_tpu/optim/ba_dense.py:434",
+    "vocab": "corbslam_tpu/place/vocab.py:447",
+    "sim3": "corbslam_tpu/solvers/sim3_solver.py:233",
+    "pnp": "corbslam_tpu/solvers/pnp.py:116",
+    "pose_graph": "corbslam_tpu/optim/pose_graph.py:78",
+    "covis_matrix": "corbslam_tpu/mapstate/covisibility.py:66",
 }
 SOURCES = {k: f"corbslam_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 SOURCES["covisibility"] = "corbslam_tpu_torch/csrc/local_map.cu"  # K7's mapping-stage launches
+SOURCES["sim3"] = SOURCES["pnp"] = "corbslam_tpu_torch/csrc/ransac.cu"  # K10
+SOURCES["covis_matrix"] = "corbslam_tpu_torch/csrc/pose_graph.cu"  # K11's covisibility count
 FRONT_END_KERNELS = ("pyramid", "fast_cells", "orb_describe", "stereo_match")
 TRACKING_KERNELS = FRONT_END_KERNELS + ("match_masked", "pose_opt", "local_map")
 REPORT = os.path.join(ROOT, "chiprun_out", "chip_smoke_report.json")
@@ -142,20 +171,27 @@ def host_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Mean device time of one fn() call: the summed time of every kernel,
-    copy and fill it runs on the card (torch.profiler), host time left out."""
+    copy and fill it runs on the card (torch.profiler), host time left out.
+    CUPTI now and then returns no device events for a profiler session: such
+    a session is run once more, and the run fails if that one records no
+    device time either."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(ev.device_time_total for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA)
-    require(us > 0, "torch.profiler recorded no device time")
-    return us / 1e3 / reps
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(ev.device_time_total for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / reps
+        print(f"torch.profiler recorded no device time for "
+              f"{getattr(fn, '__qualname__', repr(fn))} (session {attempt + 1})", flush=True)
+    raise AssertionError("torch.profiler recorded no device time in two sessions")
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -1172,6 +1208,487 @@ def time_stages(tp: dict, reps: int = 2) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: loop closing and relocalization (K9 vocab, K10 sim3 / pnp, K11)
+# ---------------------------------------------------------------------------
+
+# The JAX yardstick of the loop phase (PERF.md): the reference's
+# tracker with its LoopCloser on the same orbit, on a CPU.
+JAX_LOOP = dict(kf_q=48, kf_c=7, keyframes=49, detections=36, attempts=146, ate_m=0.0693)
+LOOP_KERNELS = ("vocab", "sim3", "pnp", "pose_graph", "covis_matrix")
+LOOP_COUNTERS = TRACKER_COUNTERS + LOOP_KERNELS
+
+
+def orbit_ate(traj) -> float:
+    """Aligned ATE of the first len(traj) orbit frames (tools/loop_e2e.py's)."""
+    est = np.asarray([np.linalg.inv(np.asarray(T, np.float64)) for _, T in traj])
+    gtw = np.asarray([np.linalg.inv(orbit_pose(i).numpy().astype(np.float64))
+                      for i in range(len(est))])
+    return trajectory.ate_rmse(est, gtw, align=True)
+
+
+def keyframe_ate(m) -> float:
+    """Aligned ATE of the live keyframes' poses against their frames' truth."""
+    rows = torch.nonzero(m.kf.valid)[:, 0]
+    T = m.kf.Tcw[rows].double().cpu().numpy()
+    fid = m.kf.frame_id[rows].cpu().numpy()
+    gtw = np.asarray([np.linalg.inv(orbit_pose(int(i)).numpy().astype(np.float64)) for i in fid])
+    return trajectory.ate_rmse(np.linalg.inv(T), gtw, align=True)
+
+
+def run_loop_phase() -> dict:
+    """The loop orbit (entry.loop_entry: 71 frames of the room rendered on the
+    card, all counters reset just before), then a frame marked LOST by hand
+    (relocalized against the database) and one more frame. Keeps the map
+    before the first closure; times each loop stage and the closure."""
+    tracker, le = loop_entry("cuda")
+    n = LOOP_FRAMES
+    imgs = [le.world.render_stereo(orbit_pose(i)) for i in range(n + 2)]
+    torch.cuda.synchronize()
+    lc = tracker.loop_closer
+    kept, stage_ms, close_ms = {}, [], []
+    close, stage = lc.close_loop, tracker._stage_loop_closing
+
+    def events():
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def close_and_keep(m, kf_q, kf_c, sb):
+        if not kept:
+            kept.update(m=ms.clone(m), kf_q=kf_q, kf_c=kf_c, sb=sb,
+                        keyframe_ate_before_m=keyframe_ate(m))
+        a, b = events()
+        a.record()
+        out = close(m, kf_q, kf_c, sb)
+        b.record()
+        torch.cuda.synchronize()
+        close_ms.append(a.elapsed_time(b))
+        kept.setdefault("keyframe_ate_after_m", keyframe_ate(out))
+        return out
+
+    def timed_stage(kf_row):
+        a, b = events()
+        a.record()
+        stage(kf_row)
+        b.record()
+        torch.cuda.synchronize()
+        stage_ms.append(a.elapsed_time(b))
+
+    lc.close_loop, tracker._stage_loop_closing = close_and_keep, timed_stage
+    frame_ms = []
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for i in range(n):
+        t1 = time.perf_counter()
+        tracker.process_stereo(*imgs[i], 0.1 * i)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t1) * 1e3)
+    tracker.flush()
+    states = [s.name for s in tracker.frame_states]
+    traj = list(tracker.trajectory)
+    kf_ate_orbit = keyframe_ate(tracker.map)
+    tracker.state = TrackerState.LOST  # by hand: the next frame relocalizes
+    for i in (n, n + 1):
+        tracker.process_stereo(*imgs[i], 0.1 * i)
+    tracker.flush()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    del lc.close_loop, tracker._stage_loop_closing
+    st = lc.stats
+    out = dict(
+        tracker=tracker, imgs=imgs, kept=kept, frames=n, states_ok=states.count("OK"),
+        keyframes=tracker.stats.n_keyframes, detections=st.n_detections,
+        attempts=st.n_sim3_attempts, loops=st.n_loops_closed, last_loop=st.last_loop,
+        first_loop=(kept.get("kf_q"), kept.get("kf_c")), sim3_log=list(st.sim3_log),
+        relocalizations=tracker.stats.n_relocalizations,
+        after_lost=[s.name for s in tracker.frame_states[n:]], ate_m=orbit_ate(traj),
+        keyframe_ate_m=kf_ate_orbit, keyframe_ate_final_m=keyframe_ate(tracker.map),
+        keyframe_ate_around_closure_m=(kept.get("keyframe_ate_before_m"),
+                                       kept.get("keyframe_ate_after_m")), frame_ms=frame_ms,
+        frame_ms_p50=float(np.percentile(frame_ms, 50)),
+        frame_ms_p90=float(np.percentile(frame_ms, 90)), loop_stage_ms=stage_ms,
+        close_ms=close_ms, stages=dict(tracker.stats.stages), wall_s=wall_s, launches=launches)
+    print(f"loop phase (before the checks): {json.dumps({k: v for k, v in out.items() if k not in ('tracker', 'imgs', 'kept')}, default=str)}", flush=True)
+    require(len(states) == n and states.count("OK") == n, f"loop: frame states {states}")
+    require(st.n_loops_closed >= 1 and kept, "loop: no loop closed")
+    kf_q, kf_c = kept["kf_q"], kept["kf_c"]
+    require(kf_q - kf_c > 20, f"loop: closure {kf_q} <-> {kf_c} is not a loop")
+    require(abs(kf_q - JAX_LOOP["kf_q"]) <= 3 and abs(kf_c - JAX_LOOP["kf_c"]) <= 3,
+            f"loop: closure {kf_q} <-> {kf_c}, the JAX yardstick's {JAX_LOOP['kf_q']} <-> "
+            f"{JAX_LOOP['kf_c']}")
+    require(out["ate_m"] <= 2 * JAX_LOOP["ate_m"],
+            f"loop: ATE {out['ate_m']:.4f} m > 2 x the JAX yardstick's {JAX_LOOP['ate_m']} m")
+    m = tracker.map
+    require(bool(torch.isfinite(m.kf.Tcw[m.kf.valid]).all()), "loop: non-finite keyframe pose")
+    require(tracker.stats.n_relocalizations >= 1 and out["after_lost"] == ["OK", "OK"],
+            f"loop: the frame marked LOST did not relocalize ({out['after_lost']})")
+    for name in LOOP_COUNTERS:
+        require(launches[name] > 0, f"kernel {name} was not launched by the loop phase")
+    return out
+
+
+def run_flagship_with_loop_closer(kp: dict) -> dict:
+    """The flagship schedule again with a LoopCloser (vocab32k, global BA off)
+    on KITTI_STEREO at full capacity: its 9 keyframes never reach detection,
+    so keyframes, points and ATE equal the run without it."""
+    tracker, _ = tracker_entry("cuda", loop_closer=True)
+    times = {}
+
+    def step(i, fn):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i is not None:
+            times[i] = (time.perf_counter() - t0) * 1e3
+
+    kernels.reset_launches()
+    run_bench_schedule(tracker, kp["imgs"], step=step)
+    launches = dict(kernels.LAUNCHES)
+    meas = [times[i] for i in sorted(times)]
+    pairs = [(meas[k] + meas[k + 1]) / 2 for k in range(0, len(meas) - 1, 2)]
+    out = dict(tracker=tracker, ate_m=aligned_ate(tracker.trajectory),
+               keyframes=tracker.stats.n_keyframes,
+               valid_points=int(tracker.map.mp.valid.sum()),
+               db_rows=int(tracker.loop_closer.db.valid.sum()),
+               db_mb=tracker.loop_closer.db.bow.numel() * 4 / 2 ** 20,
+               frame_ms_p50=float(np.percentile(pairs, 50)),
+               frame_ms_p90=float(np.percentile(pairs, 90)), launches=launches,
+               stages=dict(tracker.stats.stages))
+    require(out["keyframes"] == kp["keyframes"] and out["valid_points"] == kp["valid_points"],
+            f"flagship + loop closer: {out['keyframes']} keyframes / {out['valid_points']} "
+            f"points, without it {kp['keyframes']} / {kp['valid_points']}")
+    require(abs(out["ate_m"] - kp["ate_m"]) <= 1e-4,
+            f"flagship + loop closer: ATE {out['ate_m']} vs {kp['ate_m']} without it")
+    require(launches["vocab"] > 0 and all(s == "OK" for s in (x.name for x in tracker.frame_states)),
+            "flagship + loop closer: no BoW launch or a frame not OK")
+    return out
+
+
+def gate_flips(inl_kernel, inl_plain, errs_and_gates) -> tuple:
+    """(flips, flips off the gate): the entries whose inlier flag differs
+    between kernel and plain, and those of them whose chi2 at the plain
+    model lies more than 1e-3 (relative) from its gate in every camera."""
+    flips = inl_kernel != inl_plain
+    near = torch.zeros_like(flips)
+    for e, gate in errs_and_gates:
+        near |= (e - gate).abs() <= 1e-3 * gate
+    return int(flips.sum()), int((flips & ~near).sum())
+
+
+def same_sim3(cam, mt, idx, fix_scale: bool = True) -> dict:
+    """K10's Sim3 RANSAC and refinement against the plain versions on one
+    match set and index draw: the chosen inlier counts equal, inlier flips
+    only within 1e-3 of the gate, R 1e-5, t 1e-4, refinement 1e-4."""
+    a = sim3_solver.solve_sim3_ransac(cam, cam, *mt, idx=idx, min_inliers=20, fix_scale=fix_scale)
+    b = sim3_solver.solve_sim3_ransac_plain(cam, cam, *mt, idx, 20, fix_scale)
+    ra = sim3_solver.refine_sim3_iterative(cam, cam, *mt, b.R, b.t, b.s, fix_scale)
+    rb = sim3_solver.refine_sim3_iterative_plain(cam, cam, *mt, b.R, b.t, b.s, fix_scale)
+    torch.cuda.synchronize()
+    p1, p2, _, s2_1, s2_2 = mt
+
+    def flips(inl_k, inl_p, R, t, s):
+        e1, e2, _ = sim3_solver._sim3_chi2(cam, cam, p1, p2, R, t, s)
+        return gate_flips(inl_k, inl_p, ((e1, sim3_solver.CHI2_SIM3 * s2_1),
+                                         (e2, sim3_solver.CHI2_SIM3 * s2_2)))
+
+    f, f_off = flips(a.inliers, b.inliers, b.R, b.t, b.s)
+    rf, rf_off = flips(ra[3], rb[3], *rb[:3])
+    out = dict(n_inliers=(int(a.n_inliers), int(b.n_inliers)), flips=f, flips_off_gate=f_off,
+               R=float((a.R - b.R).abs().max()), t=float((a.t - b.t).abs().max()),
+               refine_n=(int(ra[4]), int(rb[4])), refine_flips=rf, refine_flips_off_gate=rf_off,
+               refine_R=float((ra[0] - rb[0]).abs().max()),
+               refine_t=float((ra[1] - rb[1]).abs().max()))
+    require(out["n_inliers"][0] == out["n_inliers"][1] and f_off == 0 and out["R"] <= 1e-5
+            and out["t"] <= 1e-4 and out["refine_n"][0] == out["refine_n"][1] and rf_off == 0
+            and out["refine_R"] <= 1e-4 and out["refine_t"] <= 1e-4,
+            f"sim3: kernel and plain differ {out}")
+    return out
+
+
+def same_pnp(cam, X, uv, valid, sigma2, idx) -> dict:
+    """K10's PnP RANSAC against the plain version on one match set and draw:
+    the chosen inlier counts equal, inlier flips only within 1e-3 of the
+    gate, R within 1e-4 and t within 1e-4 of its norm. A six-point DLT is
+    ill-conditioned: at the flagship's 19 m translation a float64 DLT of the
+    chosen sample lies 2.2e-3 / 3.4e-3 m from the plain / kernel f32 poses
+    (PERF.md)."""
+    a = pnp.solve_pnp_ransac(cam, X, uv, valid, sigma2, idx=idx)
+    b = pnp.solve_pnp_ransac_plain(cam, X, uv, valid, sigma2, idx)
+    torch.cuda.synchronize()
+    e = ((camera.project(cam, se3.transform(b.Tcw, X)) - uv) ** 2).sum(-1)
+    f, f_off = gate_flips(a.inliers, b.inliers, ((e, 5.991 * sigma2),))
+    out = dict(n_inliers=(int(a.n_inliers), int(b.n_inliers)), flips=f, flips_off_gate=f_off,
+               R=float((a.Tcw[:3, :3] - b.Tcw[:3, :3]).abs().max()),
+               t=float((a.Tcw[:3, 3] - b.Tcw[:3, 3]).abs().max()),
+               t_norm=float(b.Tcw[:3, 3].norm()))
+    require(out["n_inliers"][0] == out["n_inliers"][1] and f_off == 0 and out["R"] <= 1e-4
+            and out["t"] <= 1e-4 * max(1.0, out["t_norm"]), f"pnp: kernel and plain differ {out}")
+    return out
+
+
+def same_vocab(voc, db, desc, valid) -> dict:
+    wk, wp = vocab.assign(voc, desc), vocab.assign_plain(voc, desc)
+    hk, hp = vocab.transform(voc, desc, valid), vocab.histogram_plain(voc, wp, valid)
+    sk, sp = vocab.l1_scores(hk, db), vocab.l1_scores_plain(hp[None], db)[0]
+    ik, vk = vocab.transform_sparse(voc, desc, valid)
+    ip, vp = vocab.sparse_plain(voc, wp, valid)
+    torch.cuda.synchronize()
+    out = dict(word_mismatch=int((wk != wp).sum()), hist=float((hk - hp).abs().max()),
+               scores=float((sk - sp).abs().max()), sparse_ids_equal=bool(torch.equal(ik, ip)),
+               sparse=float((vk - vp).abs().max()))
+    require(out["word_mismatch"] == 0 and out["hist"] <= 1e-6 and out["scores"] <= 1e-6
+            and out["sparse_ids_equal"] and out["sparse"] <= 1e-6, f"vocab: kernel and plain "
+            f"differ {out}")
+    return out
+
+
+def same_graph(g, n_iters=20, cg_iters=40, t_rel: bool = False) -> dict:
+    """K11's linearization (1e-4 relative) and optimize against the plain
+    versions: R and s within 1e-4, the cost within 1e-3 (relative), t within
+    1e-4 m, or with `t_rel` within 1e-4 of the graph's extent (the largest
+    |t|). The relative form is for graphs tens of metres across: there
+    rounding alone moves the plain result further than 1e-4 m, and the
+    report gives that sensitivity (the plain version again on translations
+    scaled by 1 + 1.2e-7, about one f32 ulp)."""
+    r, Ji, Jj = pose_graph.linearize_edges(g)
+    r2, Ji2, Jj2 = pose_graph.linearize_edges_plain(g)
+    (R, t, s), c = pose_graph.optimize(g, n_iters, cg_iters)
+    (R2, t2, s2), c2 = pose_graph.optimize_plain(g, n_iters, cg_iters)
+    torch.cuda.synchronize()
+    rel = lambda a, b: float((a - b).abs().max() / max(float(b.abs().max()), 1.0))  # noqa: E731
+    out = dict(lin=[rel(r, r2), rel(Ji, Ji2), rel(Jj, Jj2)], t=float((t - t2).abs().max()),
+               R=float((R - R2).abs().max()), s=float((s - s2).abs().max()),
+               cost=float(((c - c2).abs() / c2.abs().clamp_min(1e-12)).max()),
+               cost_first_last=[float(c[0]), float(c[-1])],
+               edges=int(g.e_valid.sum()), vertices=int((~g.fixed).sum()))
+    t_tol = 1e-4
+    if t_rel:
+        out["extent_m"] = float(t2.abs().max())
+        t_tol = 1e-4 * out["extent_m"]
+        (_, t3, _), _ = pose_graph.optimize_plain(g._replace(t=g.t * (1 + 1.2e-7)), n_iters,
+                                                  cg_iters)
+        out["plain_t_ulp_sensitivity"] = float((t3 - t2).abs().max())
+    out["t_tol"] = t_tol
+    require(max(out["lin"]) <= 1e-4 and out["t"] <= t_tol and out["R"] <= 1e-4
+            and out["s"] <= 1e-4 and out["cost"] <= 1e-3,
+            f"pose graph: kernel and plain differ {out}")
+    return out
+
+
+def ring_graph(N: int = 2048, covis_k: int = 8, n_loop_slots: int = 32, radius: float = 50.0,
+               seed: int = 13, device="cuda") -> pose_graph.PoseGraph:
+    """A populated essential graph in `build_essential_graph`'s layout
+    (E = N + N covis_k + n_loop_slots): N keyframes on a ring of `radius`
+    metres (0.15 m apart at 2048 and 50 m), the spanning chain (parent
+    i - 1, row 0 without one), each row's covisibility edges to rows
+    i + 2 .. i + covis_k + 1 (those past the last row unweighted), and two
+    loop edges closing the ring in the first two of the loop slots.
+    Measurements are the true relative poses with 2 cm / 0.01 rad of noise,
+    the vertices the true poses with 5 cm / 0.02 rad of drift; row 0 is
+    fixed (the gauge)."""
+    rng = np.random.default_rng(seed)
+    th = 2 * np.pi * np.arange(N) / N
+    xi = np.zeros((N, 7), np.float32)
+    xi[:, 0], xi[:, 2], xi[:, 4] = radius * np.cos(th), radius * np.sin(th), th
+    gt = sim3.exp(torch.from_numpy(xi))
+    rows = np.arange(N)
+    sp_i, sp_j = np.maximum(rows - 1, 0), rows
+    cv_j = rows[:, None] + 2 + np.arange(covis_k)[None, :]
+    cv_ok = cv_j < N
+    lp_i, lp_j = np.zeros(n_loop_slots, np.int64), np.zeros(n_loop_slots, np.int64)
+    lp_i[:2], lp_j[:2] = (N - 1, N - 2), (0, 1)
+    e_i = np.concatenate([sp_i, np.repeat(rows, covis_k), lp_i])
+    e_j = np.concatenate([sp_j, np.where(cv_ok, cv_j, 0).reshape(-1), lp_j])
+    e_ok = np.concatenate([rows > 0, cv_ok.reshape(-1), np.arange(n_loop_slots) < 2])
+    E = e_i.shape[0]
+    sd = np.array([0.02, 0.02, 0.02, 0.01, 0.01, 0.01, 0.0], np.float32)
+    noise = torch.from_numpy((rng.normal(size=(E, 7)) * sd).astype(np.float32))
+    drift = torch.from_numpy((rng.normal(size=(N, 7)) * 2.5 * sd).astype(np.float32))
+    take = lambda S, idx: tuple(x[torch.from_numpy(idx)] for x in S)  # noqa: E731
+    mR, mt, msc = sim3.compose(sim3.exp(noise),
+                               sim3.compose(take(gt, e_j), sim3.inverse(take(gt, e_i))))
+    R, t, sc = sim3.compose(sim3.exp(drift), gt)
+    dev = torch.device(device)
+    i32 = lambda a: torch.from_numpy(a.astype(np.int32)).to(dev)  # noqa: E731
+    return pose_graph.PoseGraph(
+        R.contiguous().to(dev), t.contiguous().to(dev), sc.contiguous().to(dev),
+        torch.from_numpy(rows == 0).to(dev), i32(e_i), i32(e_j), mR.contiguous().to(dev),
+        mt.contiguous().to(dev), msc.contiguous().to(dev), torch.from_numpy(e_ok).to(dev),
+        torch.ones(E, device=dev))
+
+
+def check_loop_kernels(lp: dict) -> dict:
+    """K9-K11 against their plain versions on the loop phase's own inputs:
+    the first closure's query / candidate, their match set, the essential
+    graph of the closure, its map for the covisibility count; PnP on the
+    match set of a frame marked LOST, and relocalize on it."""
+    tracker, kept = lp["tracker"], lp["kept"]
+    cam, cfg, lc_ = tracker.cam, tracker.cfg, tracker.loop_closer
+    m, kf_q, kf_c = kept["m"], kept["kf_q"], kept["kf_c"]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    info = dict(kf_q=kf_q, kf_c=kf_c)
+    # K1-K4 at the loop geometry (320x240, 512 features, 4 levels, 12-px cells).
+    imgs = orb.as_images(list(lp["imgs"][0]), torch.device("cuda"))
+    _, info["front_end"] = check_kernels(imgs, orb.params(cfg.orb, cam.height, cam.width, "cuda"),
+                                         timed=False)
+    info["vocab"] = same_vocab(lc_.voc, lc_.db.bow, m.kf.desc[kf_q], m.kf.fvalid[kf_q])
+    mt = loop_closing.sim3_matches(m, kf_q, kf_c, cfg)
+    info["sim3"] = same_sim3(cam, mt, sim3_solver.sample_indices(mt.pair_ok, 256, 3, gen))
+    W, Wp = covis.covis_matrix(m), covis.covis_matrix_plain(m)
+    require(torch.equal(W, Wp), "covis_matrix: kernel and plain differ on the loop map")
+    info["covis_matrix"] = dict(equal=True, max=int(W.max()))
+    m2 = ms.clone(m)
+    sb = kept["sb"]
+    m2, _ = loop_closing.correct_window(m2, kf_q, kf_c, sb.R, sb.t, sb.s, cfg)
+    m2 = loop_closing.fuse_loop_points(cam, m2, kf_q, kf_c, cfg)
+    loops = loop_closing.LoopEdges.empty(device="cuda").add(0, kf_c, kf_q, sb.R, sb.t, sb.s)
+    g = loop_closing.build_essential_graph(m2, loops, kf_c, m.kf.Tcw)
+    info["pose_graph"] = same_graph(g)
+    # A frame of the orbit marked LOST: its BoW candidates, PnP on the best.
+    fr = frame_mod.build_frame_stereo(*lp["imgs"][lp["frames"]], cam, cfg.orb, device="cuda")
+    mf = tracker.map
+    bow = vocab.transform(lc_.voc, fr.desc, fr.fvalid)
+    rows, ok = database.detect_relocalization_candidates(lc_.db, mf, bow, k=5)
+    require(bool(ok.any()), "relocalization: no candidate for the LOST frame")
+    _, hit, X, sigma2 = reloc.reloc_matches(mf, int(rows[0]), fr, cfg)
+    info["pnp"] = same_pnp(cam, X, fr.xy.contiguous(), hit, sigma2,
+                           sim3_solver.sample_indices(hit, 256, 6, gen))
+    res = reloc.relocalize(cam, mf, lc_.db, lc_.voc, fr, cfg, generator=gen)
+    require(res is not None and bool(res.ok), "relocalize failed on the LOST frame")
+    T_gt = orbit_pose(lp["frames"]) @ se3.inverse(orbit_pose(0))  # in the map's frame
+    info["relocalize"] = dict(n_inliers=int(res.n_inliers),
+                              center_err_m=center_distance(res.Tcw.cpu(), T_gt))
+    return info
+
+
+def check_full_width(fl: dict) -> tuple:
+    """K9-K11 at the flagship's sizes on its final map (with the loop closer:
+    2048 features, the [2048, 32768] database): rows for the kernels' line
+    with each bound from these inputs."""
+    tracker = fl["tracker"]
+    cam, cfg, lc_ = tracker.cam, tracker.cfg, tracker.loop_closer
+    m, voc, db = tracker.map, lc_.voc, lc_.db.bow
+    N, F, M = m.kf.capacity, m.kf.n_features, m.mp.capacity
+    W, G, C = voc.n_words, voc.groups.shape[0], voc.child_idx.shape[1]
+    live = torch.nonzero(m.kf.valid)[:, 0].tolist()
+    q, b = live[-1], live[-2]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    info, rows = {}, []
+    # K9: one keyframe's BoW and its scores over the whole database.
+    desc, valid = m.kf.desc[q], m.kf.fvalid[q]
+    info["vocab"] = same_vocab(voc, db, desc, valid)
+    nv = int(valid.sum())
+    words = vocab.assign(voc, desc)
+    k9_bytes = (F * 33 + G * 32 + F * 2 * C * (4 + 32) + W * 4 + N * W * 4 + W * 4
+                + F * 4 + W * 4 + N * 4)
+    k9_ops = F * (G + 2 * C) * 24 + 3 * W + nv + 2 * N * W
+    rows.append(dict(name="vocab", max_abs_err=max(info["vocab"]["hist"], info["vocab"]["scores"]),
+                     bound=bound_ms(k9_bytes, k9_ops),
+                     fns=(lambda: vocab.l1_scores(vocab.transform(voc, desc, valid), db),
+                          lambda: vocab.l1_scores_plain(
+                              vocab.histogram_plain(voc, vocab.assign_plain(voc, desc),
+                                                    valid)[None], db), None, 5)))
+    # K10 Sim3: keyframe b's points in its camera and under a known Sim3
+    # (1 cm noise, a quarter of the rows shuffled as outliers).
+    idx_b = m.kf.mp_idx[b]
+    bound_b = (idx_b >= 0) & m.kf.fvalid[b]
+    p2 = se3.transform(m.kf.Tcw[b], m.mp.pos[idx_b.clamp_min(0).long()]).contiguous()
+    S = sim3.exp(torch.tensor([0.3, -0.1, 0.5, 0.02, -0.05, 0.03, 0.0], device="cuda"))
+    noise = torch.randn(p2.shape, generator=gen, device="cuda") * 0.01
+    p1 = sim3.transform(S, p2) + noise
+    out_rows = torch.arange(F // 4, device="cuda")
+    p1[out_rows] = p1[out_rows.flip(0)]
+    s2 = (1.44 ** m.kf.octave[b].to(torch.float32)).contiguous()
+    mt = loop_closing.Sim3Matches(p1.contiguous(), p2, bound_b, s2, s2)
+    sidx = sim3_solver.sample_indices(bound_b, 256, 3, gen)
+    info["sim3"] = same_sim3(cam, mt, sidx)
+    nb = int(bound_b.sum())
+    sim3_bytes = F * (12 + 12 + 1 + 4 + 4) + 256 * 12 + 256 * 52 + 52 + F * 2 + 8
+    sim3_ops = 256 * (100 * 32 + 400) + 256 * nb * 70 + 2 * nb * 70 + 3 * nb * 500
+    rows.append(dict(name="sim3", max_abs_err=max(info["sim3"]["R"], info["sim3"]["t"]),
+                     bound=bound_ms(sim3_bytes, sim3_ops),
+                     fns=(lambda: sim3_solver.refine_sim3_iterative(
+                         cam, cam, *mt, *sim3_solver.solve_sim3_ransac(
+                             cam, cam, *mt, idx=sidx, fix_scale=True)[:3], True),
+                          lambda: sim3_solver.refine_sim3_iterative_plain(
+                              cam, cam, *mt, *sim3_solver.solve_sim3_ransac_plain(
+                                  cam, cam, *mt, sidx, 20, True)[:3], True), None, 5)))
+    # K10 PnP: keyframe q's observations of its points.
+    idx_q = m.kf.mp_idx[q]
+    hit = (idx_q >= 0) & m.kf.fvalid[q]
+    X = m.mp.pos[idx_q.clamp_min(0).long()].contiguous()
+    uv = m.kf.xy[q].contiguous()
+    sg2 = (1.44 ** m.kf.octave[q].to(torch.float32)).contiguous()
+    pidx = sim3_solver.sample_indices(hit, 256, 6, gen)
+    info["pnp"] = same_pnp(cam, X, uv, hit, sg2, pidx)
+    nh = int(hit.sum())
+    pnp_bytes = F * (12 + 8 + 1 + 4) + 256 * 24 + 256 * 48 + 64 + F + 8
+    pnp_ops = 256 * 4000 + 256 * nh * 30 + nh * 30
+    rows.append(dict(name="pnp", max_abs_err=max(info["pnp"]["R"], info["pnp"]["t"]),
+                     bound=bound_ms(pnp_bytes, pnp_ops),
+                     fns=(lambda: pnp.solve_pnp_ransac(cam, X, uv, hit, sg2, idx=pidx),
+                          lambda: pnp.solve_pnp_ransac_plain(cam, X, uv, hit, sg2, pidx), None,
+                          5)))
+    # K11 B17: the covisibility count of the final map, and the library's
+    # bf16 product of the 0/1 incidence (built once, outside the timing).
+    Wk, Wp = covis.covis_matrix(m), covis.covis_matrix_plain(m)
+    require(torch.equal(Wk, Wp), "covis_matrix: kernel and plain differ at full size")
+    B = covis.obs_matrix(m, torch.bfloat16)
+
+    def library_covis():
+        try:  # f32 accumulation and output (torch >= 2.8 on CUDA)
+            return torch.mm(B, B.T, out_dtype=torch.float32)
+        except (TypeError, NotImplementedError, RuntimeError):
+            return torch.mm(B, B.T)
+
+    n_obs = int(((m.kf.mp_idx >= 0) & m.kf.fvalid & m.kf.valid[:, None]).sum())
+    pairs = int(Wk.sum())
+    info["covis_matrix"] = dict(equal=True, observations=n_obs, pairs=pairs,
+                                library_equal=bool(torch.equal(library_covis().float().round()
+                                                               .to(torch.int32), Wk)))
+    cm_bytes = N * F * 5 + N + N * N * 4
+    cm_ops = 2 * n_obs + pairs
+    rows.append(dict(name="covis_matrix", max_abs_err=0.0, bound=bound_ms(cm_bytes, cm_ops),
+                     fns=(lambda: covis.covis_matrix(m), lambda: covis.covis_matrix_plain(m),
+                          library_covis, 3)))
+    # K11 B14: the essential graph of the final map with one synthetic loop
+    # edge (first and last live keyframes, their relative pose moved 5 cm);
+    # it has few free vertices, so the row is timed on `ring_graph`, a
+    # populated graph of the same layout and size.
+    a0, a1 = live[0], live[-1]
+    Ta, Tb = m.kf.Tcw[a0], m.kf.Tcw[a1]
+    T_rel = Tb @ se3.inverse(Ta)
+    loops = loop_closing.LoopEdges.empty(device="cuda").add(
+        0, a0, a1, T_rel[:3, :3], T_rel[:3, 3] + torch.tensor([0.05, 0.0, 0.0], device="cuda"),
+        torch.ones((), device="cuda"))
+    g = loop_closing.build_essential_graph(m, loops, a0, m.kf.Tcw.clone())
+    info["pose_graph_flagship_map"] = same_graph(g)
+    rg = ring_graph(N, device="cuda")
+    require(rg.e_i.shape == g.e_i.shape, f"ring graph: {rg.e_i.shape[0]} edges, the essential "
+            f"graph {g.e_i.shape[0]}")
+    info["pose_graph"] = same_graph(rg, t_rel=True)
+    E = rg.e_i.shape[0]
+    ev, nf = info["pose_graph"]["edges"], info["pose_graph"]["vertices"]
+    # The work the result needs: every vertex read and written, every edge's
+    # flag and weight read, the weighted edges' ends and measurements read;
+    # per Gauss-Newton iteration the weighted edges' residual and 14
+    # Jacobian columns (~2000 operations each), their 7x7 blocks and
+    # gradients, the free vertices' block inverses, and per CG iteration
+    # two Jacobian products per weighted edge and side and the free
+    # vertices' preconditioner and vector updates.
+    pg_bytes = N * (36 + 12 + 4 + 1) + E * (1 + 4) + ev * (4 + 4 + 36 + 12 + 4) + N * 52 + 20 * 4
+    pg_ops = 20 * (ev * 14 * 2000 + ev * 2 * (7 * 7 * 7 + 7 * 7) * 2 + nf * 2 * 400
+                   + 40 * (ev * 2 * 98 * 2 + nf * 49 * 2 + nf * 40)) + nf * 300
+    rows.append(dict(name="pose_graph", max_abs_err=max(info["pose_graph"]["t"],
+                                                        info["pose_graph"]["R"]),
+                     bound=bound_ms(pg_bytes, pg_ops),
+                     fns=(lambda: pose_graph.optimize(rg, 20, 40),
+                          lambda: pose_graph.optimize_plain(rg, 20, 40), None, 2)))
+    info["sizes"] = dict(N=N, F=F, M=M, W=W, E=E, valid_edges=ev, free_vertices=nf,
+                         matches_sim3=nb, matches_pnp=nh, features=nv)
+    return rows, info
+
+
 def time_rows(rows: list) -> None:
     """Host-inclusive times first (a profiler session may slow later host
     work), then device times, for rows of (kernel, plain, library, reps)."""
@@ -1253,6 +1770,33 @@ def main() -> int:
           f"launches {kp['launches']}", flush=True)
     print("tracker frame ms: " + json.dumps([round(v, 3) for v in kp["frame_ms"]]), flush=True)
     phase("tracker")
+    lp = run_loop_phase()
+    print(f"loop: {lp['states_ok']} of {lp['frames']} orbit frames OK; keyframes "
+          f"{lp['keyframes']}, detections {lp['detections']}, Sim3 attempts {lp['attempts']}, "
+          f"loops closed {lp['loops']} (first {lp['first_loop'][0]} <-> {lp['first_loop'][1]}, "
+          f"JAX yardstick {JAX_LOOP['kf_q']} <-> {JAX_LOOP['kf_c']}); relocalizations "
+          f"{lp['relocalizations']} (frames after the hand-LOST one {lp['after_lost']}); aligned "
+          f"frame ATE {lp['ate_m']:.4f} m (JAX {JAX_LOOP['ate_m']} m), keyframe ATE after the "
+          f"orbit {lp['keyframe_ate_m']:.4f} m (just before / after the closure "
+          f"{lp['keyframe_ate_around_closure_m']}, after the LOST frames "
+          f"{lp['keyframe_ate_final_m']:.4f} m); frame p50 {lp['frame_ms_p50']:.3f} ms p90 "
+          f"{lp['frame_ms_p90']:.3f} ms; loop stage ms p50 "
+          f"{float(np.percentile(lp['loop_stage_ms'], 50)):.3f} max "
+          f"{max(lp['loop_stage_ms']):.3f} over {len(lp['loop_stage_ms'])} keyframes; closure "
+          f"ms {[round(v, 3) for v in lp['close_ms']]}; stages {lp['stages']}; "
+          f"launches {lp['launches']}", flush=True)
+    print("loop sim3_log (kf_q, kf_c, n_bow, n_inliers, n_total, ok): "
+          + json.dumps(lp["sim3_log"]), flush=True)
+    print("loop stage ms: " + json.dumps([round(v, 3) for v in lp["loop_stage_ms"]]), flush=True)
+    phase("loop")
+    fl = run_flagship_with_loop_closer(kp)
+    print(f"flagship with the loop closer: ATE {fl['ate_m']:.4f} m (without {kp['ate_m']:.4f}), "
+          f"keyframes {fl['keyframes']}, points {fl['valid_points']}, database rows "
+          f"{fl['db_rows']} of a {fl['db_mb']:.0f} MB [2048, 32768] matrix; frame p50 "
+          f"{fl['frame_ms_p50']:.3f} ms p90 {fl['frame_ms_p90']:.3f} ms (without: "
+          f"{kp['frame_ms_p50']:.3f} / {kp['frame_ms_p90']:.3f}); launches {fl['launches']}",
+          flush=True)
+    phase("flagship_loop_closer")
 
     cmp = compare_frames(mp.pop("entry_frame"),
                          frame_mod.build_frame_stereo(*entry_imgs, CAM, CFG, device="cpu"))
@@ -1279,12 +1823,20 @@ def main() -> int:
     kinfo["mapping"] = minfo
     stage_times = time_stages(kp)
     phase("kernels_k7_mapping_k8")
+    linfo = check_loop_kernels(lp)
+    print(f"loop kernel checks (first closure {linfo['kf_q']} <-> {linfo['kf_c']}): "
+          f"{json.dumps(linfo)}", flush=True)
+    frows, finfo = check_full_width(fl)
+    time_rows(frows)
+    print(f"full-width kernel checks: {json.dumps(finfo)}", flush=True)
+    phase("kernels_k9_k11")
     # Launches: each row's count from the main path that runs it (the front
     # end, the tracking step, the tracker's mapping stages).
     launches = dict(mp["launches"], **{k: tp["launches"][k] for k in
                                        ("match_masked", "pose_opt", "local_map")},
-                    **{k: kp["launches"][k] for k in ("covisibility", "ba_dense")})
-    rows += trows + mrows
+                    **{k: kp["launches"][k] for k in ("covisibility", "ba_dense")},
+                    **{k: lp["launches"][k] for k in LOOP_KERNELS})
+    rows += trows + mrows + frows
     for r in rows:
         print(f"kernel {r['name']}: device ms {r['ms']:.5f} (host-inclusive {r['host_ms']:.4f}) "
               f"plain device ms {r['plain_ms']:.4f} (host-inclusive {r['plain_host_ms']:.3f}) "
@@ -1294,6 +1846,10 @@ def main() -> int:
         n = kp["launches"][name]
         print(f"tracker launches of {name}: {n} ({n / BENCH_FRAMES:.2f} per frame, "
               f"{n / kp['keyframes']:.2f} per keyframe)", flush=True)
+    for name in LOOP_KERNELS:
+        n = lp["launches"][name]
+        print(f"loop launches of {name}: {n} ({n / lp['keyframes']:.2f} per keyframe, "
+              f"{n / max(lp['loops'], 1):.1f} per closure)", flush=True)
     print(f"stereo median case: {kinfo['stereo_median']}", flush=True)
     print(f"tracking kernel checks (frame {CHECK_FRAME}): {tinfo}", flush=True)
     print(f"mapping kernel checks: {minfo}", flush=True)
@@ -1312,6 +1868,8 @@ def main() -> int:
     tp.pop("cpu_start")
     for k in ("tracker", "imgs", "kept"):
         kp.pop(k)
+        lp.pop(k)
+    fl.pop("tracker")
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)
     with open(REPORT, "w") as fh:
         json.dump(dict(nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
@@ -1319,6 +1877,7 @@ def main() -> int:
                        kernels=rows, kernel_check_counts=kinfo, main_path=mp,
                        vs_cpu=cmp, tracking=tp, tracking_vs_cpu=track_cmp, tracker=kp,
                        tracker_vs_cpu=tracker_cmp, stage_times=stage_times, phase_s=phase_s,
+                       loop=lp, flagship_loop_closer=fl, loop_checks=linfo, full_width=finfo,
                        texture_s=texture_s), fh, indent=1)
     print(json.dumps(kernels_line))
     print(smi)

@@ -8,10 +8,11 @@
 // of 9 for both polarities (~200 f32 min/max), while it is read from memory
 // once (~11 MB for a stereo pair's pyramid). The top-k is small (at most
 // 1872 cells a level) but has to order ties exactly as jax.lax.top_k does.
-// Design: `fast_cell_max` is one 256-thread block per 16x16 cell of every
-// level of both images (all in one launch, level found from the level
-// table). The block stages the cell plus a 4-px halo (3 for the ring, 1 for
-// NMS) in shared memory, scores the 18x18 cell+1 region (outside the image
+// Design: `fast_cell_max` is one 256-thread block per cell (up to 16x16:
+// the flagship's 16, the loop configuration's 12) of every level of both
+// images (all in one launch, level found from the level table). The block
+// stages the cell plus a 4-px halo (3 for the ring, 1 for NMS) in shared
+// memory, scores the (cell+2)^2 cell+1 region (outside the image
 // = -inf for NMS, the 16-px border = 0), keeps a pixel when its score is >=
 // all 9 in its 3x3 neighbourhood (ties survive, as in the reference), and
 // reduces to the cell's max and first row-major argmax with warp shuffles;
@@ -27,10 +28,10 @@
 
 namespace {
 
-constexpr int CELL = 16;
+constexpr int MAX_CELL = 16;
 constexpr int BORDER = 16;
-constexpr int IN = CELL + 8;  // cell + 4-px halo each side
-constexpr int SC = CELL + 2;  // scores of the cell + 1-px NMS halo
+constexpr int MAX_IN = MAX_CELL + 8;  // cell + 4-px halo each side
+constexpr int MAX_SC = MAX_CELL + 2;  // scores of the cell + 1-px NMS halo
 
 __constant__ int8_t RING_Y[16] = {-3, -3, -2, -1, 0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3};
 __constant__ int8_t RING_X[16] = {0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3, -3, -3, -2, -1};
@@ -65,9 +66,11 @@ __device__ void block_argmax(float& v, int& i, float* sv, int* si) {
 
 __global__ void __launch_bounds__(256) fast_cell_max_kernel(
         const float* __restrict__ levels, const int* __restrict__ table,
-        float* __restrict__ cell_val, int* __restrict__ cell_arg, int L, int T, float th, int C) {
-    __shared__ float img[IN][IN];
-    __shared__ float sc[SC][SC];
+        float* __restrict__ cell_val, int* __restrict__ cell_arg, int L, int T, float th, int C,
+        int CELL) {
+    __shared__ float img[MAX_IN * MAX_IN];
+    __shared__ float sc[MAX_SC * MAX_SC];
+    const int IN = CELL + 8, SC = CELL + 2;
     __shared__ float red_v[8];
     __shared__ int red_i[8];
     const int cell = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
@@ -80,7 +83,7 @@ __global__ void __launch_bounds__(256) fast_cell_max_kernel(
 
     for (int i = t; i < IN * IN; i += blockDim.x) {
         const int r = i / IN, c = i % IN;
-        img[r][c] = read_or_zero(src, h, w, y0 - 4 + r, x0 - 4 + c);
+        img[r * IN + c] = read_or_zero(src, h, w, y0 - 4 + r, x0 - 4 + c);
     }
     __syncthreads();
     for (int i = t; i < SC * SC; i += blockDim.x) {
@@ -92,10 +95,11 @@ __global__ void __launch_bounds__(256) fast_cell_max_kernel(
         } else if (py < BORDER || py >= h - BORDER || px < BORDER || px >= w - BORDER) {
             s = 0.f;
         } else {
-            const float center = img[r + 3][c + 3];
+            const float center = img[(r + 3) * IN + c + 3];
             float d[16];
 #pragma unroll
-            for (int k = 0; k < 16; ++k) d[k] = img[r + 3 + RING_Y[k]][c + 3 + RING_X[k]] - center;
+            for (int k = 0; k < 16; ++k)
+                d[k] = img[(r + 3 + RING_Y[k]) * IN + c + 3 + RING_X[k]] - center;
             float bright = -INFINITY, dark = INFINITY;
 #pragma unroll
             for (int st = 0; st < 16; ++st) {
@@ -110,18 +114,20 @@ __global__ void __launch_bounds__(256) fast_cell_max_kernel(
             }
             s = fmaxf(fmaxf(bright - th, -dark - th), 0.f);
         }
-        sc[r][c] = s;
+        sc[r * SC + c] = s;
     }
     __syncthreads();
+    // Thread t holds the cell's row-major pixel t; threads past CELL^2 hold
+    // -inf, below every pixel (scores are >= 0), so they never win.
     const int iy = t / CELL, ix = t % CELL;
-    float v = 0.f;
-    if (y0 + iy < h && x0 + ix < w) {
-        const float s = sc[iy + 1][ix + 1];
+    float v = t < CELL * CELL ? 0.f : -INFINITY;
+    if (t < CELL * CELL && y0 + iy < h && x0 + ix < w) {
+        const float s = sc[(iy + 1) * SC + ix + 1];
         float neigh = -INFINITY;
 #pragma unroll
         for (int dy = 0; dy < 3; ++dy)
 #pragma unroll
-            for (int dx = 0; dx < 3; ++dx) neigh = fmaxf(neigh, sc[iy + dy][ix + dx]);
+            for (int dx = 0; dx < 3; ++dx) neigh = fmaxf(neigh, sc[(iy + dy) * SC + ix + dx]);
         v = s >= neigh ? s : 0.f;
     }
     int arg = t;
@@ -184,13 +190,15 @@ __global__ void fast_topk_kernel(const float* __restrict__ cell_val, const int* 
 
 }  // namespace
 
-// Max and first argmax of the NMS'd FAST score in each of the C cells of all
-// L levels, for B images: cell_val/cell_arg [B, C].
+// Max and first argmax of the NMS'd FAST score in each of the C cells
+// (cell x cell pixels, cell <= 16) of all L levels, for B images:
+// cell_val/cell_arg [B, C].
 C_ENTRY int fast_cell_max(const float* levels, const int* level_table, float* cell_val,
-                          int* cell_arg, int L, int B, int T, float th, int C,
+                          int* cell_arg, int L, int B, int T, float th, int C, int cell,
                           cudaStream_t stream) {
+    if (cell < 1 || cell > MAX_CELL) return (int)cudaErrorInvalidValue;
     fast_cell_max_kernel<<<dim3(C, B), 256, 0, stream>>>(levels, level_table, cell_val, cell_arg,
-                                                         L, T, th, C);
+                                                         L, T, th, C, cell);
     return (int)cudaGetLastError();
 }
 

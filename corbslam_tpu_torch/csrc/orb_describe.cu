@@ -38,7 +38,7 @@ __global__ void __launch_bounds__(256) orb_describe_kernel(
         const char4* __restrict__ brief_offsets, const int* __restrict__ cell_id,
         const int* __restrict__ kiy, const int* __restrict__ kix, const int* __restrict__ octave,
         float* __restrict__ patch_out, float* __restrict__ angle_out,
-        uint32_t* __restrict__ desc_out, int N, int T) {
+        uint32_t* __restrict__ desc_out, int N, int T, int cell) {
     __shared__ float red[2][8];
     __shared__ int s_bin;
     const int t = threadIdx.x;
@@ -46,7 +46,7 @@ __global__ void __launch_bounds__(256) orb_describe_kernel(
     const int* lv = table + octave[kb] * LV_NF;
     const int h = lv[LV_H], w = lv[LV_W], gx = lv[LV_GX];
     const int cid = cell_id[kb];
-    const int x = (cid % gx) * 16 + kix[kb], y = (cid / gx) * 16 + kiy[kb];
+    const int x = (cid % gx) * cell + kix[kb], y = (cid / gx) * cell + kiy[kb];
     const size_t base = (size_t)blockIdx.y * T + lv[LV_OFF];
     const float* img = levels + base;
     const float* bimg = blurred + base;
@@ -88,15 +88,16 @@ __global__ void __launch_bounds__(256) orb_describe_kernel(
 }  // namespace
 
 // B images x N keypoint slots: patch [B, N, 32, 32] f32, angle [B, N] f32,
-// desc [B, N, 32] u8. Keypoints given by (cell_id, iy, ix, octave) [B, N].
+// desc [B, N, 32] u8. Keypoints given by (cell_id, iy, ix, octave) [B, N]
+// on a grid of cell x cell pixels.
 C_ENTRY int orb_describe(const float* levels, const float* blurred, const int* level_table,
                          const float* orient_weights, const int8_t* brief_offsets,
                          const int* cell_id, const int* iy, const int* ix, const int* octave,
                          float* patch, float* angle, uint8_t* desc, int B, int N, int T,
-                         cudaStream_t stream) {
+                         int cell, cudaStream_t stream) {
     orb_describe_kernel<<<dim3(N, B), 256, 0, stream>>>(
         levels, blurred, level_table, reinterpret_cast<const float2*>(orient_weights),
         reinterpret_cast<const char4*>(brief_offsets), cell_id, iy, ix, octave, patch, angle,
-        reinterpret_cast<uint32_t*>(desc), N, T);
+        reinterpret_cast<uint32_t*>(desc), N, T, cell);
     return (int)cudaGetLastError();
 }

@@ -20,7 +20,16 @@ camera, world and trajectory with `frames_per_dispatch=2`, driven through
 `frontend.tracking.StereoTracker`; `run_bench_schedule` replays the bench's
 schedule on a tracker: 6 frames, 6 forced keyframes, 12 more warm frames and
 a flush, then two windows of 30 frames, each followed by a flush (no waits,
-no timers).
+no timers). `tracker_entry(loop_closer=True)` attaches a `LoopCloser` with the
+shipped vocabulary (`assets/vocab32k.npz`) and global BA off.
+
+`loop_entry()` is the loop-closure validation setup of the reference
+(`tools/loop_e2e.py:36-65`, `tests/test_loop_e2e.py:27-40`): a 320x240
+camera, 512 features on 4 levels, capacities 256 keyframes / 32768 points,
+the closed room `MultiPlaneWorld.room(half 14, height 3, seed 2)` rendered on
+`device`, and the orbit `orbit_pose(i)` of radius 5 m stepping 0.10 rad, one
+lap (63 frames) and 8 more; its tracker carries a `LoopCloser` (fixed scale,
+global BA off, seed 0) on client 1.
 """
 
 from __future__ import annotations
@@ -32,13 +41,16 @@ import numpy as np
 import torch
 
 from . import kernels
-from .config import KITTI_STEREO, OrbConfig, SlamConfig
+from .config import (KITTI_STEREO, CapacityConfig, MappingConfig, OrbConfig, SlamConfig,
+                     TrackingConfig)
 from .frontend import frame as frame_mod
 from .frontend import track_ops
 from .frontend.tracking import StereoTracker
 from .geometry import camera, se3
 from .io import synthetic
+from .loop.loop_closing import LoopCloser
 from .mapstate import mapstate as ms
+from .place import vocab
 
 CAM = camera.Intrinsics.create(
     fx=718.856, fy=718.856, cx=607.1928, cy=185.2157, bf=386.1448,
@@ -143,13 +155,23 @@ def bench_config() -> SlamConfig:
                                                              frames_per_dispatch=2))
 
 
-def tracker_entry(device="cuda"):
+def loop_closer_for(cam, cfg: SlamConfig, device, seed: int = 0) -> LoopCloser:
+    """A LoopCloser with the shipped vocabulary on `device`, fixed scale
+    (stereo), global BA off."""
+    voc = vocab.load_default(kernels.resolve_device(device))
+    if voc is None:
+        raise FileNotFoundError(vocab.default_artifact_path())
+    return LoopCloser(cam, cfg, voc, fix_scale=True, run_gba=False, seed=seed)
+
+
+def tracker_entry(device="cuda", loop_closer: bool = False):
     """(StereoTracker on `device`, TrackEntry): the flagship cell's tracker,
     camera, config and world; frames come from
     `world.render_stereo(gt_pose(i))`."""
     dev = kernels.resolve_device(device)
     te = track_entry(dev)._replace(cfg=bench_config())
-    return StereoTracker(te.cam, te.cfg, device=dev), te
+    lc = loop_closer_for(te.cam, te.cfg, dev) if loop_closer else None
+    return StereoTracker(te.cam, te.cfg, loop_closer=lc, device=dev), te
 
 
 def run_bench_schedule(tracker: StereoTracker, frames, step=None, stop=None, start=0) -> None:
@@ -187,3 +209,45 @@ def run_bench_schedule(tracker: StereoTracker, frames, step=None, stop=None, sta
         for i in range(first, min(first + BENCH_WINDOW, n)):
             step(i, lambda i=i: feed(i))
         step(None, tracker.flush)
+
+
+LOOP_CAM = camera.Intrinsics.create(fx=320.0, fy=320.0, cx=160.0, cy=120.0, bf=320.0 * 0.5,
+                                    width=320, height=240)
+LOOP_STEP, LOOP_RADIUS = 0.10, 5.0
+LOOP_FRAMES = int(np.ceil(2 * np.pi / LOOP_STEP)) + 8  # one lap and 8 frames
+
+
+def loop_config() -> SlamConfig:
+    """The loop-validation config (tools/loop_e2e.py:41-51)."""
+    return SlamConfig(
+        orb=OrbConfig(n_features=512, n_levels=4, cell_size=12),
+        tracking=TrackingConfig(th_depth=40.0, max_frames_between_kf=10),
+        mapping=MappingConfig(local_ba_window=8, local_ba_iters=6),
+        capacity=CapacityConfig(max_keyframes=256, max_map_points=32768, max_features=512,
+                                local_window_kfs=8, local_window_mps=2048),
+    )
+
+
+def orbit_pose(i: int, step: float = LOOP_STEP, radius: float = LOOP_RADIUS) -> torch.Tensor:
+    """Tcw of orbit frame i: the camera on a circle of `radius` in the room,
+    looking outward, yawed by step * i ([4, 4] f32 on the CPU)."""
+    Twc = se3.compose(se3.exp(torch.tensor([0.0, 0.0, 0.0, 0.0, step * i, 0.0])),
+                      se3.from_Rt(torch.eye(3), torch.tensor([0.0, 0.0, -radius])))
+    return se3.inverse(Twc)
+
+
+class LoopEntry(NamedTuple):
+    cam: camera.Intrinsics
+    cfg: SlamConfig
+    world: synthetic.MultiPlaneWorld
+
+
+def loop_entry(device="cuda"):
+    """(StereoTracker with its LoopCloser on `device`, LoopEntry); frame i is
+    `world.render_stereo(orbit_pose(i))` at timestamp 0.1 i."""
+    dev = kernels.resolve_device(device)
+    cfg = loop_config()
+    world = synthetic.MultiPlaneWorld.room(LOOP_CAM, half=14.0, height=3.0, seed=2, device=dev)
+    lc = loop_closer_for(LOOP_CAM, cfg, dev)
+    return StereoTracker(LOOP_CAM, cfg, client=1, loop_closer=lc, device=dev), \
+        LoopEntry(LOOP_CAM, cfg, world)

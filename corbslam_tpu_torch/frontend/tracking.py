@@ -15,19 +15,24 @@ and `mapping/local_mapping.py` and branches only on small summaries.
   non-blocking copy into pinned memory and an event) drives the state, the
   trajectory and the keyframe policy. A keyframe made at retire time is built
   from that frame's own tracked state.
-- LOST: with <= 5 keyframes a hard reset; otherwise re-acquisition through
-  the separate programs (`track_motion_model`, `track_reference_kf`,
-  `track_local_map`, `update_tracking_stats`).
+- LOST: with <= 5 keyframes a hard reset; with a loop closer attached,
+  relocalization against its keyframe database (`frontend/reloc.py`) is the
+  only way back; without one, re-acquisition through the separate programs
+  (`track_motion_model`, `track_reference_kf`, `track_local_map`,
+  `update_tracking_stats`).
 - Mapping: each keyframe queues its stages (fuse; point cull and geometry
   refresh on every second keyframe; the split local BA from the third;
   keyframe cull on every third after the fifth; the full sweep on every
   sixth); one stage runs per frame, more while more than 4 wait; `flush`
-  drains all. A split local BA whose window was built before a `map_epoch`
-  bump (compaction, reset) does not write back.
+  drains all. With a loop closer (`loop/loop_closing.LoopCloser`, global BA
+  off) every keyframe also queues its loop-closing stage; the keyframe cull
+  drops culled rows from the database and a compaction remaps it. A split
+  local BA whose window was built before a `map_epoch` bump (loop
+  correction, compaction, reset) does not write back.
 
 The map is updated in place where the reference donates it (see
 `mapstate.mapstate`). `process_rgbd` / `process_mono` come with the RGB-D and
-mono slice, a loop closer with the loop-closing slice.
+mono slice.
 """
 
 from __future__ import annotations
@@ -67,7 +72,8 @@ class TrackerStats:
     n_compactions: int = 0
     inliers_history: list = field(default_factory=list)
     # Mapping stages run, by kind (fuse, cull_points, refresh, ba_build,
-    # ba_a, ba_b, cull_keyframes, sweep); not in the reference's stats.
+    # ba_a, ba_b, cull_keyframes, sweep, loop_closing); not in the
+    # reference's stats.
     stages: Counter = field(default_factory=Counter)
 
 
@@ -77,14 +83,16 @@ class StereoTracker:
 
     def __init__(self, cam: cam_mod.Intrinsics, cfg: SlamConfig, client: int = 0,
                  loop_closer=None, device="cuda"):
-        if loop_closer is not None:
-            raise NotImplementedError("StereoTracker: loop closing comes with the loop-closing "
-                                      "slice (ROADMAP item 13)")
         self.device = kernels.resolve_device(device)
         dev = self.device
         self.cam = cam
         self.cfg = cfg
         self.client = client
+        self.loop_closer = loop_closer  # loop.loop_closing.LoopCloser or None
+        if loop_closer is not None and loop_closer.device.type != dev.type:
+            raise ValueError(f"loop closer on {loop_closer.device}, tracker on {dev}")
+        # Relocalization's RANSAC draws (the reference splits PRNGKey(client + 17)).
+        self._reloc_gen = torch.Generator(device=dev).manual_seed(client + 17)
         self.map = ms.empty(cfg.capacity, dev)
         self._state = TrackState.NOT_INITIALIZED
         self.last_frame: Optional[frame_mod.FrameData] = None
@@ -191,6 +199,7 @@ class StereoTracker:
                 and self._kf_cursor_est >= int(0.85 * self.cfg.capacity.max_keyframes)):
             self.flush()
             self._compact_map()
+        self._merge_gba()
         # Amortized local mapping: one stage per frame, more while the
         # backlog exceeds 4.
         if self._stage_q:
@@ -262,11 +271,19 @@ class StereoTracker:
         if self.state == TrackState.NOT_INITIALIZED:
             self._initialize(cur, timestamp)
             return self.current_pose()
-        if self.state == TrackState.LOST and self._kf_cursor_est <= 5:
-            self.reset()  # nothing worth relocalizing against (Tracking.cc:470-478)
-            return self._track(cur, timestamp)
-        # Motion-model re-acquisition from the last pose (no keyframe
-        # database yet), the reference keyframe as its fallback.
+        if self.state == TrackState.LOST:
+            if self._kf_cursor_est <= 5:
+                self.reset()  # nothing worth relocalizing against (Tracking.cc:470-478)
+                return self._track(cur, timestamp)
+            if self._try_relocalize(cur, timestamp):
+                return self.current_pose()
+            if self.loop_closer is not None:
+                # Relocalization is the only way back (Tracking.cc:414-417).
+                self._finish_frame(cur, timestamp, lost=True)
+                return self.current_pose()
+        self._merge_gba()
+        # Motion-model re-acquisition from the last pose (without a keyframe
+        # database), the reference keyframe as its fallback.
         cfgt = self.cfg.tracking
         T_pred = se3.compose(self.velocity, self.last_frame.Tcw)
         Tcw, mp_idx, n_inl = track_ops.track_motion_model(
@@ -300,6 +317,39 @@ class StereoTracker:
         self._finish_frame(cur, timestamp)
         self.stats.inliers_history.append(n_local)
         return self.current_pose()
+
+    def _merge_gba(self):
+        """Fold in a finished global BA (none on this slice: the loop closer
+        returns the map as it is)."""
+        if self.loop_closer is not None:
+            m2 = self.loop_closer.try_merge_gba(self.map)
+            if m2 is not self.map:
+                self.map_epoch += 1
+                self.map = m2
+
+    def _try_relocalize(self, cur: frame_mod.FrameData, timestamp: float) -> bool:
+        """Relocalization (Tracking.cc:1368) through the loop closer's
+        keyframe database, consolidated by a local-map tracking pass."""
+        if self.loop_closer is None:
+            return False
+        from . import reloc as reloc_mod
+
+        lc = self.loop_closer
+        res = reloc_mod.relocalize(self.cam, self.map, lc.db, lc.voc, cur, self.cfg,
+                                   generator=self._reloc_gen)
+        if res is None:
+            return False
+        out = track_ops.track_local_map(self.cam, self.map, cur, res.Tcw, res.mp_idx, self.cfg)
+        if int(out.n_inliers) < self.cfg.tracking.min_tracked_points:
+            return False
+        cur = cur._replace(Tcw=out.Tcw, mp_idx=out.mp_idx)
+        self.ref_kf = int(out.ref_kf)
+        self._ref_kf_dev = torch.tensor(self.ref_kf, dtype=torch.int32, device=self.device)
+        self.state = TrackState.OK
+        self.velocity = torch.eye(4, device=self.device)
+        self.stats.n_relocalizations += 1
+        self._finish_frame(cur, timestamp, lost=True)  # no velocity update
+        return True
 
     def _initialize(self, cur: frame_mod.FrameData, timestamp: float) -> bool:
         """StereoInitialization (Tracking.cc:509): the first frame with >= 100
@@ -384,11 +434,22 @@ class StereoTracker:
             q.append(("cull_keyframes", lambda: self._stage_cull_keyframes(kf_row)))
         if nk % 6 == 0 and nk > 5:
             q.append(("sweep", lambda: self._set_map(local_mapping.sweep_detached(self.map))))
+        if self.loop_closer is not None:
+            q.append(("loop_closing", lambda: self._stage_loop_closing(kf_row)))
 
     def _run_stage(self):
         kind, fn = self._stage_q.popleft()
         fn()
         self.stats.stages[kind] += 1
+
+    def _stage_loop_closing(self, kf_row: int):
+        """Loop-closing stage; a closure bumps the map epoch (aborts the
+        split local BAs built before it)."""
+        lc = self.loop_closer
+        loops0 = lc.stats.n_loops_closed
+        self.map = lc.process_keyframe(self.map, kf_row)
+        if lc.stats.n_loops_closed != loops0:
+            self.map_epoch += 1
 
     def _stage_local_ba_build(self, kf_row: int, st: dict):
         """Local BA stage 0: window selection and the problem (copies)."""
@@ -419,7 +480,9 @@ class StereoTracker:
 
     def _stage_cull_keyframes(self, kf_row: int):
         """Redundant-keyframe culling (KeyFrameCulling, LocalMapping.cc:590)."""
-        self.map, _ = local_mapping.cull_keyframes(self.map, kf_row, self.cfg)
+        self.map, kill = local_mapping.cull_keyframes(self.map, kf_row, self.cfg)
+        if self.loop_closer is not None:
+            self.loop_closer.db = self.loop_closer.db.remove(kill)
 
     def _mapping_step(self, kf_row: int):
         """The per-keyframe pipeline run at once (tools and tests)."""
@@ -448,6 +511,8 @@ class StereoTracker:
             idx = torch.where(idx >= 0, res.mp_old2new[idx.clamp_min(0).long()],
                               torch.full_like(idx, ms.NO_MP))
             self.last_frame = self.last_frame._replace(mp_idx=idx)
+        if self.loop_closer is not None:
+            self.loop_closer.remap_rows(res)
         for cb in self.on_compact:
             cb(res)
         self.map_epoch += 1  # rows renumbered
@@ -474,6 +539,8 @@ class StereoTracker:
         self._compact_cooldown = 0
         self.map_epoch += 1
         self.stats.n_resets += 1
+        if self.loop_closer is not None:
+            self.loop_closer.reset()
         for cb in self.on_reset:
             cb()
 

@@ -144,3 +144,24 @@ def in_frustum(cam: Intrinsics, Tcw: torch.Tensor, p_world: torch.Tensor,
           & (view_cos > view_cos_limit))
     inv_z = 1.0 / z.clamp_min(1e-9)
     return ok, uv, inv_z, view_cos, dist
+
+
+def solve3x3(G: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Cramer's-rule solve of batched 3x3 systems G x = b (the reference's
+    elementwise form; PnP's polar step inverts with it)."""
+    g = [[G[..., i, j] for j in range(3)] for i in range(3)]
+    c00 = g[1][1] * g[2][2] - g[1][2] * g[2][1]
+    c01 = g[1][2] * g[2][0] - g[1][0] * g[2][2]
+    c02 = g[1][0] * g[2][1] - g[1][1] * g[2][0]
+    det = g[0][0] * c00 + g[0][1] * c01 + g[0][2] * c02
+    inv_det = 1.0 / torch.where(det.abs() < 1e-20, torch.full_like(det, 1e-20), det)
+    c10 = g[0][2] * g[2][1] - g[0][1] * g[2][2]
+    c11 = g[0][0] * g[2][2] - g[0][2] * g[2][0]
+    c12 = g[0][1] * g[2][0] - g[0][0] * g[2][1]
+    c20 = g[0][1] * g[1][2] - g[0][2] * g[1][1]
+    c21 = g[0][2] * g[1][0] - g[0][0] * g[1][2]
+    c22 = g[0][0] * g[1][1] - g[0][1] * g[1][0]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([(c00 * b0 + c10 * b1 + c20 * b2) * inv_det,
+                        (c01 * b0 + c11 * b1 + c21 * b2) * inv_det,
+                        (c02 * b0 + c12 * b1 + c22 * b2) * inv_det], dim=-1)

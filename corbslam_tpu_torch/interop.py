@@ -16,6 +16,10 @@ package's outputs.
 state across: every `KeyFrames` and `MapPoints` field plus the `n_kf` /
 `n_mp` cursors, and every `FrameData` field. `problem_from_numpy` /
 `problem_to_numpy` do the same for a bundle-adjustment problem (`BADense`).
+`vocab_from_numpy` takes a vocabulary's unpacked centres (the reference
+holds them as 0/1 bytes) and packs them LSB-first for the port;
+`db_from_numpy` / `db_to_numpy` carry a keyframe database and
+`loop_edges_from_numpy` the loop closer's accepted edges.
 The "from" functions read any object with the same attribute names whose
 leaves `np.asarray` accepts, so a map, frame or problem built by the JAX
 package feeds the port directly.
@@ -219,3 +223,32 @@ def problem_from_numpy(pb, device="cpu"):
 def problem_to_numpy(pb) -> dict:
     """{field: numpy array or None} of a `BADense`."""
     return {k: (None if v is None else v.detach().cpu().numpy()) for k, v in pb._asdict().items()}
+
+
+def vocab_from_numpy(voc, device="cpu"):
+    """A port `Vocabulary` from any object with the reference's fields
+    (`word_bits` [W, 256] 0/1, `idf`, optional `group_bits` / `child_idx`)."""
+    from .place import vocab as vocab_mod
+
+    get = lambda f: None if getattr(voc, f, None) is None else np.asarray(getattr(voc, f))  # noqa: E731
+    return vocab_mod.from_bits(get("word_bits"), get("idf"), get("group_bits"),
+                               get("child_idx"), device)
+
+
+def db_from_numpy(db, device="cpu"):
+    """A `BowDatabase` from `db_to_numpy`'s dict or any object with `bow`, `valid`."""
+    from .place.database import BowDatabase
+
+    get = (lambda f: db[f]) if isinstance(db, dict) else (lambda f: getattr(db, f))
+    return BowDatabase(_tensor(get("bow"), device), _tensor(get("valid"), device))
+
+
+def db_to_numpy(db) -> dict:
+    return dict(bow=db.bow.detach().cpu().numpy(), valid=db.valid.detach().cpu().numpy())
+
+
+def loop_edges_from_numpy(le, device="cpu"):
+    """A `LoopEdges` from any object with its fields (the reference's)."""
+    from .loop.loop_closing import LoopEdges
+
+    return LoopEdges(*(_tensor(getattr(le, f), device) for f in LoopEdges._fields))

@@ -1,5 +1,5 @@
 """Synthetic imagery (port of `corbslam_tpu/io/synthetic.py`: `random_texture`,
-`bilinear_sample`, `PlanarWorld`).
+`bilinear_sample`, `PlanarWorld`, `MultiPlaneWorld` with `room`).
 
 `jax.image.resize(..., "bilinear")` upsampling of each noise octave is a
 half-pixel triangle filter whose edge taps are renormalized, which for
@@ -91,3 +91,92 @@ class PlanarWorld:
         T_rl = se3.from_Rt(torch.eye(3), torch.tensor([-self.cam.baseline, 0.0, 0.0]))
         Tcw = Tcw.to(torch.float32).cpu()
         return self.render(Tcw), self.render(se3.compose(T_rl, Tcw))
+
+
+class MultiPlaneWorld:
+    """Textured planes composited by z-buffer (a room of 4 walls, floor and
+    ceiling for the loop orbit), rendered in f32 on `device`. Plane i is
+    n_i . p = d_i with an in-plane chart (u_i, v_i) from its origin o_i onto
+    its own `random_texture(texture_size, texture_size, seed * 131 + i)`.
+    The reference's photometric noise is left out: its `jax.random` draw
+    cannot be reproduced here, and every caller renders noise-free."""
+
+    def __init__(self, cam, planes, texture_size: int = 2048, texture_scale: float = 50.0,
+                 seed: int = 0, device="cpu"):
+        self.cam = cam
+        self.texture_scale = float(texture_scale)
+        self.tex_size = texture_size
+        self.device = torch.device(device)
+        n_l, d_l, o_l, u_l, v_l, tex = [], [], [], [], [], []
+        for i, (n, d, o) in enumerate(planes):
+            n = np.asarray(n, np.float32)
+            n = n / np.linalg.norm(n)
+            a = np.array([0.0, 1.0, 0.0] if abs(n[0]) > 0.9 else [1.0, 0.0, 0.0], np.float32)
+            u = np.cross(n, a)
+            u /= np.linalg.norm(u)
+            n_l.append(n)
+            d_l.append(float(d))
+            o_l.append(np.asarray(o, np.float32))
+            u_l.append(u)
+            v_l.append(np.cross(n, u))
+            tex.append(random_texture(texture_size, texture_size, seed * 131 + i))
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(self.device)  # noqa: E731
+        self.n, self.d, self.o = t(np.stack(n_l)), t(np.asarray(d_l)), t(np.stack(o_l))
+        self.u, self.v, self.tex = t(np.stack(u_l)), t(np.stack(v_l)), t(np.stack(tex))
+        self.Kinv = torch.linalg.inv(cam.K).to(self.device)
+
+    @staticmethod
+    def room(cam, half: float = 14.0, height: float = 3.0, seed: int = 0,
+             texture_scale: float = 60.0, device="cpu") -> "MultiPlaneWorld":
+        """A closed box room: orbits inside it re-observe the start view."""
+        h = half
+        planes = [
+            ([0.0, 0.0, -1.0], -h, [0.0, 0.0, h]),
+            ([0.0, 0.0, 1.0], -h, [0.0, 0.0, -h]),
+            ([1.0, 0.0, 0.0], -h, [-h, 0.0, 0.0]),
+            ([-1.0, 0.0, 0.0], -h, [h, 0.0, 0.0]),
+            ([0.0, -1.0, 0.0], -height, [0.0, height, 0.0]),
+            ([0.0, 1.0, 0.0], -height, [0.0, -height, 0.0]),
+        ]
+        return MultiPlaneWorld(cam, planes, seed=seed, texture_scale=texture_scale,
+                               device=device)
+
+    def _render_depth(self, Tcw: torch.Tensor):
+        cam = self.cam
+        Twc = se3.inverse(Tcw.to(self.device, torch.float32))
+        R, t = se3.rotation(Twc), se3.translation(Twc)
+        h, w = cam.height, cam.width
+        yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=self.device),
+                                torch.arange(w, dtype=torch.float32, device=self.device),
+                                indexing="ij")
+        rays = torch.einsum("ij,jhw->ihw", self.Kinv, torch.stack([xx, yy, torch.ones_like(xx)]))
+        dirs = torch.einsum("ij,jhw->ihw", R, rays)
+        ndotdir = torch.einsum("pi,ihw->phw", self.n, dirs)
+        lam = (self.d - self.n @ t)[:, None, None] / torch.where(
+            ndotdir.abs() < 1e-6, torch.full_like(ndotdir, 1e-6), ndotdir)
+        lam = torch.where(lam > 0.05, lam, torch.full_like(lam, float("inf")))
+        lam_b, best = lam.min(dim=0)
+        hit = torch.isfinite(lam_b)
+        lam_b = torch.where(hit, lam_b, torch.zeros_like(lam_b))
+        p = t[:, None, None] + lam_b[None] * dirs
+        c = self.tex_size / 2.0
+        rel = p[None] - self.o[:, :, None, None]
+        tx = torch.einsum("pi,pihw->phw", self.u, rel) * self.texture_scale + c
+        ty = torch.einsum("pi,pihw->phw", self.v, rel) * self.texture_scale + c
+        samp = torch.stack([bilinear_sample(self.tex[i], ty[i], tx[i])
+                            for i in range(self.tex.shape[0])])
+        img = torch.gather(samp, 0, best[None])[0]
+        img = torch.where(hit, img, torch.full_like(img, 128.0))
+        return img, torch.where(hit, lam_b * rays[2], torch.zeros_like(lam_b))
+
+    def render(self, Tcw: torch.Tensor) -> torch.Tensor:
+        return self._render_depth(Tcw)[0]
+
+    def render_stereo(self, Tcw: torch.Tensor):
+        """(left, right); the right camera sits `baseline` along +x."""
+        T_rl = se3.from_Rt(torch.eye(3), torch.tensor([-self.cam.baseline, 0.0, 0.0]))
+        Tcw = Tcw.to(torch.float32).cpu()
+        return self.render(Tcw), self.render(se3.compose(T_rl, Tcw))
+
+    def depth(self, Tcw: torch.Tensor) -> torch.Tensor:
+        return self._render_depth(Tcw)[1]

@@ -36,10 +36,12 @@ NVCC_FLAGS = [
 
 # Launch counts per kernel wrapper, read by chip_smoke.py around the main path.
 # "covisibility" counts the K7 launches of the mapping stages
-# (`mapstate.covisibility`) apart from the tracking step's ("local_map").
+# (`mapstate.covisibility`) apart from the tracking step's ("local_map");
+# K10's launches count as "sim3" (RANSAC and refinement) or "pnp"; K11's as
+# "pose_graph" or "covis_matrix" (the covisibility count).
 LAUNCHES = {"pyramid": 0, "fast_cells": 0, "orb_describe": 0, "stereo_match": 0,
             "match_masked": 0, "pose_opt": 0, "local_map": 0, "covisibility": 0,
-            "ba_dense": 0}
+            "ba_dense": 0, "vocab": 0, "sim3": 0, "pnp": 0, "pose_graph": 0, "covis_matrix": 0}
 
 _lib = None
 BUILD_INFO: dict = {}
@@ -54,10 +56,10 @@ _SIGNATURES = {
     "resize_level": [VP] * 3 + [I32] * 10 + [VP],
     "blur_levels": [VP] * 4 + [I32] * 4 + [VP],
     # fast_cells.cu
-    "fast_cell_max": [VP] * 4 + [I32] * 3 + [F32, I32, VP],
+    "fast_cell_max": [VP] * 4 + [I32] * 3 + [F32, I32, I32, VP],
     "fast_topk": [VP] * 11 + [I32] * 7 + [VP],
     # orb_describe.cu
-    "orb_describe": [VP] * 12 + [I32] * 3 + [VP],
+    "orb_describe": [VP] * 12 + [I32] * 4 + [VP],
     # stereo_match.cu
     "stereo_best": [VP] * 11 + [I32, I32, F32, I32] + [VP] * 7,
     "stereo_finish": [VP] * 4 + [I32, F32] + [VP] * 4,
@@ -80,6 +82,24 @@ _SIGNATURES = {
     # ba_dense.cu
     "ba_point_major": [VP, VP] + [I32] * 4 + [VP] * 4 + [VP],
     "ba_optimize": [VP] * 11 + [I32] * 7 + [F32] * 5 + [VP] * 7 + [VP],
+    # vocab.cu
+    "vocab_assign": [VP, I32, VP, I32, VP, I32, VP, I32, I32, VP] + [VP],
+    "vocab_hist": [VP, VP, I32, VP, I32, VP] + [VP],
+    "vocab_sparse": [VP, VP, I32, VP, I32, VP, VP] + [VP],
+    "vocab_l1_scores": [VP, I32, VP, I32, I32, VP] + [VP],
+    # ransac.cu
+    "sim3_hypotheses": [VP] * 5 + [I32, VP, I32, I32] + [F32] * 8 + [VP] * 4 + [VP],
+    "sim3_select": [VP] * 5 + [I32] + [VP] * 4 + [I32, I32] + [F32] * 8 + [VP] * 6 + [VP],
+    "sim3_refine": [VP] * 5 + [I32] + [VP] * 3 + [I32, I32] + [F32] * 8 + [VP] * 5 + [VP],
+    "pnp_hypotheses": [VP] * 4 + [I32, VP, I32] + [F32] * 5 + [VP] * 3 + [VP],
+    "pnp_select": [VP] * 4 + [I32] + [VP] * 3 + [I32, I32] + [F32] * 5 + [VP] * 4 + [VP],
+    # pose_graph.cu
+    "pg_linearize": [VP] * 8 + [I32] + [VP] * 2 + [VP],
+    "pg_step": [VP] * 4 + [I32] + [VP] * 3 + [I32] + [VP] * 4 + [I32, F32, I32] + [VP] * 2
+               + [VP],
+    "covis_count": [VP] * 3 + [I32] * 3 + [VP] + [VP],
+    "covis_fill": [VP] * 3 + [I32] * 3 + [VP] * 3 + [VP],
+    "covis_pairs": [VP, VP, I32, I32, VP] + [VP],
 }
 
 

@@ -9,8 +9,11 @@ they run inside the local-map kernel K7 (`csrc/local_map.cu`), launched by
 and the frustum test. On a CUDA map the mapping stages' calls launch K7 too:
 `top_covisible_of` its first four kernels, `local_map_mask` its window
 scatter, `compact_indices` its compaction (counted as "covisibility").
-`covis_weights_single`, the `covis_*` matrices and `spanning_parents` come
-with loop closing.
+Loop closing adds `covis_weights_single`, `covis_weights_matrix_rows`,
+`covis_groups_rows`, `spanning_parents`, and `obs_matrix` / `covis_matrix`:
+the full [N, N] shared-point count, which kernel K11 (`csrc/pose_graph.cu`,
+counted as "covis_matrix") computes from the observation table without
+building the [N, M] incidence matrix.
 """
 
 from __future__ import annotations
@@ -26,9 +29,10 @@ SELF_WEIGHT_PINNED = 2 ** 30  # `self_weight` that ranks the query keyframe firs
 
 
 def topk_stable(vals: torch.Tensor, k: int):
-    """`lax.top_k` order: descending, lower index first on ties."""
-    v, i = torch.sort(vals, descending=True, stable=True)
-    return v[:k], i[:k]
+    """`lax.top_k` order along the last axis: descending, lower index first
+    on ties."""
+    v, i = torch.sort(vals, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
 
 
 def scatter_mask(idx: torch.Tensor, ok: torch.Tensor, size: int) -> torch.Tensor:
@@ -218,3 +222,113 @@ def top_covisible_of(m: MapState, q: int, k: int, min_weight: int = 1, self_weig
     if m.kf.mp_idx.device.type == "cpu":
         return top_covisible_plain(m, q, k, min_weight, self_weight)
     raise ValueError(f"unsupported device {m.kf.mp_idx.device}")
+
+
+# ---------------------------------------------------------------------------
+# Loop closing's covisibility
+# ---------------------------------------------------------------------------
+
+def _contrib(m: MapState) -> torch.Tensor:
+    """[N, F] observations that count: a point, a valid feature, a live keyframe."""
+    return (m.kf.mp_idx >= 0) & m.kf.fvalid & m.kf.valid[:, None]
+
+
+def covis_weights_single(m: MapState, q: int) -> torch.Tensor:
+    """[N] i32 features of each live keyframe observing a point of keyframe q
+    (q included)."""
+    pmask = point_mask_of_kf(m, q)
+    idx = m.kf.mp_idx
+    return (_contrib(m) & pmask[idx.clamp_min(0).long()]).sum(dim=1, dtype=torch.int32)
+
+
+def covis_weights_matrix_rows(m: MapState, rows) -> torch.Tensor:
+    """[K, N] covis_weights_single of each given row."""
+    return torch.stack([covis_weights_single(m, int(q)) for q in rows])
+
+
+def covis_groups_rows(m: MapState, rows: torch.Tensor, n_group: int = 10):
+    """[C, n_group] covisible-group rows of each given row (the top anchor
+    keyframes of its points, `lax.top_k` order) and their ok mask."""
+    N = m.kf.capacity
+    r = rows.long()
+    idx = m.kf.mp_idx[r]
+    ok = (idx >= 0) & m.kf.fvalid[r]
+    anchors = m.mp.ref_kf[idx.clamp_min(0).long()]
+    hit = ok & (anchors >= 0)
+    cnt = torch.zeros(rows.shape[0], N, dtype=torch.int32, device=rows.device)
+    cnt.scatter_add_(1, torch.where(hit, anchors, torch.zeros_like(anchors)).long(),
+                     hit.to(torch.int32))
+    vals, grp = topk_stable(cnt, min(n_group, N))
+    return grp.to(torch.int32), vals > 0
+
+
+def spanning_parents(m: MapState) -> torch.Tensor:
+    """[N] i32 parent of each live keyframe: the nearest earlier live row of
+    the same client (the per-client temporal chain); -1 for a client's first
+    row and for dead rows."""
+    valid = m.kf.valid
+    ckey = torch.where(valid, m.kf.client, torch.full_like(m.kf.client, 2 ** 30))
+    order = torch.sort(ckey, stable=True)[1]
+    c_s = ckey[order]
+    prev = torch.cat([torch.full((1,), -1, dtype=order.dtype, device=order.device), order[:-1]])
+    same = torch.cat([torch.zeros(1, dtype=torch.bool, device=order.device), c_s[1:] == c_s[:-1]])
+    par_s = torch.where(same, prev, torch.full_like(prev, -1)).to(torch.int32)
+    parent = torch.empty_like(par_s).scatter_(0, order, par_s)
+    return torch.where(valid, parent, torch.full_like(parent, -1))
+
+
+def obs_matrix(m: MapState, dtype=torch.int8) -> torch.Tensor:
+    """[N, M] 0/1 incidence: keyframe n observes point p (the reference's
+    B; plain-version and test use only, 268 MB at the flagship size)."""
+    N, M = m.kf.capacity, m.mp.capacity
+    c = _contrib(m)
+    B = torch.zeros(N, M, dtype=dtype, device=c.device)
+    rows = torch.arange(N, device=c.device)[:, None].expand_as(c)
+    B[rows[c], m.kf.mp_idx[c].long()] = 1
+    return B
+
+
+def covis_matrix_plain(m: MapState, chunk: int = 8192) -> torch.Tensor:
+    """[N, N] i32 shared-point counts B B^T (diagonal: each keyframe's own
+    point count), one f32 product per block of `chunk` points (exact: the
+    sums are integers far below 2^24)."""
+    N, M = m.kf.capacity, m.mp.capacity
+    c = _contrib(m)
+    rows = torch.arange(N, device=c.device)[:, None].expand_as(c)[c]
+    pts = m.kf.mp_idx[c].long()
+    W = torch.zeros(N, N, dtype=torch.float32, device=c.device)
+    for lo in range(0, M, chunk):
+        sel = (pts >= lo) & (pts < lo + chunk)
+        B = torch.zeros(N, min(chunk, M - lo), dtype=torch.float32, device=c.device)
+        B[rows[sel], pts[sel] - lo] = 1.0
+        W += B @ B.T
+    return W.to(torch.int32)
+
+
+def covis_matrix(m: MapState) -> torch.Tensor:
+    """[N, N] i32 covisibility weights (shared points). K11 on a CUDA map:
+    observers grouped per point, then one integer atomic per observer pair
+    (exact in any order); the plain version on a CPU map."""
+    idx = m.kf.mp_idx
+    if not idx.is_cuda:
+        if idx.device.type != "cpu":
+            raise ValueError(f"unsupported device {idx.device}")
+        return covis_matrix_plain(m)
+    N, F, M = m.kf.capacity, m.kf.n_features, m.mp.capacity
+    dev = idx.device
+    kernels.check(idx, "kf.mp_idx", torch.int32, (N, F), dev)
+    kernels.check(m.kf.fvalid, "kf.fvalid", torch.bool, (N, F), dev)
+    kernels.check(m.kf.valid, "kf.valid", torch.bool, (N,), dev)
+    p = kernels.ptr
+    cnt = torch.zeros(M + 1, dtype=torch.int32, device=dev)
+    kernels.launch("covis_matrix", "covis_count", p(idx), p(m.kf.fvalid), p(m.kf.valid), N, F, M,
+                   p(cnt))
+    offs = torch.zeros(M + 1, dtype=torch.int32, device=dev)
+    offs[1:] = torch.cumsum(cnt[:M], 0)
+    cursor = torch.zeros(M, dtype=torch.int32, device=dev)
+    lists = torch.empty(N * F, dtype=torch.int32, device=dev)
+    kernels.launch("covis_matrix", "covis_fill", p(idx), p(m.kf.fvalid), p(m.kf.valid), N, F, M,
+                   p(offs), p(cursor), p(lists))
+    W = torch.zeros(N, N, dtype=torch.int32, device=dev)
+    kernels.launch("covis_matrix", "covis_pairs", p(offs), p(lists), M, N, p(W))
+    return W

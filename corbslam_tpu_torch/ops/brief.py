@@ -155,8 +155,6 @@ def _describe_cuda(pyr: Pyramid, kp: Keypoints, params: OrbParams):
     params.require_device(dev)
     B = pyr.levels.shape[0]
     N = params.n_features
-    if params.cfg.cell_size != 16:
-        raise ValueError("the orb_describe kernel is built for 16x16 cells")
     if params.orient_weights.shape != (RAW_PATCH * RAW_PATCH, 2):
         raise ValueError("orient_weights must be [32*32, 2]")
     if tuple(params.brief_offsets.shape) != (N_ANGLE_BINS, N_BITS, 2, 2):
@@ -173,7 +171,7 @@ def _describe_cuda(pyr: Pyramid, kp: Keypoints, params: OrbParams):
         "orb_describe", "orb_describe", P(pyr.levels), P(pyr.blurred),
         P(params.level_table), P(params.orient_weights), P(params.brief_offsets),
         P(kp.cell_id), P(kp.iy), P(kp.ix), P(kp.octave),
-        P(patch), P(angle), P(desc), B, N, params.total,
+        P(patch), P(angle), P(desc), B, N, params.total, params.cfg.cell_size,
     )
     return patch, angle, desc
 

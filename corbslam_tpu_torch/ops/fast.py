@@ -151,8 +151,9 @@ def detect_pyramid_plain(pyr: Pyramid, params: OrbParams) -> Keypoints:
 
 def _detect_pyramid_cuda(pyr: Pyramid, params: OrbParams) -> Keypoints:
     cfg = params.cfg
-    if cfg.cell_size != 16:
-        raise ValueError("the fast_cells kernel is built for 16x16 cells")
+    if not 1 <= cfg.cell_size <= 16:
+        raise ValueError(f"the fast_cells kernel takes cells of at most 16x16, not "
+                         f"{cfg.cell_size}")
     dev = pyr.levels.device
     params.require_device(dev)
     B = pyr.levels.shape[0]
@@ -163,7 +164,7 @@ def _detect_pyramid_cuda(pyr: Pyramid, params: OrbParams) -> Keypoints:
     P = kernels.ptr
     kernels.launch(
         "fast_cells", "fast_cell_max", P(pyr.levels), P(params.level_table),
-        P(cell_val), P(cell_arg), L, B, params.total, float(cfg.min_th_fast), C,
+        P(cell_val), P(cell_arg), L, B, params.total, float(cfg.min_th_fast), C, cfg.cell_size,
     )
     xy = torch.empty(B, N, 2, dtype=torch.float32, device=dev)
     resp = torch.empty(B, N, dtype=torch.float32, device=dev)

@@ -35,7 +35,9 @@ from corbslam_tpu_torch.mapstate import covisibility as covis
 from corbslam_tpu_torch.mapstate import mapstate as ms
 from corbslam_tpu_torch.matching import matcher
 from corbslam_tpu_torch.ops import brief, fast, orb, pyramid
-from corbslam_tpu_torch.optim import ba_dense, pose_opt
+from corbslam_tpu_torch.optim import ba_dense, pose_graph, pose_opt
+from corbslam_tpu_torch.place import vocab
+from corbslam_tpu_torch.solvers import pnp, sim3_solver
 
 torch.set_num_threads(2)
 
@@ -62,7 +64,9 @@ def test_import_leaves_out_jax_and_the_reference():
     assert out.returncode == 0, out.stderr
     assert int(out.stdout) == len(MODULES) >= 30
     for sub in ("mapstate", "matching", "optim", "mapping", "frontend.tracking",
-                "mapping.local_mapping", "optim.ba_dense", "optim.smallmat", "io.trajectory"):
+                "mapping.local_mapping", "optim.ba_dense", "optim.smallmat", "io.trajectory",
+                "geometry.sim3", "place.vocab", "place.database", "solvers.sim3_solver",
+                "solvers.pnp", "optim.pose_graph", "loop.loop_closing", "frontend.reloc"):
         assert f"corbslam_tpu_torch.{sub}" in MODULES
 
 
@@ -79,7 +83,7 @@ def _tiny_inputs():
 
 
 @pytest.mark.parametrize("call", ["extract", "stereo", "mono", "entry", "track_entry",
-                                  "tracker_entry"])
+                                  "tracker_entry", "loop_entry"])
 def test_entry_points_default_to_cuda_and_raise_without_it(call):
     assert not torch.cuda.is_available()
     img, cam = _tiny_inputs()
@@ -95,6 +99,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(call):
             entry.track_entry()
         elif call == "tracker_entry":
             entry.tracker_entry()
+        elif call == "loop_entry":
+            entry.loop_entry()
         else:
             fwd, imgs = entry.entry()
             fwd(*imgs)
@@ -154,6 +160,24 @@ def test_planar_world_render_within_5e3_of_the_reference():
     for a, b in zip(ours, ref):
         assert a.dtype == torch.float32 and tuple(a.shape) == (240, 320)
         np.testing.assert_allclose(a.numpy(), b, rtol=0, atol=5e-3)
+
+
+def test_multi_plane_room_render_within_5e3_of_the_reference():
+    """The loop phase's world: MultiPlaneWorld.room rendered by both packages
+    on the orbit (z-buffer over six textured planes), within the 5e-3 of the
+    planar world above."""
+    kw = dict(fx=320.0, fy=320.0, cx=160.0, cy=120.0, bf=160.0, width=320, height=240)
+    ref_w = jsynthetic.MultiPlaneWorld.room(jcamera.Intrinsics.create(**kw), half=14.0,
+                                            height=3.0, seed=2)
+    ours_w = synthetic.MultiPlaneWorld.room(camera.Intrinsics.create(**kw), half=14.0, height=3.0,
+                                            seed=2)
+    for i in (0, 17, 40):
+        T = entry.orbit_pose(i)
+        ref = [np.asarray(a) for a in ref_w.render_stereo(np.asarray(T.numpy()))]
+        for a, b in zip(ours_w.render_stereo(T), ref):
+            assert a.dtype == torch.float32 and tuple(a.shape) == (240, 320)
+            np.testing.assert_allclose(a.numpy(), b, rtol=0, atol=5e-3)
+    assert ours_w.depth(entry.orbit_pose(3)).min() > 0
 
 
 def test_bench_trajectory_equals_the_reference():
@@ -243,7 +267,9 @@ def test_chip_smoke_fails_without_cuda():
 
 @pytest.mark.parametrize("wrapper", ["pyramid", "fast", "describe", "stereo", "match", "pose",
                                      "local_map", "point_major", "ba_optimize", "top_covisible",
-                                     "window_mask", "compact"])
+                                     "window_mask", "compact", "vocab_assign", "l1_scores",
+                                     "sim3_ransac", "sim3_refine", "pnp_ransac", "pose_graph",
+                                     "covis_matrix"])
 def test_wrappers_refuse_devices_other_than_cpu_and_cuda(wrapper):
     """A wrapper takes its plain version only for a CPU tensor; a tensor on
     another device is refused, never silently moved."""
@@ -284,6 +310,27 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda(wrapper):
                 covis.local_map_mask(m, rows, rows.bool())
         elif wrapper == "compact":
             covis.compact_indices(torch.empty(16, dtype=torch.bool, device="meta"), 4)
+        elif wrapper == "vocab_assign":
+            voc = vocab.Vocabulary(torch.empty(8, 32, dtype=torch.uint8, device="meta"), meta)
+            vocab.assign(voc, torch.empty(4, 32, dtype=torch.uint8, device="meta"))
+        elif wrapper == "l1_scores":
+            vocab.l1_scores(torch.empty(8, device="meta"), torch.empty(2, 8, device="meta"))
+        elif wrapper in ("sim3_ransac", "sim3_refine", "pnp_ransac"):
+            p3, v = torch.empty(8, 3, device="meta"), torch.empty(8, device="meta")
+            idx = torch.empty(4, 6, dtype=torch.int32, device="meta")
+            if wrapper == "sim3_ransac":
+                sim3_solver.solve_sim3_ransac(None, None, p3, p3, v, v, v, idx=idx)
+            elif wrapper == "sim3_refine":
+                sim3_solver.refine_sim3_iterative(None, None, p3, p3, v, v, v, None, None, None)
+            else:
+                pnp.solve_pnp_ransac(None, p3, p3, v, v, idx=idx)
+        elif wrapper == "pose_graph":
+            pose_graph.optimize(pose_graph.PoseGraph(torch.empty(4, 3, 3, device="meta"),
+                                                     *[meta] * 10))
+        elif wrapper == "covis_matrix":
+            m = ms.empty(config.CapacityConfig(max_keyframes=4, max_map_points=16, max_features=8,
+                                               local_window_kfs=2, local_window_mps=4), "meta")
+            covis.covis_matrix(m)
         else:
             f = orb.Features(*(torch.empty(64, 2, device="meta") for _ in range(7)))
             stereo.stereo_match(f, f, prm.scales, 1.0)

@@ -19,6 +19,7 @@ the sequence's sensitivity rather than the port.
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -285,8 +286,9 @@ def test_tracker_defaults_to_cuda_and_keeps_its_slice():
         StereoTracker(CAM, small_cfg(config))
     with pytest.raises(RuntimeError, match="cuda"):
         entry.tracker_entry()
-    with pytest.raises(NotImplementedError, match="loop-closing"):
-        StereoTracker(CAM, small_cfg(config), loop_closer=object(), device="cpu")
+    with pytest.raises(ValueError, match="loop closer on"):
+        StereoTracker(CAM, small_cfg(config), loop_closer=SimpleNamespace(
+            device=torch.device("meta")), device="cpu")
     tr = StereoTracker(CAM, small_cfg(config), device="cpu")
     img = np.zeros((240, 320), np.float32)
     for call in (lambda: tr.process_mono(img, 0.0), lambda: tr.process_rgbd(img, img, 0.0)):

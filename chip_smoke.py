@@ -28,7 +28,10 @@
    the kernel's wrapper, the plain version and, where one PyTorch call
    computes the same function, that call. The times are device times
    (torch.profiler: the summed time of every kernel and copy a call runs on
-   the card); the host-inclusive time of the wrappers (CUDA events around
+   the card; where that reads under 0.05 ms, whose profiler sums disagree
+   from run to run, or where two profiler sessions record nothing, the
+   replay of a CUDA graph of up to 100 calls between CUDA events); the
+   host-inclusive time of the wrappers (CUDA events around
    eager calls) is printed beside them. The stereo kernel is also held
    against its plain version where every feature passes, so that its median
    cut is live;
@@ -45,13 +48,28 @@
    flagship schedule again with a loop closer attached (the 256 MB
    [2048, 32768] database on the card): keyframes, points and ATE must
    equal the run without it;
-8. holds K9-K11 against their plain versions on the loop phase's first
+8. drives the tracker's other two sensors at the flagship's width
+   (`entry.sensor_entry`: the same camera, KITTI_STEREO and
+   world, one frame per call through `process_mono` / `process_rgbd`), all
+   counters reset just before each: mono over 30 frames (bootstrap at
+   frame 5 +- 1 as the JAX yardstick, every later frame OK, 5 +- 1
+   keyframes, similarity-aligned ATE <= 2 x 0.323 m, a finite map, K5's
+   area and band modes, K12, K13 and K8 launched; the bootstrap's time, each
+   create_new_points call's time, frame p50 / p90 and the points printed)
+   and RGB-D over 40 frames (every frame OK, 2 keyframes, points within 1 %
+   of 2906, ATE <= 2 x 0.00426 m, `rgbd_stereo` launched); then holds K12
+   (the mono bootstrap's own matches, H branch, and a seeded non-planar
+   scene, F branch), K5's band mode (the keyframe against its 8 neighbour
+   slots, 8 x 2048 x 2048) and K13 on a clone of the map at the first
+   create_new_points call, `rgbd_stereo` and K5's area mode (2048 x 2048)
+   against their plain versions, and times them;
+9. holds K9-K11 against their plain versions on the loop phase's first
    closure (its match set, essential graph and map, PnP and relocalize on
    the LOST frame) and at the flagship's sizes (2048 features against the
    whole database, Sim3 and PnP on 2048 matches, the covisibility count of
    the final map, its essential graph of 2048 vertices and 18464 edges with
    a synthetic loop edge), and times those full-width calls;
-9. writes every measurement (per-frame times and counts, nvcc's full
+10. writes every measurement (per-frame times and counts, nvcc's full
    -Xptxas -v log) to chiprun_out/chip_smoke_report.json in the checkout,
    and prints the kernels' JSON line, the nvidia-smi line, and as the last
    line {"ok": true, "device": {...}}.
@@ -79,9 +97,10 @@ sys.path.insert(0, ROOT)
 
 from corbslam_tpu_torch import kernels  # noqa: E402
 from corbslam_tpu_torch.entry import (  # noqa: E402
-    BENCH_FRAMES, BENCH_WARM, BENCH_WINDOW, CAM, CFG, LOOP_FRAMES, TrackState, add_keyframe,
-    bench_config, center_error, entry, gt_pose, loop_entry, orbit_pose, run_bench_schedule,
-    seed_map, stereo_pair, track_entry, track_step, tracker_entry)
+    BENCH_FRAMES, BENCH_WARM, BENCH_WINDOW, CAM, CFG, LOOP_FRAMES, MONO_FRAMES, RGBD_FRAMES,
+    TrackState, add_keyframe, bench_config, center_error, entry, gt_pose, loop_entry, orbit_pose,
+    run_bench_schedule, run_sensor, seed_map, sensor_entry, stereo_pair, track_entry, track_step,
+    tracker_entry)
 from corbslam_tpu_torch.frontend import frame as frame_mod  # noqa: E402
 from corbslam_tpu_torch.frontend import reloc, track_ops  # noqa: E402
 from corbslam_tpu_torch.frontend.tracking import StereoTracker  # noqa: E402
@@ -89,7 +108,7 @@ from corbslam_tpu_torch.frontend.tracking import TrackState as TrackerState  # n
 from corbslam_tpu_torch.geometry import camera, se3, sim3  # noqa: E402
 from corbslam_tpu_torch.io import trajectory  # noqa: E402
 from corbslam_tpu_torch.loop import loop_closing  # noqa: E402
-from corbslam_tpu_torch.mapping import local_mapping  # noqa: E402
+from corbslam_tpu_torch.mapping import local_mapping, triangulation  # noqa: E402
 from corbslam_tpu_torch.mapstate import covisibility as covis  # noqa: E402
 from corbslam_tpu_torch.mapstate import mapstate as ms  # noqa: E402
 from corbslam_tpu_torch.matching import matcher  # noqa: E402
@@ -97,7 +116,7 @@ from corbslam_tpu_torch.ops import brief, fast, orb, pyramid, stereo  # noqa: E4
 from corbslam_tpu_torch.ops.orb import Features  # noqa: E402
 from corbslam_tpu_torch.optim import ba_dense, pose_graph, pose_opt, reproj  # noqa: E402
 from corbslam_tpu_torch.place import database, vocab  # noqa: E402
-from corbslam_tpu_torch.solvers import pnp, sim3_solver  # noqa: E402
+from corbslam_tpu_torch.solvers import initializer, pnp, sim3_solver  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and f32 rate outside the
 # tensor cores; every kernel here runs on the CUDA cores.
@@ -120,11 +139,19 @@ REPLACES = {
     "pnp": "corbslam_tpu/solvers/pnp.py:116",
     "pose_graph": "corbslam_tpu/optim/pose_graph.py:78",
     "covis_matrix": "corbslam_tpu/mapstate/covisibility.py:66",
+    "rgbd_stereo": "corbslam_tpu/ops/stereo.py:104",
+    "match_area": "corbslam_tpu/matching/matcher.py:241",
+    "match_band": "corbslam_tpu/matching/matcher.py:291",
+    "two_view": "corbslam_tpu/solvers/initializer.py:187",
+    "triangulate": "corbslam_tpu/mapping/triangulation.py:61",
 }
 SOURCES = {k: f"corbslam_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 SOURCES["covisibility"] = "corbslam_tpu_torch/csrc/local_map.cu"  # K7's mapping-stage launches
 SOURCES["sim3"] = SOURCES["pnp"] = "corbslam_tpu_torch/csrc/ransac.cu"  # K10
 SOURCES["covis_matrix"] = "corbslam_tpu_torch/csrc/pose_graph.cu"  # K11's covisibility count
+SOURCES["rgbd_stereo"] = "corbslam_tpu_torch/csrc/stereo_match.cu"  # K4's RGB-D entry
+SOURCES["match_area"] = "corbslam_tpu_torch/csrc/match_masked.cu"  # K5's area-window mode
+SOURCES["match_band"] = "corbslam_tpu_torch/csrc/match_masked.cu"  # K5's epipolar-band mode
 FRONT_END_KERNELS = ("pyramid", "fast_cells", "orb_describe", "stereo_match")
 TRACKING_KERNELS = FRONT_END_KERNELS + ("match_masked", "pose_opt", "local_map")
 REPORT = os.path.join(ROOT, "chiprun_out", "chip_smoke_report.json")
@@ -169,11 +196,11 @@ def host_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, reps: int = 20, warmup: int = 3):
     """Mean device time of one fn() call: the summed time of every kernel,
     copy and fill it runs on the card (torch.profiler), host time left out.
     CUPTI now and then returns no device events for a profiler session: such
-    a session is run once more, and the run fails if that one records no
+    a session is run once more, and None is returned if that one records no
     device time either."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -191,7 +218,7 @@ def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
             return us / 1e3 / reps
         print(f"torch.profiler recorded no device time for "
               f"{getattr(fn, '__qualname__', repr(fn))} (session {attempt + 1})", flush=True)
-    raise AssertionError("torch.profiler recorded no device time in two sessions")
+    return None
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -632,20 +659,40 @@ def match_cost(q: dict) -> tuple:
     Nq, Nt = q["desc_q"].shape[0], q["desc_t"].shape[0]
     n_vq, n_vt = int(q["valid_q"].sum()), int(q["valid_t"].sum())
     w = q.get("window")
-    if w is not None:
-        mask = matcher.projection_window_mask(w.uv, q["valid_t"], w.xy, w.octave, q["valid_q"],
-                                              w.radius, w.scale_factors, w.pred_octave, w.slack,
-                                              w.slack_up)
-    else:
-        mask = q["valid_t"][:, None] & q["valid_q"][None, :]
+    mask = matcher.geometry_mask(w, q["valid_q"], q["valid_t"]).T
     n_pass = int(mask.sum())
     t_used, q_used = int(mask.any(1).sum()), int(mask.any(0).sum())
-    per_row = (12 if w is not None else 0) + (4 if q.get("angle_q") is not None else 0)
+    # Per valid row, the window's fields (projection: xy / uv and octave;
+    # area: xy; band: xy and octave) and the angle.
+    geo_bytes, geo_ops = {matcher.Window: (12, 10), matcher.AreaWindow: (8, 6),
+                          matcher.EpipolarBand: (12, 20)}.get(type(w), (0, 0))
+    per_row = geo_bytes + (4 if q.get("angle_q") is not None else 0)
     n_bytes = Nq + Nt + (n_vq + n_vt) * per_row + (q_used + t_used) * 32 + Nq * 9
     # The window test: 2 sub + 3 mul + 1 add + 1 compare + 1 sub + 2
-    # compares; an unmasked pair: 8 XOR + 8 popc + 7 adds and the top-2 (~4).
-    ops = Nq + n_vq * Nt + (n_vq * n_vt * 10 if w is not None else 0) + n_pass * 27
+    # compares (area: 6; band with the epipole guard: ~20); an unmasked pair:
+    # 8 XOR + 8 popc + 7 adds and the top-2 (~4).
+    ops = Nq + n_vq * Nt + n_vq * n_vt * geo_ops + n_pass * 27
     return n_bytes, ops, n_pass
+
+
+def band_cost(st, nbf, xy_q, scales) -> tuple:
+    """(bytes, ops) of K5's batched band search of a keyframe against its
+    neighbours (`triangulation.search`), counted from these inputs as
+    `match_cost` counts one search; the keyframe's descriptors and
+    keypoints are shared by the batches and counted once."""
+    K, F = nbf.unbound.shape
+    valid_q = st.unbound1[None] & st.nb_use[:, None]
+    ops, n_bytes, q_used = 0, K * F * (1 + 1 + 9) + K * 11 * 4, torch.zeros_like(st.unbound1)
+    for k in range(K):
+        band = matcher.EpipolarBand(st.F12[k], nbf.xy[k], xy_q, nbf.octave[k], scales,
+                                    st.epipole[k])
+        mask = matcher.geometry_mask(band, valid_q[k], nbf.unbound[k])
+        n_vq, n_vt = int(valid_q[k].sum()), int(nbf.unbound[k].sum())
+        ops += F + n_vq * F + n_vq * n_vt * 20 + int(mask.sum()) * 27
+        n_bytes += n_vt * 12 + int(mask.any(0).sum()) * 32
+        q_used |= mask.any(1)
+    n_bytes += int((valid_q.any(0)).sum()) * 8 + int(q_used.sum()) * 32
+    return n_bytes, ops
 
 
 def pose_errors(k, p, cam, X, obs, inv_s2, stereo_mask, valid) -> dict:
@@ -1683,24 +1730,345 @@ def check_full_width(fl: dict) -> tuple:
                                                         info["pose_graph"]["R"]),
                      bound=bound_ms(pg_bytes, pg_ops),
                      fns=(lambda: pose_graph.optimize(rg, 20, 40),
-                          lambda: pose_graph.optimize_plain(rg, 20, 40), None, 2)))
+                          lambda: pose_graph.optimize_plain(rg, 20, 40), None, 2),
+                     kernel_reps=3))  # ~1 s a call
     info["sizes"] = dict(N=N, F=F, M=M, W=W, E=E, valid_edges=ev, free_vertices=nf,
                          matches_sim3=nb, matches_pnp=nh, features=nv)
     return rows, info
 
 
+# ---------------------------------------------------------------------------
+# The tracker's other two sensors: mono (K5's area and band modes, K12,
+# K13) and RGB-D
+# ---------------------------------------------------------------------------
+
+# The JAX yardstick of the two sensors on the flagship's camera, config and
+# world (JAX on a CPU; the script is in PERF.md).
+JAX_MONO = dict(init_frame=5, keyframes=5, points=1211, ate_m=0.323)
+JAX_RGBD = dict(keyframes=2, points=2906, ate_m=0.00426)
+MONO_KERNELS = ("match_area", "match_band", "two_view", "triangulate", "ba_dense")
+
+
+def sensor_ate(traj, states, with_scale: bool) -> float:
+    """Aligned ATE of the camera centres over the frames tracked OK."""
+    ok = [i for i, s in enumerate(states) if s == "OK"]
+    est = np.asarray([np.linalg.inv(np.asarray(traj[i][1], np.float64)) for i in ok])
+    gtw = np.asarray([np.linalg.inv(gt_pose(i).numpy().astype(np.float64)) for i in ok])
+    return trajectory.ate_rmse(est, gtw, align=True, with_scale=with_scale)
+
+
+def run_sensor_phase(sensor: str) -> dict:
+    """`entry.run_sensor` on a fresh card tracker, all counters reset just
+    before; each call's wall time (synchronized). For mono it keeps the
+    inputs of every bootstrap search and two-view attempt and a clone of the
+    map at the first create_new_points call, and times each
+    create_new_points call."""
+    tracker, te = sensor_entry("cuda")
+    n = MONO_FRAMES if sensor == "mono" else RGBD_FRAMES
+    kept = dict(search=[], two_view=[], tri_ms=[])
+    search_fn = matcher.search_for_initialization
+    two_view_fn, create_fn = initializer.initialize_two_view, triangulation.create_new_points
+
+    def search(*args, **kw):
+        kept["search"].append((args, kw))
+        return search_fn(*args, **kw)
+
+    def two_view(cam, xy1, xy2, valid, **kw):
+        kept["two_view"].append((xy1.clone(), xy2.clone(), valid.clone()))
+        return two_view_fn(cam, xy1, xy2, valid, **kw)
+
+    def create(cam, m, kf_row, cfg, *args):
+        torch.cuda.synchronize()
+        if "tri_map" not in kept:
+            kept.update(tri_map=ms.clone(m), tri_kf=int(kf_row), cfg=cfg)
+        t0 = time.perf_counter()
+        out = create_fn(cam, m, kf_row, cfg, *args)
+        torch.cuda.synchronize()
+        kept["tri_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    times = {}
+
+    def step(i, fn):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times[i] = (time.perf_counter() - t0) * 1e3
+
+    matcher.search_for_initialization = search
+    initializer.initialize_two_view, triangulation.create_new_points = two_view, create
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        run_sensor(tracker, te, sensor, n, step)
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        matcher.search_for_initialization = search_fn
+        initializer.initialize_two_view, triangulation.create_new_points = two_view_fn, create_fn
+    states = [s.name for s in tracker.frame_states]
+    frame_ms = [times[i] for i in range(n)]
+    out = dict(tracker=tracker, te=te, kept=kept, states=states, launches=launches,
+               frame_ms=frame_ms, create_ms=kept["tri_ms"], keyframes=tracker.stats.n_keyframes,
+               points=int(tracker.map.mp.valid.sum()), stages=dict(tracker.stats.stages),
+               ate_m=sensor_ate(tracker.trajectory, states, sensor == "mono"))
+    bad = map_finite(tracker.map)
+    require(not bad, f"{sensor}: non-finite map fields {bad}")
+    if sensor == "mono":
+        init = states.index("OK") if "OK" in states else -1
+        out.update(init_frame=init, init_ms=frame_ms[init] if init >= 0 else None,
+                   tracked_ms=frame_ms[init + 1:], attempts=len(kept["two_view"]))
+        require(abs(init - JAX_MONO["init_frame"]) <= 1,
+                f"mono: initialized at frame {init}, the JAX yardstick at {JAX_MONO['init_frame']}")
+        require(all(s == "OK" for s in states[init:]), f"mono: frame states {states}")
+        require(abs(out["keyframes"] - JAX_MONO["keyframes"]) <= 1,
+                f"mono: {out['keyframes']} keyframes, JAX {JAX_MONO['keyframes']}")
+        require(out["ate_m"] <= 2 * JAX_MONO["ate_m"],
+                f"mono: similarity ATE {out['ate_m']:.4f} m > 2 x JAX's {JAX_MONO['ate_m']} m")
+        require("tri_map" in kept, "mono: create_new_points never ran")
+        for name in MONO_KERNELS + ("pyramid", "fast_cells", "orb_describe", "match_masked",
+                                    "pose_opt", "local_map", "covisibility"):
+            require(launches[name] > 0, f"kernel {name} was not launched by the mono phase")
+    else:
+        out["tracked_ms"] = frame_ms[1:]
+        require(all(s == "OK" for s in states), f"rgbd: frame states {states}")
+        require(out["keyframes"] == JAX_RGBD["keyframes"],
+                f"rgbd: {out['keyframes']} keyframes, JAX {JAX_RGBD['keyframes']}")
+        require(abs(out["points"] - JAX_RGBD["points"]) <= 0.01 * JAX_RGBD["points"],
+                f"rgbd: {out['points']} points, JAX {JAX_RGBD['points']}")
+        require(out["ate_m"] <= 2 * JAX_RGBD["ate_m"],
+                f"rgbd: ATE {out['ate_m']:.5f} m > 2 x JAX's {JAX_RGBD['ate_m']} m")
+        for name in ("rgbd_stereo", "pyramid", "fast_cells", "orb_describe", "match_masked",
+                     "pose_opt", "local_map"):
+            require(launches[name] > 0, f"kernel {name} was not launched by the RGB-D phase")
+        require(launches["stereo_match"] == 0, "rgbd: the stereo matcher ran")
+    tm = out["tracked_ms"]
+    out.update(frame_ms_p50=float(np.percentile(tm, 50)), frame_ms_p90=float(np.percentile(tm, 90)))
+    return out
+
+
+def plane_scene(planar: bool, n: int = 2048, seed: int = 5):
+    """Matched pixels of two views of a seeded scene at the flagship's camera
+    (a plane 12 m away, or points 8-20 m deep), 0.5 px noise."""
+    rng = np.random.default_rng(seed)
+    depth = np.full(n, 12.0) if planar else rng.uniform(8, 20, n)
+    X = np.stack([rng.uniform(-8, 8, n), rng.uniform(-3, 3, n), depth], -1).astype(np.float32)
+    T21 = se3.exp(torch.tensor([-0.4, 0.02, 0.01, 0.0, 0.05, 0.0])).numpy()
+
+    def proj(T):
+        p = X @ T[:3, :3].T + T[:3, 3]
+        return np.stack([CAM.fx * p[:, 0] / p[:, 2] + CAM.cx,
+                         CAM.fy * p[:, 1] / p[:, 2] + CAM.cy], -1).astype(np.float32)
+
+    xy1 = proj(np.eye(4, dtype=np.float32)) + rng.normal(0, 0.5, (n, 2)).astype(np.float32)
+    xy2 = proj(T21) + rng.normal(0, 0.5, (n, 2)).astype(np.float32)
+    ok = ((xy1 > 0).all(-1) & (xy1 < [CAM.width, CAM.height]).all(-1) & (xy2 > 0).all(-1)
+          & (xy2 < [CAM.width, CAM.height]).all(-1))
+    return [torch.from_numpy(a).cuda() for a in (xy1, xy2, ok)]
+
+
+def same_two_view(xy1, xy2, valid, sample, name: str) -> tuple:
+    """K12 against its plain version: ok and the model exact; the good count
+    and mask within 1 % (points within rounding of a gate), R within 1e-4,
+    the unit t within 1e-3 (the refit's f32 null vector), good points within
+    1e-2 relative."""
+    k = initializer.initialize_two_view(CAM, xy1, xy2, valid, sample=sample)
+    p = initializer.initialize_two_view_plain(CAM, xy1, xy2, valid, sample)
+    torch.cuda.synchronize()
+    nb = int(p.n_good)
+    both = k.good & p.good
+    dX = torch.linalg.norm(k.X - p.X, dim=1)[both]
+    e = dict(ok=bool(k.ok), used_H=bool(k.used_H), n_good_kernel=int(k.n_good), n_good_plain=nb,
+             good_flips=int((k.good != p.good).sum()), R=float((k.R - p.R).abs().max()),
+             t=float((k.t - p.t).abs().max()),
+             X_rel=float((dX / torch.linalg.norm(p.X, dim=1)[both]).max()) if nb else 0.0,
+             score_h=(float(k.score_h), float(p.score_h)), score_f=(float(k.score_f),
+                                                                   float(p.score_f)))
+    require(bool(k.ok) == bool(p.ok) and bool(k.used_H) == bool(p.used_H),
+            f"two_view ({name}): ok / model differ: {e}")
+    require(abs(e["n_good_kernel"] - nb) <= nb // 100 and e["good_flips"] <= nb // 100,
+            f"two_view ({name}): good counts differ: {e}")
+    require(e["R"] <= 1e-4 and e["t"] <= 1e-3 and e["X_rel"] <= 1e-2,
+            f"two_view ({name}): pose or points differ: {e}")
+    return k, e
+
+
+def check_sensor_kernels(mp_: dict, rg: dict) -> tuple:
+    """K12, K5's band mode, K13, K4's rgbd_stereo and K5's area mode against
+    their plain versions on the sensor phases' inputs; rows for the kernels' line
+    with each bound from these inputs."""
+    info, rows = {}, []
+    tracker, te = mp_["tracker"], mp_["te"]
+    cfg = tracker.cfg
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    # K12, H branch: the mono bootstrap's own matches (its successful attempt).
+    xy1, xy2, valid = mp_["kept"]["two_view"][-1]
+    sample = initializer.sample_indices(valid, 256, 8, gen)
+    k, info["two_view_H"] = same_two_view(xy1, xy2, valid, sample, "mono bootstrap")
+    info["two_view_H"]["matches"] = int(valid.sum())
+    require(info["two_view_H"]["used_H"] and info["two_view_H"]["ok"],
+            f"two_view: the planar bootstrap did not take H: {info['two_view_H']}")
+    # K12, F branch: a seeded non-planar scene (svd3x3 of E).
+    fx1, fx2, fvalid = plane_scene(False)
+    fsample = initializer.sample_indices(fvalid, 256, 8, gen)
+    _, info["two_view_F"] = same_two_view(fx1, fx2, fvalid, fsample, "non-planar scene")
+    require(not info["two_view_F"]["used_H"] and info["two_view_F"]["ok"],
+            f"two_view: the non-planar scene did not take F: {info['two_view_F']}")
+    n_v, n_inl = int(valid.sum()), int(k.good.sum())
+    H = sample.shape[0]
+    # Per hypothesis: the normal matrices (8 F rows, 16 H rows, 2 x 81 each),
+    # the LU and 12 solves of each model, F's SVD and the denormalization;
+    # a ~45-flop score of every valid match for each; the refit's normal
+    # matrices and rescore; the chosen model's candidates (8) checked over
+    # the inliers (~110 flops each). Bytes: the matches, flags and sample in;
+    # the points, mask and pose out.
+    tv_ops = (H * (24 * 162 + 2 * (486 + 12 * 182) + 800) + 2 * H * n_v * 45
+              + n_v * 3 * 162 + 2 * n_v * 45 + 8 * n_inl * 110)
+    tv_bytes = xy1.shape[0] * (8 + 8 + 1) + H * 8 * 4 + xy1.shape[0] * (12 + 1) + 48
+    rows.append(dict(name="two_view", max_abs_err=max(info["two_view_H"]["R"],
+                                                      info["two_view_H"]["t"]),
+                     bound=bound_ms(tv_bytes, tv_ops),
+                     fns=(lambda: initializer.initialize_two_view(CAM, xy1, xy2, valid,
+                                                                  sample=sample),
+                          lambda: initializer.initialize_two_view_plain(CAM, xy1, xy2, valid,
+                                                                        sample), None, 3)))
+    # K5's band mode and K13 on a clone of the map at the first
+    # create_new_points call, at the path's shapes ([K, F] against K
+    # neighbours of F features).
+    m, q = mp_["kept"]["tri_map"], mp_["kept"]["tri_kf"]
+    st = triangulation.setup(CAM, m, q, cfg)
+    nbf = triangulation.neighbours(m, st)
+    sk = triangulation.search(m, st, nbf, cfg)
+    sp = triangulation.search(m, st, nbf, cfg, plain=True)
+    torch.cuda.synchronize()
+    for f in ("idx", "dist", "ok"):
+        a, b = getattr(sk, f), getattr(sp, f)
+        require(torch.equal(a, b.to(a.dtype)),
+                f"match_band: {f} differs in {(a != b.to(a.dtype)).sum().item()} places")
+    K, F = st.nb_rows.shape[0], m.kf.n_features
+    info["match_band"] = dict(neighbours=K, used=int(st.nb_use.sum()), matches=int(sk.ok.sum()))
+    b_bytes, b_ops = band_cost(st, nbf, m.kf.xy[q], tracker.scales)
+    rows.append(dict(name="match_band", max_abs_err=0.0, bound=bound_ms(b_bytes, b_ops),
+                     fns=(lambda: triangulation.search(m, st, nbf, cfg),
+                          lambda: triangulation.search(m, st, nbf, cfg, plain=True), None, 10)))
+    match = sp.idx
+    ck = triangulation.points(CAM, m, st, nbf, match, cfg)
+    cp = triangulation.points_plain(CAM, m, st, nbf, match, cfg)
+    torch.cuda.synchronize()
+    made = ck.create & cp.create
+    info["triangulate"] = dict(
+        created_kernel=int(ck.create.sum()), created_plain=int(cp.create.sum()),
+        neighbours=int(st.nb_use.sum()),
+        X_max_abs=float((ck.X - cp.X)[made].abs().max()) if bool(made.any()) else 0.0)
+    require(torch.equal(ck.create, cp.create) and torch.equal(ck.k[made], cp.k[made])
+            and torch.equal(ck.f2[made], cp.f2[made]),
+            f"triangulate: candidates differ: {info['triangulate']}")
+    require(info["triangulate"]["X_max_abs"] <= 1e-5, f"triangulate: {info['triangulate']}")
+    mk = triangulation.create_new_points(CAM, ms.clone(m), q, cfg)
+    cpl = triangulation.candidates_plain(CAM, m, st, cfg)
+    mpl = triangulation.write_points(ms.clone(m), st, cpl, cfg)
+    require(int(mk.n_mp) == int(mpl.n_mp) and torch.equal(mk.kf.mp_idx, mpl.kf.mp_idx),
+            "triangulate: created rows or bindings differ")
+    # Bound: ~150 flops of rays, midpoint and gates per (neighbour, feature)
+    # with a match, one read of each match. Bytes: the keyframe's keypoints
+    # and octaves, the matches, the matched neighbour features' keypoints and
+    # octaves, the poses, the outputs.
+    n_match = int((match >= 0).sum())
+    tri_ops = n_match * 150 + K * F
+    tri_bytes = F * 12 + K * F * 4 + n_match * 12 + (K + 1) * 15 * 4 + F * (1 + 4 + 4 + 12 + 4)
+    rows.append(dict(name="triangulate", max_abs_err=info["triangulate"]["X_max_abs"],
+                     bound=bound_ms(tri_bytes, tri_ops),
+                     fns=(lambda: triangulation.points(CAM, m, st, nbf, match, cfg),
+                          lambda: triangulation.points_plain(CAM, m, st, nbf, match, cfg),
+                          None, 10)))
+    # K5's area mode at 2048 x 2048: the search of the successful bootstrap
+    # (its reference frame's features against the frame it initialized with).
+    (xy1_, desc1, ang1, val1, xy2_, desc2, ang2, val2), kw = mp_["kept"]["search"][-1]
+    q_area = dict(desc_q=desc1, desc_t=desc2, valid_q=val1, valid_t=val2,
+                  max_dist=kw["max_dist"], ratio=kw["ratio"], mutual=True,
+                  window=matcher.AreaWindow(xy2_, xy1_, kw["window"]), angle_q=ang1,
+                  angle_t=ang2)
+    info["match_area_ok"] = int(same_match(q_area, "area").ok.sum())
+    a_bytes, a_ops, _ = match_cost(q_area)
+    rows.append(dict(name="match_area", max_abs_err=0.0, bound=bound_ms(a_bytes, a_ops),
+                     fns=(lambda: matcher.match_select(**q_area),
+                          lambda: matcher.match_select_plain(**q_area), None, 10)))
+    # K4's rgbd_stereo: the last RGB-D frame's keypoints and depth map.
+    T = gt_pose(RGBD_FRAMES - 1)
+    dmap = rg["te"].world.depth(T).contiguous()
+    f = orb.extract(rg["te"].world.render(T), cfg.orb, "cuda")
+    xu = camera.undistort_points(CAM, f.xy)
+    rargs = (dmap, f.xy, f.valid, float(CAM.bf))
+    kr = stereo.compute_stereo_from_rgbd(*rargs, xy_und=xu)
+    pr = stereo.compute_stereo_from_rgbd_plain(*rargs, xy_und=xu)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(kr, pr)), "rgbd_stereo differs from plain")
+    info["rgbd_ok"] = int(kr.ok.sum())
+    N = f.xy.shape[0]
+    rows.append(dict(name="rgbd_stereo", max_abs_err=0.0, bound=bound_ms(N * 26, N * 12),
+                     fns=(lambda: stereo.compute_stereo_from_rgbd(*rargs, xy_und=xu),
+                          lambda: stereo.compute_stereo_from_rgbd_plain(*rargs, xy_und=xu),
+                          None, 20)))
+    return rows, info
+
+
+SMALL_MS = 0.05  # below this, torch.profiler's device sums disagree between runs
+
+
+def graph_ms(fn, reps: int = 100) -> float:
+    """Mean time of one fn() call replayed from a CUDA graph of `reps`
+    calls, CUDA events around one replay: no host launch gaps, so calls of
+    a few microseconds are resolved; each kernel node of the graph adds its
+    launch latency on the card."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del g
+    return start.elapsed_time(end) / reps
+
+
+def timed_ms(fn, reps: int, call_ms: float) -> tuple:
+    """(ms, how): the profiler's device time of one call, or, where that
+    reads under SMALL_MS or two sessions record nothing, the CUDA-graph
+    replay time (`graph_ms` of up to 100 calls, about 10 ms of work at the
+    host-inclusive `call_ms`; a call that syncs with the host cannot be
+    captured and fails the run)."""
+    ms = device_ms(fn, reps=reps, warmup=min(3, reps))
+    if ms is not None and ms >= SMALL_MS:
+        return ms, "profiler"
+    g = graph_ms(fn, reps=max(1, min(100, int(10.0 / max(call_ms, 1e-3)))))
+    return g, "graph (" + ("no profiler events" if ms is None else f"profiler {ms:.5f}") + ")"
+
+
 def time_rows(rows: list) -> None:
     """Host-inclusive times first (a profiler session may slow later host
-    work), then device times, for rows of (kernel, plain, library, reps)."""
+    work), then device times (`timed_ms`), for rows of (kernel, plain,
+    library, plain reps); a row's "kernel_reps" (default 20) sets the
+    kernel's."""
     for r in rows:
         kernel_fn, plain_fn, _, reps = r["fns"]
-        r["host_ms"] = host_ms(kernel_fn)
+        kreps = r.get("kernel_reps", 20)
+        r["host_ms"] = host_ms(kernel_fn, reps=kreps, warmup=min(3, kreps))
         r["plain_host_ms"] = host_ms(plain_fn, reps=reps, warmup=min(3, reps))
     for r in rows:
         kernel_fn, plain_fn, library_fn, reps = r.pop("fns")
-        r["ms"] = device_ms(kernel_fn)
-        r["plain_ms"] = device_ms(plain_fn, reps=reps, warmup=min(3, reps))
-        r["library_ms"] = device_ms(library_fn) if library_fn else None
+        r["ms"], r["ms_by"] = timed_ms(kernel_fn, r.pop("kernel_reps", 20), r["host_ms"])
+        r["plain_ms"], r["plain_ms_by"] = timed_ms(plain_fn, reps, r["plain_host_ms"])
+        r["library_ms"], r["library_ms_by"] = (timed_ms(library_fn, 20, host_ms(library_fn))
+                                               if library_fn else (None, None))
 
 
 def main() -> int:
@@ -1797,6 +2165,25 @@ def main() -> int:
           f"{kp['frame_ms_p50']:.3f} / {kp['frame_ms_p90']:.3f}); launches {fl['launches']}",
           flush=True)
     phase("flagship_loop_closer")
+    mono = run_sensor_phase("mono")
+    print(f"mono: {MONO_FRAMES} frames, states {''.join(x[0] for x in mono['states'])}; "
+          f"initialized at frame {mono['init_frame']} (JAX {JAX_MONO['init_frame']}) after "
+          f"{mono['attempts']} two-view attempts, that frame {mono['init_ms']:.3f} ms; keyframes "
+          f"{mono['keyframes']} (JAX {JAX_MONO['keyframes']}), points {mono['points']} (JAX "
+          f"{JAX_MONO['points']}); similarity ATE {mono['ate_m']:.4f} m (JAX {JAX_MONO['ate_m']} "
+          f"m); create_new_points ms {[round(v, 3) for v in mono['create_ms']]}; tracked "
+          f"frame p50 {mono['frame_ms_p50']:.3f} ms p90 {mono['frame_ms_p90']:.3f} ms; stages "
+          f"{mono['stages']}; launches {mono['launches']}", flush=True)
+    print("mono frame ms: " + json.dumps([round(v, 3) for v in mono["frame_ms"]]), flush=True)
+    phase("mono")
+    rgbd = run_sensor_phase("rgbd")
+    print(f"rgbd: {sum(x == 'OK' for x in rgbd['states'])} of {RGBD_FRAMES} frames OK; keyframes "
+          f"{rgbd['keyframes']} (JAX {JAX_RGBD['keyframes']}), points {rgbd['points']} (JAX "
+          f"{JAX_RGBD['points']}); ATE {rgbd['ate_m']:.5f} m (JAX {JAX_RGBD['ate_m']} m); frame "
+          f"p50 {rgbd['frame_ms_p50']:.3f} ms p90 {rgbd['frame_ms_p90']:.3f} ms; stages "
+          f"{rgbd['stages']}; launches {rgbd['launches']}", flush=True)
+    print("rgbd frame ms: " + json.dumps([round(v, 3) for v in rgbd["frame_ms"]]), flush=True)
+    phase("rgbd")
 
     cmp = compare_frames(mp.pop("entry_frame"),
                          frame_mod.build_frame_stereo(*entry_imgs, CAM, CFG, device="cpu"))
@@ -1830,22 +2217,33 @@ def main() -> int:
     time_rows(frows)
     print(f"full-width kernel checks: {json.dumps(finfo)}", flush=True)
     phase("kernels_k9_k11")
+    srows, sinfo = check_sensor_kernels(mono, rgbd)
+    time_rows(srows)
+    print(f"sensor kernel checks: {json.dumps(sinfo)}", flush=True)
+    phase("kernels_k12_k13")
     # Launches: each row's count from the main path that runs it (the front
     # end, the tracking step, the tracker's mapping stages).
     launches = dict(mp["launches"], **{k: tp["launches"][k] for k in
                                        ("match_masked", "pose_opt", "local_map")},
                     **{k: kp["launches"][k] for k in ("covisibility", "ba_dense")},
-                    **{k: lp["launches"][k] for k in LOOP_KERNELS})
-    rows += trows + mrows + frows
+                    **{k: lp["launches"][k] for k in LOOP_KERNELS},
+                    **{k: mono["launches"][k] for k in MONO_KERNELS[:-1]},
+                    rgbd_stereo=rgbd["launches"]["rgbd_stereo"])
+    rows += trows + mrows + frows + srows
     for r in rows:
-        print(f"kernel {r['name']}: device ms {r['ms']:.5f} (host-inclusive {r['host_ms']:.4f}) "
-              f"plain device ms {r['plain_ms']:.4f} (host-inclusive {r['plain_host_ms']:.3f}) "
-              f"library ms {r['library_ms']} bound ms {r['bound'][0]:.5f} ({r['bound'][1]}) "
+        print(f"kernel {r['name']}: device ms {r['ms']:.5f} by {r['ms_by']} (host-inclusive "
+              f"{r['host_ms']:.4f}) plain device ms {r['plain_ms']:.4f} by {r['plain_ms_by']} "
+              f"(host-inclusive {r['plain_host_ms']:.3f}) library ms {r['library_ms']} by "
+              f"{r['library_ms_by']} bound ms {r['bound'][0]:.5f} ({r['bound'][1]}) "
               f"max_abs_err {r['max_abs_err']:.3g} launches {launches[r['name']]}", flush=True)
     for name in ("covisibility", "ba_dense"):
         n = kp["launches"][name]
         print(f"tracker launches of {name}: {n} ({n / BENCH_FRAMES:.2f} per frame, "
               f"{n / kp['keyframes']:.2f} per keyframe)", flush=True)
+    for name in MONO_KERNELS:
+        n = mono["launches"][name]
+        print(f"mono launches of {name}: {n} ({n / mono['keyframes']:.2f} per keyframe)",
+              flush=True)
     for name in LOOP_KERNELS:
         n = lp["launches"][name]
         print(f"loop launches of {name}: {n} ({n / lp['keyframes']:.2f} per keyframe, "
@@ -1870,6 +2268,9 @@ def main() -> int:
         kp.pop(k)
         lp.pop(k)
     fl.pop("tracker")
+    for d in (mono, rgbd):
+        for k in ("tracker", "te", "kept"):
+            d.pop(k, None)
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)
     with open(REPORT, "w") as fh:
         json.dump(dict(nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
@@ -1878,6 +2279,7 @@ def main() -> int:
                        vs_cpu=cmp, tracking=tp, tracking_vs_cpu=track_cmp, tracker=kp,
                        tracker_vs_cpu=tracker_cmp, stage_times=stage_times, phase_s=phase_s,
                        loop=lp, flagship_loop_closer=fl, loop_checks=linfo, full_width=finfo,
+                       mono=mono, rgbd=rgbd, sensor_checks=sinfo,
                        texture_s=texture_s), fh, indent=1)
     print(json.dumps(kernels_line))
     print(smi)

@@ -24,6 +24,14 @@
 // otherwise finds the two middle SADs by stable rank counting in shared
 // memory and averages them as jnp.median does, then applies the 2.1 x
 // median cut and writes depth = bf / max(disparity, 0.1) and u_right.
+//
+// `rgbd_stereo` replaces corbslam_tpu/ops/stereo.py compute_stereo_from_rgbd
+// (B6's RGB-D half): one thread per feature rounds the raw keypoint half to
+// even (rintf, as jnp.round), clamps it into the image, reads the registered
+// depth map there and writes u_right = x_undistorted - bf / max(d, min_depth)
+// and the depth, or -1 / 0 where the feature is invalid or d <= min_depth.
+// Bound: bytes (a 4-byte gather and ~20 bytes of keypoint in and out per
+// feature), so it is one launch with no shared memory.
 
 #include <math.h>
 
@@ -184,6 +192,23 @@ __global__ void __launch_bounds__(1024) stereo_finish_kernel(
     }
 }
 
+__global__ void rgbd_stereo_kernel(const float* __restrict__ depth_map, int h, int w,
+                                   const float2* __restrict__ xy, const float* __restrict__ xy_und,
+                                   const bool* __restrict__ valid, int N, float bf, float min_depth,
+                                   float* __restrict__ u_right, float* __restrict__ depth,
+                                   bool* __restrict__ ok) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= N) return;
+    const float2 p = xy[i];
+    const int xi = min(max((int)rintf(p.x), 0), w - 1);
+    const int yi = min(max((int)rintf(p.y), 0), h - 1);
+    const float d = depth_map[(size_t)yi * w + xi];
+    const bool o = valid[i] && d > min_depth;
+    ok[i] = o;
+    depth[i] = o ? d : 0.f;
+    u_right[i] = o ? __fsub_rn(xy_und[2 * i], __fdiv_rn(bf, fmaxf(d, min_depth))) : -1.0f;
+}
+
 }  // namespace
 
 // Best right match and refined u_right for each of N left features against
@@ -208,5 +233,16 @@ C_ENTRY int stereo_finish(const float* u_pre, const float* disp, const bool* ok_
                           bool* ok, cudaStream_t stream) {
     stereo_finish_kernel<<<1, 1024, N * sizeof(float), stream>>>(u_pre, disp, ok_pre, best_sad,
                                                                  N, bf, u_right, depth, ok);
+    return (int)cudaGetLastError();
+}
+
+// (u_right, depth, ok) of N features from a registered [h, w] depth map.
+C_ENTRY int rgbd_stereo(const float* depth_map, int h, int w, const float* xy,
+                        const float* xy_und, const bool* valid, int N, float bf, float min_depth,
+                        float* u_right, float* depth, bool* ok, cudaStream_t stream) {
+    if (N > 0)
+        rgbd_stereo_kernel<<<(N + 255) / 256, 256, 0, stream>>>(
+            depth_map, h, w, reinterpret_cast<const float2*>(xy), xy_und, valid, N, bf,
+            min_depth, u_right, depth, ok);
     return (int)cudaGetLastError();
 }

@@ -23,6 +23,15 @@ a flush, then two windows of 30 frames, each followed by a flush (no waits,
 no timers). `tracker_entry(loop_closer=True)` attaches a `LoopCloser` with the
 shipped vocabulary (`assets/vocab32k.npz`) and global BA off.
 
+`sensor_entry()` is the flagship's camera, config and world driven through
+the tracker's other two sensors, one frame per call:
+`run_sensor(tracker, te, "mono" | "rgbd", n)` feeds frame i =
+`world.render(gt_pose(i))` (the left image of `render_stereo`) and, for
+RGB-D, `world.depth(gt_pose(i))`, at timestamp 0.1 i, then flushes. The
+JAX reference's run of the same input bootstraps mono at frame 5 (30
+frames: 5 keyframes, 1211 points, similarity-aligned ATE 0.323 m) and tracks
+all 40 RGB-D frames (2 keyframes, 2906 points, ATE 0.00426 m).
+
 `loop_entry()` is the loop-closure validation setup of the reference
 (`tools/loop_e2e.py:36-65`, `tests/test_loop_e2e.py:27-40`): a 320x240
 camera, 512 features on 4 levels, capacities 256 keyframes / 32768 points,
@@ -209,6 +218,38 @@ def run_bench_schedule(tracker: StereoTracker, frames, step=None, stop=None, sta
         for i in range(first, min(first + BENCH_WINDOW, n)):
             step(i, lambda i=i: feed(i))
         step(None, tracker.flush)
+
+
+MONO_FRAMES, RGBD_FRAMES = 30, 40
+
+
+def sensor_entry(device="cuda"):
+    """(StereoTracker on `device`, TrackEntry) for `process_mono` or
+    `process_rgbd` (the plane's depth map) on the flagship camera,
+    KITTI_STEREO and world; `run_sensor` picks the sensor."""
+    te = track_entry(device)
+    return StereoTracker(te.cam, te.cfg, device=te.world.device), te
+
+
+def run_sensor(tracker: StereoTracker, te: TrackEntry, sensor: str, n: int, step=None) -> None:
+    """Frames 0 .. n-1 of the bench trajectory through `process_mono` or
+    `process_rgbd`, then a flush; `step(i, fn)` runs frame i's call (fn())
+    and, with i None, the flush."""
+    if sensor not in ("mono", "rgbd"):
+        raise ValueError(f"run_sensor: sensor {sensor!r} is not 'mono' or 'rgbd'")
+    if step is None:
+        def step(_, fn):
+            fn()
+
+    for i in range(n):
+        T = gt_pose(i)
+        img = te.world.render(T)
+        if sensor == "mono":
+            step(i, lambda: tracker.process_mono(img, i * 0.1))
+        else:
+            depth = te.world.depth(T)
+            step(i, lambda: tracker.process_rgbd(img, depth, i * 0.1))
+    step(None, tracker.flush)
 
 
 LOOP_CAM = camera.Intrinsics.create(fx=320.0, fy=320.0, cx=160.0, cy=120.0, bf=320.0 * 0.5,

@@ -1,9 +1,11 @@
-"""Per-frame construction: ORB extraction + stereo depth assignment
-(port of `corbslam_tpu/frontend/frame.py`; the RGB-D builder comes later).
+"""Per-frame construction: ORB extraction + stereo / RGB-D depth assignment
+(port of `corbslam_tpu/frontend/frame.py`).
 
 `build_frame_stereo` runs both images through the ORB kernels as one batch
 of two, matches them with the stereo kernel and undistorts the left
-keypoints. Inputs are numpy arrays or tensors; `device` defaults to "cuda".
+keypoints; `build_frame_rgbd` reads a registered depth map at the raw
+keypoints (K4's `rgbd_stereo` entry); `build_frame_mono` leaves u_right -1
+and depth 0. Inputs are numpy arrays or tensors; `device` defaults to "cuda".
 """
 
 from __future__ import annotations
@@ -58,6 +60,15 @@ def build_frame_stereo(img_l, img_r, cam: cam_mod.Intrinsics, cfg: OrbConfig,
     fl, fr = f.select(0), f.select(1)
     m = stereo.stereo_match(fl, fr, prm.scales, float(cam.bf))
     return _frame(fl, cam_mod.undistort_points(cam, fl.xy), m.u_right, m.depth)
+
+
+def build_frame_rgbd(img, depth_map, cam: cam_mod.Intrinsics, cfg: OrbConfig,
+                     device="cuda") -> FrameData:
+    f = orb.extract(img, cfg, device)
+    dmap = orb.as_images([depth_map], f.xy.device)[0]
+    xy_und = cam_mod.undistort_points(cam, f.xy)
+    r = stereo.compute_stereo_from_rgbd(dmap, f.xy, f.valid, float(cam.bf), xy_und=xy_und)
+    return _frame(f, xy_und, r.u_right, r.depth)
 
 
 def build_frame_mono(img, cam: cam_mod.Intrinsics, cfg: OrbConfig, device="cuda") -> FrameData:

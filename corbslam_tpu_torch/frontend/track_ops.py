@@ -28,7 +28,9 @@ keyframe and points), where the reference donates its buffers.
 re-acquires a LOST track (Tracking.cc:886, :775, :951); `track_local_map`
 weighs all keyframes, not the candidate window, and shares K7's point-mask,
 compaction and frustum launches with the fused step. `track_frame_rgbd` and
-`track_frame_mono` come with the RGB-D and mono slice.
+`track_frame_mono` are the same step on an RGB-D or a monocular frame; a
+mono frame's features have no depth, so K6 runs every observation with the
+2-D residual and its 5.991 gate.
 """
 
 from __future__ import annotations
@@ -416,6 +418,25 @@ def track_frame_stereo2(m: ms.MapState, prev: FrameData, velocity, img_l0, img_r
     o1 = track_frame_stereo(o0.map, o0.cur, o0.velocity, img_l1, img_r1, o0.ref_kf,
                             o0.local_rows, o0.local_ok, cam, cfg, device)
     return o0, o1
+
+
+def track_frame_rgbd(m: ms.MapState, prev: FrameData, velocity, img, depth_map, ref_kf,
+                     prev_local_rows, prev_local_ok, cam, cfg: SlamConfig,
+                     device="cuda") -> FusedTrackResult:
+    """RGB-D frame build (a registered depth map) + the OK-state tracking step."""
+    dev = kernels.resolve_device(device)
+    _require_on(dev, map=m.mp.pos, prev=prev.xy, velocity=velocity, local_rows=prev_local_rows)
+    cur = frame_mod.build_frame_rgbd(img, depth_map, cam, cfg.orb, device=dev)
+    return _track_core(cam, m, cur, prev, velocity, ref_kf, prev_local_rows, prev_local_ok, cfg)
+
+
+def track_frame_mono(m: ms.MapState, prev: FrameData, velocity, img, ref_kf, prev_local_rows,
+                     prev_local_ok, cam, cfg: SlamConfig, device="cuda") -> FusedTrackResult:
+    """Monocular frame build + the OK-state tracking step."""
+    dev = kernels.resolve_device(device)
+    _require_on(dev, map=m.mp.pos, prev=prev.xy, velocity=velocity, local_rows=prev_local_rows)
+    cur = frame_mod.build_frame_mono(img, cam, cfg.orb, device=dev)
+    return _track_core(cam, m, cur, prev, velocity, ref_kf, prev_local_rows, prev_local_ok, cfg)
 
 
 def insert_keyframe_with_points(cam, m: ms.MapState, cur: FrameData, frame_id, timestamp,

@@ -1,16 +1,22 @@
-"""Host-side tracking state machine of the stereo tracker (port of
+"""Host-side tracking state machine (port of
 `corbslam_tpu/frontend/tracking.py`: `TrackState`, `TrackerStats`,
-`StereoTracker`, stereo path).
+`StereoTracker` with its stereo, RGB-D and monocular paths).
 
 The control-flow half of the reference's Tracking thread (Tracking.cc:266
 Track, :414 OK / LOST, :995 NeedNewKeyFrame) and of its LocalMapping thread:
 a host object that sequences the device steps of `frontend/track_ops.py`
 and `mapping/local_mapping.py` and branches only on small summaries.
 
-- NOT_INITIALIZED: stereo initialization seeds the map at the first frame
-  with >= 100 depth features.
+- NOT_INITIALIZED: stereo / RGB-D initialization seeds the map at the first
+  frame with >= 100 depth features. Mono holds a reference frame, matches
+  each later frame to it (`search_for_initialization`), runs the two-view
+  bootstrap (`solvers/initializer.py`, K12) with a sample from the
+  tracker's generator, scales the map to unit median depth, inserts both
+  frames as keyframes with the triangulated points and runs the two-view
+  local BA (K8); a failed bootstrap keeps or replaces the reference frame.
 - OK: the fused step `track_frame_stereo` (two frames per call with
-  `frames_per_dispatch=2`) is dispatched at once and retired
+  `frames_per_dispatch=2`; one frame per call for RGB-D and mono,
+  `track_frame_rgbd` / `track_frame_mono`) is dispatched at once and retired
   `pipeline_depth` frames later, when its 24-float summary (read through a
   non-blocking copy into pinned memory and an event) drives the state, the
   trajectory and the keyframe policy. A keyframe made at retire time is built
@@ -20,7 +26,10 @@ and `mapping/local_mapping.py` and branches only on small summaries.
   only way back; without one, re-acquisition through the separate programs
   (`track_motion_model`, `track_reference_kf`, `track_local_map`,
   `update_tracking_stats`).
-- Mapping: each keyframe queues its stages (fuse; point cull and geometry
+- Mapping: each keyframe queues its stages (mono first triangulates new
+  points with its covisible keyframes, `mapping/triangulation.py`, K5's
+  band mode and K13;
+  fuse; point cull and geometry
   refresh on every second keyframe; the split local BA from the third;
   keyframe cull on every third after the fifth; the full sweep on every
   sixth); one stage runs per frame, more while more than 4 wait; `flush`
@@ -28,11 +37,14 @@ and `mapping/local_mapping.py` and branches only on small summaries.
   off) every keyframe also queues its loop-closing stage; the keyframe cull
   drops culled rows from the database and a compaction remaps it. A split
   local BA whose window was built before a `map_epoch` bump (loop
-  correction, compaction, reset) does not write back.
+  correction, compaction, reset) does not write back. Mono drains the whole
+  queue at each keyframe (triangulation is its only source of points), culls
+  points with 2 observations instead of 3, and asks for a keyframe below
+  `kf_ref_ratio_mono` of the tracked count.
 
 The map is updated in place where the reference donates it (see
-`mapstate.mapstate`). `process_rgbd` / `process_mono` come with the RGB-D and
-mono slice.
+`mapstate.mapstate`). Mono with a loop closer needs free-scale Sim3 and
+global BA, which come with the global-BA slice: it raises.
 """
 
 from __future__ import annotations
@@ -50,9 +62,11 @@ from .. import kernels
 from ..config import SlamConfig
 from ..geometry import camera as cam_mod
 from ..geometry import se3
-from ..mapping import local_mapping
+from ..mapping import local_mapping, triangulation
 from ..mapstate import mapstate as ms
+from ..matching import matcher
 from ..optim import ba_dense
+from ..solvers import initializer
 from . import frame as frame_mod
 from . import track_ops
 
@@ -71,8 +85,8 @@ class TrackerStats:
     n_resets: int = 0
     n_compactions: int = 0
     inliers_history: list = field(default_factory=list)
-    # Mapping stages run, by kind (fuse, cull_points, refresh, ba_build,
-    # ba_a, ba_b, cull_keyframes, sweep, loop_closing); not in the
+    # Mapping stages run, by kind (triangulate, fuse, cull_points, refresh,
+    # ba_build, ba_a, ba_b, cull_keyframes, sweep, loop_closing); not in the
     # reference's stats.
     stages: Counter = field(default_factory=Counter)
 
@@ -91,8 +105,9 @@ class StereoTracker:
         self.loop_closer = loop_closer  # loop.loop_closing.LoopCloser or None
         if loop_closer is not None and loop_closer.device.type != dev.type:
             raise ValueError(f"loop closer on {loop_closer.device}, tracker on {dev}")
-        # Relocalization's RANSAC draws (the reference splits PRNGKey(client + 17)).
-        self._reloc_gen = torch.Generator(device=dev).manual_seed(client + 17)
+        # The RANSAC draws of relocalization and of the mono two-view
+        # bootstrap (the reference splits both from PRNGKey(client + 17)).
+        self._gen = torch.Generator(device=dev).manual_seed(client + 17)
         self.map = ms.empty(cfg.capacity, dev)
         self._state = TrackState.NOT_INITIALIZED
         self.last_frame: Optional[frame_mod.FrameData] = None
@@ -120,6 +135,8 @@ class StereoTracker:
         K1 = cfg.capacity.local_window_kfs
         self._local_rows = torch.zeros(K1, dtype=torch.int32, device=dev)
         self._local_ok = torch.zeros(K1, dtype=torch.bool, device=dev)
+        self.sensor = "stereo"
+        self._init_ref: Optional[frame_mod.FrameData] = None  # mono bootstrap reference
 
     # ------------------------------------------------------------------
     # External views flush the pipeline first.
@@ -145,15 +162,22 @@ class StereoTracker:
 
     # ------------------------------------------------------------------
     def process_stereo(self, img_l, img_r, timestamp: float):
+        self.sensor = "stereo"
         return self._process((img_l, img_r), timestamp)
 
     def process_rgbd(self, img, depth_map, timestamp: float):
-        raise NotImplementedError("process_rgbd comes with the RGB-D and mono slice "
-                                  "(ROADMAP item 14)")
+        """RGB-D ingest: a gray image and its registered depth map."""
+        self.sensor = "rgbd"
+        return self._process((img, depth_map), timestamp)
 
     def process_mono(self, img, timestamp: float):
-        raise NotImplementedError("process_mono comes with the RGB-D and mono slice "
-                                  "(ROADMAP item 14)")
+        """Monocular ingest (System::TrackMonocular, System.cc:185)."""
+        if self.loop_closer is not None:
+            raise NotImplementedError(
+                "mono tracking with a loop closer needs free-scale Sim3 and global BA, which "
+                "come with the global BA slice (ROADMAP item 10)")
+        self.sensor = "mono"
+        return self._process((img,), timestamp)
 
     def _process(self, images, timestamp: float):
         if self._state == TrackState.OK:
@@ -161,8 +185,13 @@ class StereoTracker:
         self.flush()  # the in-flight frames decide the real state
         if self._state == TrackState.OK:
             return self._dispatch_fused(images, timestamp)
-        cur = frame_mod.build_frame_stereo(images[0], images[1], self.cam, self.cfg.orb,
-                                           device=self.device)
+        cam, orb_cfg, dev = self.cam, self.cfg.orb, self.device
+        if self.sensor == "stereo":
+            cur = frame_mod.build_frame_stereo(images[0], images[1], cam, orb_cfg, device=dev)
+        elif self.sensor == "rgbd":
+            cur = frame_mod.build_frame_rgbd(images[0], images[1], cam, orb_cfg, device=dev)
+        else:
+            cur = frame_mod.build_frame_mono(images[0], cam, orb_cfg, device=dev)
         return self._track(cur, timestamp)
 
     # ------------------------------------------------------------------
@@ -208,7 +237,12 @@ class StereoTracker:
                 self._run_stage()
         kw = dict(ref_kf=self._ref_kf_dev, prev_local_rows=self._local_rows,
                   prev_local_ok=self._local_ok, cam=self.cam, cfg=self.cfg, device=self.device)
-        if self.cfg.tracking.frames_per_dispatch >= 2:
+        if self.sensor != "stereo":  # one frame per dispatch
+            step = (track_ops.track_frame_rgbd if self.sensor == "rgbd"
+                    else track_ops.track_frame_mono)
+            out = step(self.map, self.last_frame, self.velocity, *images, **kw)
+            outs = ((out, timestamp),)
+        elif self.cfg.tracking.frames_per_dispatch >= 2:
             self._pair_buf.append((images, timestamp))
             if len(self._pair_buf) < 2:
                 return self.current_pose()
@@ -269,7 +303,10 @@ class StereoTracker:
     # ------------------------------------------------------------------
     def _track(self, cur: frame_mod.FrameData, timestamp: float):
         if self.state == TrackState.NOT_INITIALIZED:
-            self._initialize(cur, timestamp)
+            if self.sensor == "mono":
+                self._initialize_mono(cur, timestamp)
+            else:
+                self._initialize(cur, timestamp)
             return self.current_pose()
         if self.state == TrackState.LOST:
             if self._kf_cursor_est <= 5:
@@ -336,7 +373,7 @@ class StereoTracker:
 
         lc = self.loop_closer
         res = reloc_mod.relocalize(self.cam, self.map, lc.db, lc.voc, cur, self.cfg,
-                                   generator=self._reloc_gen)
+                                   generator=self._gen)
         if res is None:
             return False
         out = track_ops.track_local_map(self.cam, self.map, cur, res.Tcw, res.mp_idx, self.cfg)
@@ -370,6 +407,71 @@ class StereoTracker:
         self._kf_cursor_est += 1
         return True
 
+    def _initialize_mono(self, cur: frame_mod.FrameData, timestamp: float) -> bool:
+        """MonocularInitialization + CreateInitialMapMonocular (Tracking.cc:569,
+        :643): hold a reference frame, match it to the current one in a
+        100-px area window, bootstrap from two views (K12), scale the map to
+        unit median depth, insert both frames as keyframes with the
+        triangulated points, and run the two-view local BA."""
+        n_feat = int(cur.fvalid.sum())
+        if self._init_ref is None or n_feat < 100:
+            self._init_ref = cur if n_feat >= 100 else None
+            self._finish_frame(cur, timestamp, lost=True)
+            return False
+        ref, cfg, dev = self._init_ref, self.cfg, self.device
+        res = matcher.search_for_initialization(
+            ref.xy, ref.desc, ref.angle, ref.fvalid, cur.xy, cur.desc, cur.angle, cur.fvalid,
+            window=100.0, max_dist=cfg.matcher.th_low, ratio=0.9)
+        has = res.idx >= 0
+        if int(has.sum()) < 100:  # Tracking.cc:607 asks for >= 100
+            self._init_ref = cur
+            self._finish_frame(cur, timestamp, lost=True)
+            return False
+        f2 = res.idx.clamp_min(0).long()
+        two = initializer.initialize_two_view(self.cam, ref.xy, cur.xy[f2], has,
+                                              generator=self._gen, min_triangulated=50)
+        if not bool(two.ok):  # the one host read of the bootstrap
+            self._finish_frame(cur, timestamp, lost=True)
+            return False
+        # Unit median depth of the good points (Tracking.cc:714 invMedianDepth).
+        good = two.good
+        med = triangulation.nanmedian(torch.where(good, two.X[:, 2],
+                                                  torch.full_like(two.X[:, 2], float("nan"))))
+        inv_med = 1.0 / med.clamp_min(1e-6)
+        X = two.X * inv_med
+        T2 = se3.from_Rt(two.R, two.t * inv_med)
+        F = ref.xy.shape[0]
+        dist = cam_mod.norm3(X)
+        max_dist = dist * self.scales[ref.octave.long()]
+        min_dist = matcher.div(max_dist, cfg.orb.scale_factor ** (cfg.orb.n_levels - 1))
+        normal = X / dist.clamp_min(1e-9)[:, None]
+        self.map, rows = ms.add_map_points(self.map, X, ref.desc, normal, min_dist, max_dist,
+                                           ref_kf=0, create=good, client=self.client)
+        mp_ref = torch.where(good, rows, torch.full_like(rows, ms.NO_MP))
+        # Bind the matched current features; lanes that are not good are dropped.
+        mp_cur = torch.full((F + 1,), ms.NO_MP, dtype=torch.int32, device=dev)
+        mp_cur[torch.where(good, f2, torch.full_like(f2, F))] = rows
+        mp_cur = mp_cur[:F]
+        ref = ref._replace(Tcw=torch.eye(4, device=dev), mp_idx=mp_ref)
+        cur = cur._replace(Tcw=T2, mp_idx=mp_cur)
+        for fr, fid in ((ref, self.frame_id - 1), (cur, self.frame_id)):
+            self.map, _ = ms.insert_keyframe(self.map, fr.Tcw, fr.xy, fr.octave, fr.angle, fr.desc,
+                                             fr.uright, fr.depth, fr.fvalid, fr.mp_idx,
+                                             frame_id=fid, timestamp=timestamp,
+                                             client=self.client)
+        kf1 = self._kf_cursor_est + 1
+        self.map = local_mapping.local_ba(self.cam, self.map, kf1, cfg)  # Tracking.cc:689
+        self.ref_kf = kf1
+        self._ref_kf_dev = torch.tensor(kf1, dtype=torch.int32, device=dev)
+        self.state = TrackState.OK
+        self.last_kf_frame_id = self.frame_id
+        self.ref_obs = int(good.sum())
+        self.stats.n_keyframes += 2
+        self._kf_cursor_est += 2
+        self._init_ref = None
+        self._finish_frame(cur, timestamp)
+        return True
+
     def _need_new_keyframe(self, cur, n_tracked: int, n_close_tracked: int = 1 << 30,
                            n_close_spawnable: int = 0, fid: Optional[int] = None) -> bool:
         """NeedNewKeyFrame (Tracking.cc:995): the max-frame gap, few tracked
@@ -384,7 +486,8 @@ class StereoTracker:
             return True
         if n_close_tracked < 100 and n_close_spawnable > 70:
             return True
-        return cfgt.kf_ref_ratio_stereo * max(self.ref_obs, 1) > n_tracked > 15
+        ratio = cfgt.kf_ref_ratio_mono if self.sensor == "mono" else cfgt.kf_ref_ratio_stereo
+        return ratio * max(self.ref_obs, 1) > n_tracked > 15
 
     def _create_keyframe(self, cur, timestamp: float, n_tracked: int = 0,
                          fid: Optional[int] = None):
@@ -408,6 +511,12 @@ class StereoTracker:
         self.stats.n_keyframes += 1
         self._kf_cursor_est += 1
         self._enqueue_mapping_stages(kf_row)
+        if self.sensor == "mono":
+            # Mono drains its mapping stages at once: triangulation is its only
+            # source of points, and interleaving the stages of several
+            # keyframes lets a later cull meet points before fuse binds them.
+            while self._stage_q:
+                self._run_stage()
 
     def _set_map(self, m):
         self.map = m
@@ -418,11 +527,15 @@ class StereoTracker:
         q = self._stage_q
         nk = self.stats.n_keyframes
         cam, cfg = self.cam, self.cfg
+        mono = self.sensor == "mono"
+        if mono:  # mono's only landmarks come from triangulation (LocalMapping.cc:190)
+            q.append(("triangulate", lambda: self._set_map(
+                triangulation.create_new_points(cam, self.map, kf_row, cfg))))
         q.append(("fuse", lambda: self._set_map(
             local_mapping.fuse_into_kf(cam, self.map, kf_row, cfg))))
         if nk % 2 == 0:
             q.append(("cull_points", lambda: self._set_map(
-                local_mapping.cull_map_points(self.map, kf_row, cfg))))
+                local_mapping.cull_map_points(self.map, kf_row, cfg, mono=mono))))
             q.append(("refresh", lambda: self._set_map(
                 local_mapping.refresh_point_geometry(self.map, kf_row, cfg))))
         if nk >= 3:
@@ -535,6 +648,7 @@ class StereoTracker:
         self.ref_kf = 0
         self._ref_kf_dev = torch.zeros((), dtype=torch.int32, device=self.device)
         self.ref_obs = 0
+        self._init_ref = None
         self._kf_cursor_est = 0
         self._compact_cooldown = 0
         self.map_epoch += 1

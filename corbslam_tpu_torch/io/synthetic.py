@@ -1,5 +1,6 @@
 """Synthetic imagery (port of `corbslam_tpu/io/synthetic.py`: `random_texture`,
-`bilinear_sample`, `PlanarWorld`, `MultiPlaneWorld` with `room`).
+`bilinear_sample`, `PlanarWorld` with its depth map, `MultiPlaneWorld` with
+`room`).
 
 `jax.image.resize(..., "bilinear")` upsampling of each noise octave is a
 half-pixel triangle filter whose edge taps are renormalized, which for
@@ -64,9 +65,9 @@ class PlanarWorld:
         self.tex = torch.from_numpy(random_texture(texture_size, texture_size, seed)).to(self.device)
         self.Kinv = torch.linalg.inv(cam.K).to(self.device)
 
-    def render(self, Tcw: torch.Tensor) -> torch.Tensor:
-        """The view from pose Tcw (world -> camera): [H, W] f32; rays that miss
-        the plane render as 128."""
+    def _intersect(self, Tcw: torch.Tensor):
+        """(camera centre t, camera-frame rays, world-frame directions, ray
+        parameter lam of the plane hit) of every pixel of the view Tcw."""
         cam = self.cam
         Twc = se3.inverse(Tcw.to(self.device, torch.float32))
         R, t = se3.rotation(Twc), se3.translation(Twc)
@@ -80,6 +81,12 @@ class PlanarWorld:
         denom = dirs[2]
         lam = (self.plane_dist - t[2]) / torch.where(denom.abs() < 1e-6,
                                                      torch.full_like(denom, 1e-6), denom)
+        return t, rays, dirs, lam
+
+    def render(self, Tcw: torch.Tensor) -> torch.Tensor:
+        """The view from pose Tcw (world -> camera): [H, W] f32; rays that miss
+        the plane render as 128."""
+        t, _, dirs, lam = self._intersect(Tcw)
         c = self.tex_size / 2.0
         tx = (t[0] + lam * dirs[0]) * self.texture_scale + c
         ty = (t[1] + lam * dirs[1]) * self.texture_scale + c
@@ -91,6 +98,12 @@ class PlanarWorld:
         T_rl = se3.from_Rt(torch.eye(3), torch.tensor([-self.cam.baseline, 0.0, 0.0]))
         Tcw = Tcw.to(torch.float32).cpu()
         return self.render(Tcw), self.render(se3.compose(T_rl, Tcw))
+
+    def depth(self, Tcw: torch.Tensor) -> torch.Tensor:
+        """The view's ground-truth depth map [H, W] f32 (camera z of the plane
+        hit, 0 where the ray misses), the RGB-D sensor's second image."""
+        _, rays, _, lam = self._intersect(Tcw)
+        return torch.where(lam > 0, lam * rays[2], torch.zeros_like(lam))
 
 
 class MultiPlaneWorld:

@@ -38,10 +38,15 @@ NVCC_FLAGS = [
 # "covisibility" counts the K7 launches of the mapping stages
 # (`mapstate.covisibility`) apart from the tracking step's ("local_map");
 # K10's launches count as "sim3" (RANSAC and refinement) or "pnp"; K11's as
-# "pose_graph" or "covis_matrix" (the covisibility count).
+# "pose_graph" or "covis_matrix" (the covisibility count); K4's RGB-D entry as
+# "rgbd_stereo"; K5's area-window mode (mono initialization) as "match_area"
+# and its epipolar-band mode (triangulation) as "match_band"; K12's as
+# "two_view", K13's as "triangulate".
 LAUNCHES = {"pyramid": 0, "fast_cells": 0, "orb_describe": 0, "stereo_match": 0,
-            "match_masked": 0, "pose_opt": 0, "local_map": 0, "covisibility": 0,
-            "ba_dense": 0, "vocab": 0, "sim3": 0, "pnp": 0, "pose_graph": 0, "covis_matrix": 0}
+            "rgbd_stereo": 0, "match_masked": 0, "match_area": 0, "match_band": 0,
+            "pose_opt": 0, "local_map": 0, "covisibility": 0, "ba_dense": 0, "vocab": 0,
+            "sim3": 0, "pnp": 0, "pose_graph": 0, "covis_matrix": 0, "two_view": 0,
+            "triangulate": 0}
 
 _lib = None
 BUILD_INFO: dict = {}
@@ -63,9 +68,10 @@ _SIGNATURES = {
     # stereo_match.cu
     "stereo_best": [VP] * 11 + [I32, I32, F32, I32] + [VP] * 7,
     "stereo_finish": [VP] * 4 + [I32, F32] + [VP] * 4,
+    "rgbd_stereo": [VP, I32, I32] + [VP] * 3 + [I32, F32, F32] + [VP] * 3 + [VP],
     # match_masked.cu
-    "match_rows": [VP] * 9 + [F32] + [I32] * 5 + [VP] * 4 + [VP],
-    "match_finish": [VP] * 6 + [I32, I32, F32, I32] + [VP] * 3 + [VP],
+    "match_rows": [VP] * 10 + [F32] + [I32] * 6 + [VP] * 4 + [VP],
+    "match_finish": [VP] * 6 + [I32] * 4 + [F32, I32] + [VP] * 3 + [VP],
     # pose_opt.cu
     "pose_opt": [VP] * 6 + [I32] * 4 + [F32] * 5 + [VP] * 4 + [VP],
     # local_map.cu
@@ -100,6 +106,14 @@ _SIGNATURES = {
     "covis_count": [VP] * 3 + [I32] * 3 + [VP] + [VP],
     "covis_fill": [VP] * 3 + [I32] * 3 + [VP] * 3 + [VP],
     "covis_pairs": [VP, VP, I32, I32, VP] + [VP],
+    # two_view.cu
+    "tv_normalize": [VP] * 3 + [I32] + [VP] * 2 + [VP],
+    "tv_hypotheses": [VP] * 3 + [I32] + [VP] * 3 + [I32, F32] + [VP] * 2 + [VP],
+    "tv_refit": [VP] * 5 + [I32, F32] + [VP] * 2 + [I32] + [F32] * 4 + [VP] * 3 + [VP],
+    "tv_check": [VP] * 2 + [I32, F32] + [F32] * 4 + [VP] * 6 + [VP],
+    "tv_final": [I32, I32] + [VP] * 11 + [VP],
+    # triangulate.cu
+    "tri_points": [VP] * 4 + [I32, I32] + [VP] * 4 + [F32] * 5 + [VP] * 5 + [VP],
 }
 
 

@@ -1,7 +1,7 @@
 """Local mapping of the stereo tracker (port of
 `corbslam_tpu/mapping/local_mapping.py`: `cull_map_points`,
 `sweep_detached`, `fuse_into_kf`, `fuse_rows_into_kf`,
-`select_local_ba_window`, `local_ba_build`, `local_ba_writeback`,
+`select_local_ba_window`, `local_ba`, `local_ba_build`, `local_ba_writeback`,
 `refresh_point_geometry`, `find_redundant_keyframes`, `cull_keyframes`) —
 the device half of the reference's LocalMapping thread (LocalMapping.cc:
 MapPointCulling :161, SearchInNeighbors :422, local BA :79, KeyFrameCulling
@@ -14,8 +14,9 @@ and K8 (the local BA's point-major table and LM); the rest is PyTorch.
 The reference's duplicate-index `.at[].set` scatters (the fuse relabel, the
 local-BA writeback) are reproduced with an explicit last-write-wins rule,
 which is what XLA applies on the CPU; a trailing window whose start
-`dynamic_slice` would clamp is clamped here. The fused `local_ba` waits for
-the mono slice (mono initialization is its only caller).
+`dynamic_slice` would clamp is clamped here. The fused `local_ba` (robust
+then plain LM in one K8 call, then the writeback) has one caller, the
+two-view BA of mono initialization.
 """
 
 from __future__ import annotations
@@ -209,6 +210,17 @@ def local_ba_build(m: ms.MapState, kf_row: int, cfg: SlamConfig):
     W = cfg.mapping.local_ba_window
     sel = select_local_ba_window(m, kf_row, W, W // 2)
     return sel, ba_dense.problem_from_window(m, sel, cfg.orb.scale_factor)
+
+
+def local_ba(cam, m: ms.MapState, kf_row: int, cfg: SlamConfig) -> ms.MapState:
+    """LocalBundleAdjustment (Optimizer.cc:487) in one step: the window and
+    its fixed frontier, `local_ba_iters` LM iterations with Huber on the
+    first 3, then the writeback and the outlier detachment, in place."""
+    sel, prob = local_ba_build(m, kf_row, cfg)
+    res = ba_dense.optimize(cam, prob, n_iters=cfg.mapping.local_ba_iters,
+                            cg_iters=cfg.mapping.local_ba_cg_iters, huber_iters=3)
+    return local_ba_writeback(m, sel.kf_rows, sel.kf_free, sel.kf_ok, sel.mp_rows, sel.mp_ok,
+                              res.Tcw, res.X, res.inlier, prob.obs_active)
 
 
 def local_ba_writeback(m: ms.MapState, kf_rows, kf_free, kf_ok, mp_rows, mp_ok, Tcw_opt, X_opt,

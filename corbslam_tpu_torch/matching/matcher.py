@@ -1,7 +1,8 @@
-"""Masked descriptor search policies of tracking (port of
-`corbslam_tpu/matching/matcher.py`: `rotation_consistency`, `match_masked`,
-`projection_window_mask`, `search_by_projection_points`,
-`search_frame_frame`, `search_by_descriptor`).
+"""Masked descriptor search policies (port of `corbslam_tpu/matching/matcher.py`:
+`rotation_consistency`, `match_masked`, `projection_window_mask`,
+`search_by_projection_points`, `search_frame_frame`, `search_by_descriptor`,
+`search_for_initialization`, `epipolar_band_mask`,
+`search_for_triangulation`, `fundamental_from_poses`).
 
 Every policy is the same function: for each query feature, the best allowed
 target by Hamming distance (lower index on ties), the threshold, Lowe's
@@ -10,16 +11,18 @@ cross-check, and for frame-to-frame matching the 30-bin rotation histogram.
 The reference builds the dense [Nq, Nt] candidacy mask and distance matrix;
 `match_select` is the wrapper of kernel K5 (`csrc/match_masked.cu`), which
 evaluates the mask inline and stores nothing Nq x Nt. On CPU tensors it runs
-`match_select_plain`, the reference's dense formulation.
-`search_for_initialization`, `epipolar_band_mask`,
-`search_for_triangulation` and `fundamental_from_poses` come with mono
-initialization and local mapping.
+`match_select_plain`, the reference's dense formulation. The mask is the
+validity of both sides and, optionally, one geometric test: the projection
+window (`Window`), an area window around the query (`AreaWindow`, mono
+initialization) or the query's epipolar band in the target image with the
+epipole guard (`EpipolarBand`, triangulation). `band_search` runs the band
+search of one keyframe against a batch of neighbours in one K5 launch.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -53,6 +56,28 @@ class Window(NamedTuple):
     radius: float
     slack: int
     slack_up: int
+
+
+class AreaWindow(NamedTuple):
+    """|xy_t - xy_q|^2 <= radius^2 (SearchForInitialization's window)."""
+
+    xy_t: torch.Tensor  # [Nt, 2] f32 target keypoints
+    xy_q: torch.Tensor  # [Nq, 2] f32 query keypoints
+    radius: float
+
+
+class EpipolarBand(NamedTuple):
+    """Target t lies in the band of query q's epipolar line l = F12 (x_q, 1):
+    (l . (x_t, 1))^2 / (l0^2 + l1^2) < 3.84 scale_t^2 (CheckDistEpipolarLine);
+    with `epipole` also |xy_t - epipole|^2 > sqrt(100 scale_t)^2, where
+    scale_t is the scale factor of the target's octave."""
+
+    F12: torch.Tensor           # [3, 3] f32, x_t^T F12 x_q = 0
+    xy_t: torch.Tensor          # [Nt, 2] f32
+    xy_q: torch.Tensor          # [Nq, 2] f32
+    octave_t: torch.Tensor      # [Nt] i32
+    scale_factors: torch.Tensor  # [L] f32
+    epipole: Optional[torch.Tensor] = None  # [2] f32 or None
 
 
 def div(a: torch.Tensor, s: float) -> torch.Tensor:
@@ -115,24 +140,91 @@ def projection_window_mask(uv_proj, visible, feat_xy, feat_octave, feat_valid, r
     return mask
 
 
+Geometry = Union[Window, AreaWindow, EpipolarBand]
+
+
+def epipolar_band_mask(F12, xy1, xy2, octave2, sigma2_per_level, chi2_th: float = 3.84):
+    """[N1, N2] mask: point 2 lies near the epipolar line l = F12 (x1, y1, 1)
+    of point 1, scale-aware (CheckDistEpipolarLine, ORBmatcher.cc:1646-1664)."""
+    x, y = xy1[:, 0], xy1[:, 1]
+    a, b, c = (x * F12[i, 0] + y * F12[i, 1] + F12[i, 2] for i in range(3))
+    a, b, c = a[:, None], b[:, None], c[:, None]
+    num = a * xy2[None, :, 0] + b * xy2[None, :, 1] + c
+    dsqr = (num * num) / (a * a + b * b).clamp_min(1e-12)
+    return dsqr < chi2_th * sigma2_per_level[octave2.long()][None, :]
+
+
+def geometry_mask(geometry: Geometry, valid_q, valid_t) -> torch.Tensor:
+    """The dense [Nq, Nt] candidacy mask K5 evaluates inline."""
+    mask = valid_q[:, None] & valid_t[None, :]
+    if isinstance(geometry, Window):
+        w = geometry
+        return projection_window_mask(w.uv, valid_t, w.xy, w.octave, valid_q, w.radius,
+                                      w.scale_factors, w.pred_octave, w.slack, w.slack_up).T
+    if isinstance(geometry, AreaWindow):
+        d = geometry.xy_q[:, None, :] - geometry.xy_t[None, :, :]
+        return mask & (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+                       <= geometry.radius * geometry.radius)
+    if isinstance(geometry, EpipolarBand):
+        g = geometry
+        s = g.scale_factors
+        mask = mask & epipolar_band_mask(g.F12, g.xy_q, g.xy_t, g.octave_t, s * s)
+        if g.epipole is not None:
+            d = g.xy_t - g.epipole[None, :]
+            me = torch.sqrt(100.0 * s[g.octave_t.long()])
+            mask = mask & (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] > me * me)[None, :]
+        return mask
+    if geometry is None:
+        return mask
+    raise TypeError(f"unknown match geometry {type(geometry).__name__}")
+
+
 def match_select_plain(desc_q, desc_t, valid_q, valid_t, max_dist: int, ratio: float = 1.0,
-                       mutual: bool = True, window: Window | None = None,
+                       mutual: bool = True, window: Optional[Geometry] = None,
                        angle_q=None, angle_t=None) -> MatchResult:
-    """Plain version of K5: the dense mask (valid_q x valid_t, and the
-    projection window if given), `match_masked`, and with angles the
-    rotation filter. Returns MatchResult; `dist` is the best distance
+    """Plain version of K5: the dense mask (valid_q x valid_t and the
+    geometric test of `window`, if given), `match_masked`, and with angles
+    the rotation filter. Returns MatchResult; `dist` is the best distance
     whether or not the match survived."""
-    if window is not None:
-        mask = projection_window_mask(
-            window.uv, valid_t, window.xy, window.octave, valid_q, window.radius,
-            window.scale_factors, window.pred_octave, window.slack, window.slack_up).T
-    else:
-        mask = valid_q[:, None] & valid_t[None, :]
+    mask = geometry_mask(window, valid_q, valid_t)
     res = match_masked(desc_q, desc_t, mask, max_dist, ratio, mutual)
     if angle_q is None:
         return res
     ok = rotation_consistency(angle_q, angle_t[res.idx.clamp_min(0).long()], res.ok)
     return MatchResult(torch.where(ok, res.idx, torch.full_like(res.idx, NO_MATCH)), res.dist, ok)
+
+
+def _launch_k5(counter: str, desc_q, desc_t, valid_q, valid_t, win_args, mode: int, B: int,
+               max_dist: int, ratio: float, mutual: bool, angle_q=None, angle_t=None
+               ) -> MatchResult:
+    """K5's two launches over B batches of Nq queries (fields [B * Nq])."""
+    Nq, Nt = desc_q.shape[0], desc_t.shape[-2]
+    dev = desc_q.device
+    p = kernels.ptr
+    best_d, best_j, second = (torch.empty(B * Nq, dtype=torch.int32, device=dev)
+                              for _ in range(3))
+    col = torch.empty(B * Nt, dtype=torch.int64, device=dev) if mutual else None
+    kernels.launch(
+        counter, "match_rows", p(desc_q), p(desc_t), p(valid_q), p(valid_t), *win_args,
+        Nq, Nt, B, mode, p(best_d), p(best_j), p(second), p(col) if mutual else None)
+    idx = torch.empty(B * Nq, dtype=torch.int32, device=dev)
+    dist = torch.empty(B * Nq, dtype=torch.int32, device=dev)
+    ok = torch.empty(B * Nq, dtype=torch.bool, device=dev)
+    kernels.launch(
+        counter, "match_finish", p(best_d), p(best_j), p(second),
+        p(col) if mutual else None,
+        p(angle_q) if angle_q is not None else None, p(angle_t) if angle_q is not None else None,
+        Nq, Nt, B, int(max_dist), float(ratio), int(ratio < 1.0), p(idx), p(dist), p(ok))
+    return MatchResult(idx, dist, ok)
+
+
+def _band_geo(F12, epipole) -> tuple:
+    """K5's per-batch band geometry [B, 11] (F12 row-major, the epipole) and
+    its mode: 4 with the epipole guard, 3 without."""
+    B = F12.reshape(-1, 9).shape[0]
+    e = epipole if epipole is not None else torch.zeros(B, 2, device=F12.device)
+    geo = torch.cat([F12.reshape(B, 9), e.reshape(B, 2)], 1).to(torch.float32).contiguous()
+    return geo, 3 if epipole is None else 4
 
 
 def _match_select_cuda(desc_q, desc_t, valid_q, valid_t, max_dist, ratio, mutual, window,
@@ -149,43 +241,107 @@ def _match_select_cuda(desc_q, desc_t, valid_q, valid_t, max_dist, ratio, mutual
     chk(valid_q, "valid_q", torch.bool, (Nq,), dev)
     chk(valid_t, "valid_t", torch.bool, (Nt,), dev)
     p = kernels.ptr
-    win_args = [None] * 5 + [0.0, 0, 0]
-    if window is not None:
+    win_args, mode, counter = [None] * 6 + [0.0, 0, 0], 0, "match_masked"
+    if isinstance(window, Window):
         chk(window.uv, "window.uv", torch.float32, (Nt, 2), dev)
         chk(window.xy, "window.xy", torch.float32, (Nq, 2), dev)
         chk(window.octave, "window.octave", torch.int32, (Nq,), dev)
         chk(window.pred_octave, "window.pred_octave", torch.int32, (Nt,), dev)
         chk(window.scale_factors, "window.scale_factors", torch.float32, None, dev)
         win_args = [p(window.uv), p(window.xy), p(window.octave), p(window.pred_octave),
-                    p(window.scale_factors), float(window.radius), int(window.slack),
+                    p(window.scale_factors), None, float(window.radius), int(window.slack),
                     int(window.slack_up)]
+        mode = 1
+    elif isinstance(window, AreaWindow):
+        chk(window.xy_t, "window.xy_t", torch.float32, (Nt, 2), dev)
+        chk(window.xy_q, "window.xy_q", torch.float32, (Nq, 2), dev)
+        win_args = [p(window.xy_t), p(window.xy_q), None, None, None, None,
+                    float(window.radius * window.radius), 0, 0]
+        mode, counter = 2, "match_area"
+    elif isinstance(window, EpipolarBand):
+        if angle_q is not None:
+            raise ValueError("match_select: no rotation check with an EpipolarBand")
+        res = _band_search_cuda(desc_q, valid_q[None], window.xy_q, desc_t[None],
+                                 valid_t[None], window.xy_t[None], window.octave_t[None],
+                                 window.F12[None],
+                                 None if window.epipole is None else window.epipole[None],
+                                 window.scale_factors, max_dist, ratio, mutual)
+        return MatchResult(*(t[0] for t in res))
+    elif window is not None:
+        raise TypeError(f"unknown match geometry {type(window).__name__}")
     if angle_q is not None:
         chk(angle_q, "angle_q", torch.float32, (Nq,), dev)
         chk(angle_t, "angle_t", torch.float32, (Nt,), dev)
-    best_d, best_j, second = (torch.empty(Nq, dtype=torch.int32, device=dev) for _ in range(3))
-    col = torch.empty(Nt, dtype=torch.int64, device=dev) if mutual else None
-    kernels.launch(
-        "match_masked", "match_rows", p(desc_q), p(desc_t), p(valid_q), p(valid_t), *win_args,
-        Nq, Nt, int(window is not None), p(best_d), p(best_j), p(second),
-        p(col) if mutual else None)
-    idx = torch.empty(Nq, dtype=torch.int32, device=dev)
-    dist = torch.empty(Nq, dtype=torch.int32, device=dev)
-    ok = torch.empty(Nq, dtype=torch.bool, device=dev)
-    kernels.launch(
-        "match_masked", "match_finish", p(best_d), p(best_j), p(second),
-        p(col) if mutual else None,
-        p(angle_q) if angle_q is not None else None, p(angle_t) if angle_q is not None else None,
-        Nq, int(max_dist), float(ratio), int(ratio < 1.0), p(idx), p(dist), p(ok))
-    return MatchResult(idx, dist, ok)
+    return _launch_k5(counter, desc_q, desc_t, valid_q, valid_t, win_args, mode, 1, max_dist,
+                      ratio, mutual, angle_q, angle_t)
+
+
+def _band_search_cuda(desc_q, valid_q, xy_q, desc_t, valid_t, xy_t, octave_t, F12, epipole,
+                      scale_factors, max_dist, ratio, mutual) -> MatchResult:
+    B, Nt = desc_t.shape[0], desc_t.shape[1]
+    Nq = desc_q.shape[0]
+    dev = desc_q.device
+    if Nt < 2:
+        raise ValueError("band_search needs at least two targets (a best and a second)")
+    if Nq > MAX_FINISH_N:
+        raise ValueError(f"band_search takes at most {MAX_FINISH_N} queries")
+    chk = kernels.check
+    chk(desc_q, "desc_q", torch.uint8, (Nq, 32), dev)
+    chk(valid_q, "valid_q", torch.bool, (B, Nq), dev)
+    chk(xy_q, "xy_q", torch.float32, (Nq, 2), dev)
+    chk(desc_t, "desc_t", torch.uint8, (B, Nt, 32), dev)
+    chk(valid_t, "valid_t", torch.bool, (B, Nt), dev)
+    chk(xy_t, "xy_t", torch.float32, (B, Nt, 2), dev)
+    chk(octave_t, "octave_t", torch.int32, (B, Nt), dev)
+    chk(scale_factors, "scale_factors", torch.float32, None, dev)
+    geo, mode = _band_geo(F12, epipole)
+    chk(geo, "F12 / epipole", torch.float32, (B, 11), dev)
+    p = kernels.ptr
+    win_args = [p(xy_t), p(xy_q), None, p(octave_t), p(scale_factors), p(geo), 0.0, 0, 0]
+    res = _launch_k5("match_band", desc_q, desc_t, valid_q, valid_t, win_args, mode, B,
+                     max_dist, ratio, mutual)
+    return MatchResult(*(t.view(B, Nq) for t in res))
+
+
+def band_search_plain(desc_q, valid_q, xy_q, desc_t, valid_t, xy_t, octave_t, F12, epipole,
+                      scale_factors, max_dist: int, ratio: float = 1.0,
+                      mutual: bool = True) -> MatchResult:
+    """Plain version of K5's batched band mode: `match_select_plain` with an
+    `EpipolarBand` for each batch b (targets desc_t[b], valid_t[b], xy_t[b],
+    octave_t[b], geometry F12[b], epipole[b]; query flags valid_q[b])."""
+    out = [match_select_plain(
+        desc_q, desc_t[b], valid_q[b], valid_t[b], max_dist, ratio, mutual,
+        EpipolarBand(F12[b], xy_t[b], xy_q, octave_t[b], scale_factors,
+                     None if epipole is None else epipole[b]))
+        for b in range(desc_t.shape[0])]
+    return MatchResult(*(torch.stack(f) for f in zip(*out)))
+
+
+def band_search(desc_q, valid_q, xy_q, desc_t, valid_t, xy_t, octave_t, F12, epipole,
+                scale_factors, max_dist: int, ratio: float = 1.0,
+                mutual: bool = True) -> MatchResult:
+    """The epipolar-band search of one keyframe's features (desc_q, xy_q
+    [Nq]) in each of B target sets at once ([B, Nt] targets, [B, Nq] query
+    flags, F12 [B, 3, 3], epipole [B, 2] or None): MatchResult fields
+    [B, Nq]. K5 in band mode on CUDA tensors (one launch for all batches),
+    the plain version on CPU tensors."""
+    args = (desc_q, valid_q, xy_q, desc_t, valid_t, xy_t, octave_t, F12, epipole,
+            scale_factors, max_dist, ratio, mutual)
+    if desc_q.is_cuda:
+        return _band_search_cuda(*args)
+    if desc_q.device.type == "cpu":
+        return band_search_plain(*args)
+    raise ValueError(f"unsupported device {desc_q.device}")
 
 
 def match_select(desc_q, desc_t, valid_q, valid_t, max_dist: int, ratio: float = 1.0,
-                 mutual: bool = True, window: Window | None = None,
+                 mutual: bool = True, window: Optional[Geometry] = None,
                  angle_q=None, angle_t=None) -> MatchResult:
     """Masked best match of every query (K5 on CUDA tensors, the plain
     version on CPU tensors). The mask is valid_q x valid_t, and with a
-    `window` also the projection window; with `angle_q`/`angle_t` the
-    rotation-consistency filter is applied to the accepted matches."""
+    `window` (`Window`, `AreaWindow` or `EpipolarBand`) also its geometric
+    test; with `angle_q`/`angle_t` the rotation-consistency filter is
+    applied to the accepted matches."""
     if desc_q.is_cuda:
         return _match_select_cuda(desc_q, desc_t, valid_q, valid_t, max_dist, ratio, mutual,
                                   window, angle_q, angle_t)
@@ -293,3 +449,42 @@ def search_by_descriptor(desc_q, valid_q, desc_t, valid_t, max_dist: int, ratio:
     """Unconstrained global descriptor matching (the stand-in for
     SearchByBoW, ORBmatcher.cc:294)."""
     return match_select(desc_q, desc_t, valid_q, valid_t, max_dist, ratio, mutual)
+
+
+# ---------------------------------------------------------------------------
+# Mono initialization and triangulation
+# ---------------------------------------------------------------------------
+
+def search_for_initialization(xy1, desc1, angle1, valid1, xy2, desc2, angle2, valid2,
+                              window: float = 100.0, max_dist: int = 50, ratio: float = 0.9,
+                              check_rotation: bool = True) -> MatchResult:
+    """Area-window matching between two monocular frames for map
+    initialization (SearchForInitialization, ORBmatcher.cc h70): per frame-1
+    feature, an index into frame 2's features."""
+    return match_select(desc1, desc2, valid1, valid2, max_dist, ratio, True,
+                        AreaWindow(xy2, xy1, float(window)),
+                        angle1 if check_rotation else None, angle2 if check_rotation else None)
+
+
+def search_for_triangulation(desc1, xy1, valid1, has_mp1, desc2, xy2, octave2, valid2, has_mp2,
+                             F12, scale_factors, epi_center2=None, max_dist: int = 50
+                             ) -> MatchResult:
+    """Epipolar-constrained matching of unbound features between two
+    keyframes (SearchForTriangulation, ORBmatcher.cc h73), ratio 1.0 and
+    mutual; with `epi_center2` the targets within sqrt(100 scale) px of the
+    epipole are left out. `scale_factors` is the per-level scale table (the
+    reference passes its square, sigma^2, for the band)."""
+    band = EpipolarBand(F12, xy2, xy1, octave2, scale_factors, epi_center2)
+    return match_select(desc1, desc2, valid1 & ~has_mp1, valid2 & ~has_mp2, max_dist, 1.0, True,
+                        band)
+
+
+def fundamental_from_poses(cam1, Tcw1, cam2, Tcw2) -> torch.Tensor:
+    """F12 with x2^T F12 x1 = 0 (ComputeF12, LocalMapping.cc:660), batched
+    over the leading dimensions of Tcw2: K2^-T [t21]x R21 K1^-1 with
+    T21 = inverse(Tcw1 inverse(Tcw2))."""
+    T21 = se3.inverse(se3.compose(Tcw1, se3.inverse(Tcw2)))
+    E21 = se3.hat(se3.translation(T21)) @ se3.rotation(T21)
+    K1inv = torch.linalg.inv(cam1.K).to(Tcw2.device)
+    K2inv = torch.linalg.inv(cam2.K).to(Tcw2.device)
+    return K2inv.T @ E21 @ K1inv

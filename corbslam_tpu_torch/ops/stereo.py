@@ -12,6 +12,11 @@ passed, and otherwise averages the two middle values.
 
 `stereo_match` is the wrapper of kernel K4 (`csrc/stereo_match.cu`): two
 launches on CUDA inputs, `stereo_match_plain` on CPU inputs.
+
+`compute_stereo_from_rgbd` (Frame::ComputeStereoFromRGBD, Frame.cc:647) reads
+a registered depth map at the raw keypoint rounded half to even, and takes
+u_right from the undistorted x; on CUDA inputs it is K4's `rgbd_stereo`
+entry (its own launch counter), on CPU inputs `compute_stereo_from_rgbd_plain`.
 """
 
 from __future__ import annotations
@@ -134,3 +139,57 @@ def stereo_match(fl, fr, scale_factors, bf: float, max_disp: int = 192,
     if fl.xy.device.type == "cpu":
         return stereo_match_plain(fl, fr, scale_factors, bf, max_disp, max_hamming)
     raise ValueError(f"unsupported device {fl.xy.device}")
+
+
+class RgbdStereo(NamedTuple):
+    u_right: torch.Tensor  # [N] f32, -1 where not ok
+    depth: torch.Tensor    # [N] f32, 0 where not ok
+    ok: torch.Tensor       # [N] bool
+
+
+def compute_stereo_from_rgbd_plain(depth_map, xy, valid, bf: float, min_depth: float = 0.05,
+                                   xy_und=None) -> RgbdStereo:
+    """Plain version of K4's `rgbd_stereo`."""
+    if xy_und is None:
+        xy_und = xy
+    h, w = depth_map.shape
+    xi = torch.round(xy[:, 0]).to(torch.int32).clamp(0, w - 1)
+    yi = torch.round(xy[:, 1]).to(torch.int32).clamp(0, h - 1)
+    d = depth_map.reshape(-1)[(yi * w + xi).long()]
+    ok = valid & (d > min_depth)
+    dm = d.clamp_min(min_depth)
+    u_right = torch.where(ok, xy_und[:, 0] - torch.full_like(dm, bf) / dm,
+                          torch.full_like(d, -1.0))
+    return RgbdStereo(u_right, torch.where(ok, d, torch.zeros_like(d)), ok)
+
+
+def _rgbd_cuda(depth_map, xy, valid, bf, min_depth, xy_und) -> RgbdStereo:
+    dev = xy.device
+    N = xy.shape[0]
+    h, w = depth_map.shape
+    kernels.check(depth_map, "depth_map", torch.float32, (h, w), dev)
+    kernels.check(xy, "xy", torch.float32, (N, 2), dev)
+    kernels.check(xy_und, "xy_und", torch.float32, (N, 2), dev)
+    kernels.check(valid, "valid", torch.bool, (N,), dev)
+    u_right = torch.empty(N, dtype=torch.float32, device=dev)
+    depth = torch.empty(N, dtype=torch.float32, device=dev)
+    ok = torch.empty(N, dtype=torch.bool, device=dev)
+    p = kernels.ptr
+    kernels.launch("rgbd_stereo", "rgbd_stereo", p(depth_map), h, w, p(xy), p(xy_und), p(valid),
+                   N, float(bf), float(min_depth), p(u_right), p(depth), p(ok))
+    return RgbdStereo(u_right, depth, ok)
+
+
+def compute_stereo_from_rgbd(depth_map, xy, valid, bf: float, min_depth: float = 0.05,
+                             xy_und=None) -> RgbdStereo:
+    """(u_right, depth, ok) of each feature from a registered depth map [h, w]:
+    depth at the raw keypoint `xy` rounded half to even and clamped into the
+    image; u_right = x_und - bf / max(d, min_depth) where valid and
+    d > min_depth, else -1 (depth 0)."""
+    if xy_und is None:
+        xy_und = xy
+    if xy.is_cuda:
+        return _rgbd_cuda(depth_map, xy, valid, bf, min_depth, xy_und)
+    if xy.device.type == "cpu":
+        return compute_stereo_from_rgbd_plain(depth_map, xy, valid, bf, min_depth, xy_und)
+    raise ValueError(f"unsupported device {xy.device}")

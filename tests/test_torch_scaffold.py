@@ -37,7 +37,8 @@ from corbslam_tpu_torch.matching import matcher
 from corbslam_tpu_torch.ops import brief, fast, orb, pyramid
 from corbslam_tpu_torch.optim import ba_dense, pose_graph, pose_opt
 from corbslam_tpu_torch.place import vocab
-from corbslam_tpu_torch.solvers import pnp, sim3_solver
+from corbslam_tpu_torch.mapping import triangulation
+from corbslam_tpu_torch.solvers import initializer, pnp, sim3_solver
 
 torch.set_num_threads(2)
 
@@ -66,7 +67,8 @@ def test_import_leaves_out_jax_and_the_reference():
     for sub in ("mapstate", "matching", "optim", "mapping", "frontend.tracking",
                 "mapping.local_mapping", "optim.ba_dense", "optim.smallmat", "io.trajectory",
                 "geometry.sim3", "place.vocab", "place.database", "solvers.sim3_solver",
-                "solvers.pnp", "optim.pose_graph", "loop.loop_closing", "frontend.reloc"):
+                "solvers.pnp", "optim.pose_graph", "loop.loop_closing", "frontend.reloc",
+                "geometry.linalg3", "solvers.initializer", "mapping.triangulation"):
         assert f"corbslam_tpu_torch.{sub}" in MODULES
 
 
@@ -82,8 +84,8 @@ def _tiny_inputs():
     return img, camera.Intrinsics.create(100, 100, 48, 32, bf=10.0, width=96, height=64)
 
 
-@pytest.mark.parametrize("call", ["extract", "stereo", "mono", "entry", "track_entry",
-                                  "tracker_entry", "loop_entry"])
+@pytest.mark.parametrize("call", ["extract", "stereo", "mono", "rgbd", "entry", "track_entry",
+                                  "tracker_entry", "loop_entry", "sensor_entry"])
 def test_entry_points_default_to_cuda_and_raise_without_it(call):
     assert not torch.cuda.is_available()
     img, cam = _tiny_inputs()
@@ -95,12 +97,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it(call):
             frame.build_frame_stereo(img, img, cam, cfg)
         elif call == "mono":
             frame.build_frame_mono(img, cam, cfg)
+        elif call == "rgbd":
+            frame.build_frame_rgbd(img, img, cam, cfg)
         elif call == "track_entry":
             entry.track_entry()
         elif call == "tracker_entry":
             entry.tracker_entry()
         elif call == "loop_entry":
             entry.loop_entry()
+        elif call == "sensor_entry":
+            entry.sensor_entry()
         else:
             fwd, imgs = entry.entry()
             fwd(*imgs)
@@ -269,7 +275,8 @@ def test_chip_smoke_fails_without_cuda():
                                      "local_map", "point_major", "ba_optimize", "top_covisible",
                                      "window_mask", "compact", "vocab_assign", "l1_scores",
                                      "sim3_ransac", "sim3_refine", "pnp_ransac", "pose_graph",
-                                     "covis_matrix"])
+                                     "covis_matrix", "rgbd_stereo", "two_view", "band_search",
+                                     "triangulate"])
 def test_wrappers_refuse_devices_other_than_cpu_and_cuda(wrapper):
     """A wrapper takes its plain version only for a CPU tensor; a tensor on
     another device is refused, never silently moved."""
@@ -331,6 +338,21 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda(wrapper):
             m = ms.empty(config.CapacityConfig(max_keyframes=4, max_map_points=16, max_features=8,
                                                local_window_kfs=2, local_window_mps=4), "meta")
             covis.covis_matrix(m)
+        elif wrapper == "rgbd_stereo":
+            stereo.compute_stereo_from_rgbd(torch.empty(4, 4, device="meta"),
+                                            torch.empty(8, 2, device="meta"),
+                                            torch.empty(8, dtype=torch.bool, device="meta"), 1.0)
+        elif wrapper == "two_view":
+            xy = torch.empty(8, 2, device="meta")
+            v = torch.empty(8, dtype=torch.bool, device="meta")
+            initializer.initialize_two_view(
+                None, xy, xy, v, sample=torch.empty(4, 8, dtype=torch.int32, device="meta"))
+        elif wrapper == "band_search":
+            d = torch.empty(8, 32, dtype=torch.uint8, device="meta")
+            matcher.band_search(d, meta, meta, d[None], meta, meta, meta, meta, None, meta, 50)
+        elif wrapper == "triangulate":
+            triangulation.points(None, None, None, None,
+                                 torch.empty(2, 8, dtype=torch.int32, device="meta"), None)
         else:
             f = orb.Features(*(torch.empty(64, 2, device="meta") for _ in range(7)))
             stereo.stereo_match(f, f, prm.scales, 1.0)

@@ -289,9 +289,19 @@ def test_tracker_defaults_to_cuda_and_keeps_its_slice():
     with pytest.raises(ValueError, match="loop closer on"):
         StereoTracker(CAM, small_cfg(config), loop_closer=SimpleNamespace(
             device=torch.device("meta")), device="cpu")
-    tr = StereoTracker(CAM, small_cfg(config), device="cpu")
+    # Mono with a loop closer waits for free-scale Sim3 and global BA.
+    lc_tr = StereoTracker(CAM, small_cfg(config), device="cpu",
+                          loop_closer=SimpleNamespace(device=torch.device("cpu")))
     img = np.zeros((240, 320), np.float32)
-    for call in (lambda: tr.process_mono(img, 0.0), lambda: tr.process_rgbd(img, img, 0.0)):
-        with pytest.raises(NotImplementedError, match="mono"):
-            call()
+    with pytest.raises(NotImplementedError, match="global BA"):
+        lc_tr.process_mono(img, 0.0)
+    # Both other sensors run on the CPU port: a featureless frame leaves the
+    # tracker waiting for initialization, as in the reference.
+    for sensor in ("mono", "rgbd"):
+        tr = StereoTracker(CAM, small_cfg(config), device="cpu")
+        if sensor == "mono":
+            tr.process_mono(img, 0.0)
+        else:
+            tr.process_rgbd(img, img, 0.0)
+        assert tr.sensor == sensor and tr.frame_states == [TrackState.NOT_INITIALIZED]
     assert dataclasses.asdict(small_cfg(config)) == dataclasses.asdict(small_cfg(jconfig))

@@ -39,6 +39,17 @@ the closed room `MultiPlaneWorld.room(half 14, height 3, seed 2)` rendered on
 `device`, and the orbit `orbit_pose(i)` of radius 5 m stepping 0.10 rad, one
 lap (63 frames) and 8 more; its tracker carries a `LoopCloser` (fixed scale,
 global BA off, seed 0) on client 1.
+
+`e2e_entry()` is the reference's end-to-end loop fixture
+(`tests/test_loop_e2e.py:27-78`, `bench.py:161-170`): the same camera and
+config, the room with photometric noise of std 3 (seed 2), the orbit of
+radius 6 m at 0.05 rad a frame for 151 frames (one lap and 25), a
+1024-word vocabulary trained (6 iterations) on the valid descriptors of
+frames 0, N/3 and 2N/3 (left images through `build_frame_mono`), and a
+`system.CorbslamClient` on client 1 with global BA (synchronous).
+`e2e_entry(laps=True)` is its 2.5-lap variant (0.1 rad a frame, 158 frames,
+global BA asynchronous); `run_e2e` feeds a client every frame, frame i
+rendered with `frame=i` at timestamp 0.1 i, and shuts it down.
 """
 
 from __future__ import annotations
@@ -60,6 +71,7 @@ from .io import synthetic
 from .loop.loop_closing import LoopCloser
 from .mapstate import mapstate as ms
 from .place import vocab
+from .system import CorbslamClient
 
 CAM = camera.Intrinsics.create(
     fx=718.856, fy=718.856, cx=607.1928, cy=185.2157, bf=386.1448,
@@ -292,3 +304,64 @@ def loop_entry(device="cuda"):
     lc = loop_closer_for(LOOP_CAM, cfg, dev)
     return StereoTracker(LOOP_CAM, cfg, client=1, loop_closer=lc, device=dev), \
         LoopEntry(LOOP_CAM, cfg, world)
+
+
+E2E_STEP, E2E_RADIUS = 0.05, 6.0
+E2E_FRAMES = int(np.ceil(2 * np.pi / E2E_STEP)) + 25  # one lap and the revisit's overlap
+E2E_LAPS_STEP = 0.1
+E2E_LAPS_FRAMES = int(np.ceil(2.5 * 2 * np.pi / E2E_LAPS_STEP))  # 2.5 laps
+E2E_WORDS, E2E_TRAIN_ITERS = 1024, 6
+
+
+class E2EEntry(NamedTuple):
+    cam: camera.Intrinsics
+    cfg: SlamConfig
+    world: synthetic.MultiPlaneWorld
+    step: float            # rad a frame
+    n_frames: int
+    corpus: torch.Tensor   # [N, 32] u8 the vocabulary's training descriptors
+
+
+def e2e_frame(ee: E2EEntry, i: int):
+    """(left, right) of orbit frame i with that frame's noise."""
+    return ee.world.render_stereo(orbit_pose(i, ee.step, E2E_RADIUS), frame=i)
+
+
+def e2e_entry(sensor: str = "stereo", device="cuda", laps: bool = False, n_words: int = E2E_WORDS,
+              n_iters: int = E2E_TRAIN_ITERS, client_id: int = 1):
+    """(CorbslamClient on `device`, E2EEntry): the end-to-end loop fixture
+    (see the module docstring), its vocabulary trained on `device`;
+    `client_id` seeds the client's draws (the fixture's is 1)."""
+    dev = kernels.resolve_device(device)
+    cfg = loop_config()
+    world = synthetic.MultiPlaneWorld.room(LOOP_CAM, half=14.0, height=3.0, noise_std=3.0,
+                                           seed=2, device=dev)
+    step, n = (E2E_LAPS_STEP, E2E_LAPS_FRAMES) if laps else (E2E_STEP, E2E_FRAMES)
+    ee = E2EEntry(LOOP_CAM, cfg, world, step, n, torch.empty(0, 32, dtype=torch.uint8))
+    descs = []
+    for i in (0, n // 3, 2 * n // 3):
+        f = frame_mod.build_frame_mono(e2e_frame(ee, i)[0], LOOP_CAM, cfg.orb, device=dev)
+        descs.append(f.desc[f.fvalid])
+    ee = ee._replace(corpus=torch.cat(descs).contiguous())
+    voc = vocab.train(ee.corpus, n_words=n_words, n_iters=n_iters)
+    client = CorbslamClient(LOOP_CAM, cfg, sensor=sensor, client_id=client_id, voc=voc,
+                            run_gba=True, device=dev)
+    client.loop_closer.gba_runner.synchronous = not laps
+    return client, ee
+
+
+def run_e2e(client: CorbslamClient, ee: E2EEntry, step=None, n: int | None = None) -> None:
+    """Frames 0 .. n-1 (default all) through `track_stereo`, or the left
+    image through `track_monocular` for a mono client, then `shutdown`;
+    `step(i, fn)` runs frame i's call (fn()) and, with i None, the shutdown."""
+    if step is None:
+        def step(_, fn):
+            fn()
+
+    for i in range(ee.n_frames if n is None else n):
+        left, right = e2e_frame(ee, i)
+        if client.sensor == "mono":
+            step(i, lambda: client.track_monocular(left, i * 0.1))
+        else:
+            step(i, lambda: client.track_stereo(left, right, i * 0.1))
+    step(None, client.shutdown)

@@ -33,18 +33,20 @@ and `mapping/local_mapping.py` and branches only on small summaries.
   refresh on every second keyframe; the split local BA from the third;
   keyframe cull on every third after the fifth; the full sweep on every
   sixth); one stage runs per frame, more while more than 4 wait; `flush`
-  drains all. With a loop closer (`loop/loop_closing.LoopCloser`, global BA
-  off) every keyframe also queues its loop-closing stage; the keyframe cull
-  drops culled rows from the database and a compaction remaps it. A split
-  local BA whose window was built before a `map_epoch` bump (loop
-  correction, compaction, reset) does not write back. Mono drains the whole
+  drains all. With a loop closer (`loop/loop_closing.LoopCloser`) every
+  keyframe also queues its loop-closing stage; the keyframe cull drops culled
+  rows from the database and a compaction remaps it; a finished global BA is
+  merged into the map before the next frame is tracked. A split local BA
+  whose window was built before a `map_epoch` bump (loop correction, global
+  BA merge, compaction, reset) does not write back. Mono drains the whole
   queue at each keyframe (triangulation is its only source of points), culls
   points with 2 observations instead of 3, and asks for a keyframe below
   `kf_ref_ratio_mono` of the tracked count.
 
 The map is updated in place where the reference donates it (see
-`mapstate.mapstate`). Mono with a loop closer needs free-scale Sim3 and
-global BA, which come with the global-BA slice: it raises.
+`mapstate.mapstate`); a global BA merge replaces its pose and position
+tables. Mono takes a loop closer made with `fix_scale=False` (free-scale
+Sim3), as `system.CorbslamClient` makes it.
 """
 
 from __future__ import annotations
@@ -172,10 +174,6 @@ class StereoTracker:
 
     def process_mono(self, img, timestamp: float):
         """Monocular ingest (System::TrackMonocular, System.cc:185)."""
-        if self.loop_closer is not None:
-            raise NotImplementedError(
-                "mono tracking with a loop closer needs free-scale Sim3 and global BA, which "
-                "come with the global BA slice (ROADMAP item 10)")
         self.sensor = "mono"
         return self._process((img,), timestamp)
 
@@ -356,8 +354,8 @@ class StereoTracker:
         return self.current_pose()
 
     def _merge_gba(self):
-        """Fold in a finished global BA (none on this slice: the loop closer
-        returns the map as it is)."""
+        """Fold in a finished global BA (the loop closer returns the same map
+        when none is waiting); a merge moves poses, so the epoch moves."""
         if self.loop_closer is not None:
             m2 = self.loop_closer.try_merge_gba(self.map)
             if m2 is not self.map:
@@ -556,12 +554,17 @@ class StereoTracker:
         self.stats.stages[kind] += 1
 
     def _stage_loop_closing(self, kf_row: int):
-        """Loop-closing stage; a closure bumps the map epoch (aborts the
-        split local BAs built before it)."""
+        """Loop-closing stage; a closure, or a global BA that finished
+        meanwhile, bumps the map epoch (aborts the split local BAs built
+        before it)."""
         lc = self.loop_closer
-        loops0 = lc.stats.n_loops_closed
+
+        def finished():
+            return lc.gba_runner.runs_finished if lc.gba_runner is not None else 0
+
+        loops0, merges0 = lc.stats.n_loops_closed, finished()
         self.map = lc.process_keyframe(self.map, kf_row)
-        if lc.stats.n_loops_closed != loops0:
+        if lc.stats.n_loops_closed != loops0 or finished() != merges0:
             self.map_epoch += 1
 
     def _stage_local_ba_build(self, kf_row: int, st: dict):

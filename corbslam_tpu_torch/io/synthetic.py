@@ -1,6 +1,6 @@
 """Synthetic imagery (port of `corbslam_tpu/io/synthetic.py`: `random_texture`,
 `bilinear_sample`, `PlanarWorld` with its depth map, `MultiPlaneWorld` with
-`room`).
+`room` and its photometric noise).
 
 `jax.image.resize(..., "bilinear")` upsampling of each noise octave is a
 half-pixel triangle filter whose edge taps are renormalized, which for
@@ -111,13 +111,21 @@ class MultiPlaneWorld:
     ceiling for the loop orbit), rendered in f32 on `device`. Plane i is
     n_i . p = d_i with an in-plane chart (u_i, v_i) from its origin o_i onto
     its own `random_texture(texture_size, texture_size, seed * 131 + i)`.
-    The reference's photometric noise is left out: its `jax.random` draw
-    cannot be reproduced here, and every caller renders noise-free."""
+
+    With `noise_std` > 0 each rendered frame gets Gaussian photometric noise
+    of that std, clipped to [0, 255], drawn from a `torch.Generator` on
+    `device` seeded with seed * 977 + frame * 2 (the left image of a stereo
+    pair first, then the right: two distinct draws). The reference draws from
+    `jax.random` under the same seed, which cannot be repeated here, so the
+    noise matches in distribution only; with `noise_std` 0 nothing is drawn
+    and every pixel is the noise-free render."""
 
     def __init__(self, cam, planes, texture_size: int = 2048, texture_scale: float = 50.0,
-                 seed: int = 0, device="cpu"):
+                 noise_std: float = 0.0, seed: int = 0, device="cpu"):
         self.cam = cam
         self.texture_scale = float(texture_scale)
+        self.noise_std = float(noise_std)
+        self._noise_seed = seed
         self.tex_size = texture_size
         self.device = torch.device(device)
         n_l, d_l, o_l, u_l, v_l, tex = [], [], [], [], [], []
@@ -139,8 +147,8 @@ class MultiPlaneWorld:
         self.Kinv = torch.linalg.inv(cam.K).to(self.device)
 
     @staticmethod
-    def room(cam, half: float = 14.0, height: float = 3.0, seed: int = 0,
-             texture_scale: float = 60.0, device="cpu") -> "MultiPlaneWorld":
+    def room(cam, half: float = 14.0, height: float = 3.0, noise_std: float = 0.0,
+             seed: int = 0, texture_scale: float = 60.0, device="cpu") -> "MultiPlaneWorld":
         """A closed box room: orbits inside it re-observe the start view."""
         h = half
         planes = [
@@ -151,8 +159,8 @@ class MultiPlaneWorld:
             ([0.0, -1.0, 0.0], -height, [0.0, height, 0.0]),
             ([0.0, 1.0, 0.0], -height, [0.0, -height, 0.0]),
         ]
-        return MultiPlaneWorld(cam, planes, seed=seed, texture_scale=texture_scale,
-                               device=device)
+        return MultiPlaneWorld(cam, planes, noise_std=noise_std, seed=seed,
+                               texture_scale=texture_scale, device=device)
 
     def _render_depth(self, Tcw: torch.Tensor):
         cam = self.cam
@@ -182,14 +190,23 @@ class MultiPlaneWorld:
         img = torch.where(hit, img, torch.full_like(img, 128.0))
         return img, torch.where(hit, lam_b * rays[2], torch.zeros_like(lam_b))
 
-    def render(self, Tcw: torch.Tensor) -> torch.Tensor:
-        return self._render_depth(Tcw)[0]
+    def _noisy(self, imgs, frame: int):
+        """The images with frame `frame`'s noise, one draw each in order."""
+        if self.noise_std <= 0.0:
+            return imgs
+        gen = torch.Generator(device=self.device).manual_seed(self._noise_seed * 977 + frame * 2)
+        return [(img + torch.randn(img.shape, generator=gen, device=self.device)
+                 * self.noise_std).clamp(0.0, 255.0) for img in imgs]
 
-    def render_stereo(self, Tcw: torch.Tensor):
+    def render(self, Tcw: torch.Tensor, frame: int = 0) -> torch.Tensor:
+        return self._noisy([self._render_depth(Tcw)[0]], frame)[0]
+
+    def render_stereo(self, Tcw: torch.Tensor, frame: int = 0):
         """(left, right); the right camera sits `baseline` along +x."""
         T_rl = se3.from_Rt(torch.eye(3), torch.tensor([-self.cam.baseline, 0.0, 0.0]))
         Tcw = Tcw.to(torch.float32).cpu()
-        return self.render(Tcw), self.render(se3.compose(T_rl, Tcw))
+        left, right = (self._render_depth(T)[0] for T in (Tcw, se3.compose(T_rl, Tcw)))
+        return tuple(self._noisy([left, right], frame))
 
     def depth(self, Tcw: torch.Tensor) -> torch.Tensor:
         return self._render_depth(Tcw)[1]

@@ -1,7 +1,6 @@
-"""Loop closing without global BA (port of `corbslam_tpu/loop/loop_closing.py`:
-`Sim3Between`, `compute_sim3`, `LoopEdges`,
-`build_essential_graph`, `correct_window`, `optimize_essential_graph`,
-`fuse_loop_points`, `LoopCloser`).
+"""Loop closing (port of `corbslam_tpu/loop/loop_closing.py`: `Sim3Between`,
+`compute_sim3`, `LoopEdges`, `build_essential_graph`, `correct_window`,
+`optimize_essential_graph`, `fuse_loop_points`, `LoopCloser`).
 
 Detection is one dense BoW score over the database (K9); verification
 matches the two keyframes' bound features (K5), runs Sim3 RANSAC and its
@@ -10,14 +9,14 @@ query pose against the candidate side's points (K6); correction moves the
 query's covisible window, fuses the duplicate points (K5 again), and runs
 the essential-graph Sim3 pose graph (K11, with its [N, N] covisibility
 count). The host keeps only the consistency groups and reads one flag per
-verified candidate.
+verified candidate. With `run_gba` a closure aborts the running global BA
+first and launches a new one last (`loop/gba.GlobalBARunner`, K8 in a worker
+thread); `try_merge_gba` folds a finished one into the map.
 
 RNG lineage: the reference draws each RANSAC sample from a key split off
 `PRNGKey(seed)`; the port draws from a `torch.Generator` seeded with the
 same seed on the map's device, so the two packages sample differently and a
 run is compared by outcome (which loop, inlier counts, ATE).
-
-Global BA is the next slice: `LoopCloser(run_gba=True)` raises.
 """
 
 from __future__ import annotations
@@ -39,6 +38,7 @@ from ..optim import pose_opt
 from ..place import database as db_mod
 from ..place import vocab as vocab_mod
 from ..solvers import sim3_solver
+from . import gba as gba_mod
 
 MAX_LOOP_EDGES = 32       # loop edges remembered (KeyFrame::mspLoopEdges)
 ESSENTIAL_MIN_WEIGHT = 100  # strong covisibility of the essential graph (Optimizer.cc:840)
@@ -339,9 +339,6 @@ class LoopCloser:
 
     def __init__(self, cam: cam_mod.Intrinsics, cfg: SlamConfig, voc: vocab_mod.Vocabulary,
                  fix_scale: bool = True, run_gba: bool = True, seed: int = 0):
-        if run_gba:
-            raise NotImplementedError("LoopCloser(run_gba=True): global BA comes with the GBA "
-                                      "slice (ROADMAP item 10); pass run_gba=False")
         self.cam = cam
         self.cfg = cfg
         self.voc = voc
@@ -349,17 +346,20 @@ class LoopCloser:
         self.fix_scale = fix_scale
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.stats = LoopCloserStats()
+        self.gba_runner = gba_mod.GlobalBARunner(cam, cfg) if run_gba else None
         self.reset()
 
     def reset(self):
         """Tracking::Reset's share (Tracking.cc:1533): empty database, loop
-        edges and consistency state."""
+        edges and consistency state; a running global BA is aborted."""
         self.db = db_mod.BowDatabase.empty(self.cfg.capacity.max_keyframes, self.voc.n_words,
                                            self.device)
         self.loops = LoopEdges.empty(device=self.device)
         self.n_loops = 0
         self.consistent_groups: List[_ConsistentGroup] = []
         self.last_loop_kf = -(10 ** 9)
+        if self.gba_runner is not None:
+            self.gba_runner.abort()
 
     def compute_bow(self, m: ms.MapState, kf_row: int, out=None) -> torch.Tensor:
         return vocab_mod.transform(self.voc, m.kf.desc[kf_row], m.kf.fvalid[kf_row], out=out)
@@ -414,8 +414,11 @@ class LoopCloser:
         return enough
 
     def close_loop(self, m: ms.MapState, kf_q: int, kf_c: int, sb: Sim3Between) -> ms.MapState:
-        """CorrectLoop (LoopClosing.cc:404): correct the window, fuse the
-        duplicates, record the edge, optimize the essential graph."""
+        """CorrectLoop (LoopClosing.cc:404): abort a running global BA,
+        correct the window, fuse the duplicates, record the edge, optimize
+        the essential graph, then launch a new global BA."""
+        if self.gba_runner is not None:
+            self.gba_runner.abort()
         meas_Tcw = m.kf.Tcw.clone()  # pre-correction snapshot (NonCorrectedSim3)
         m, _ = correct_window(m, kf_q, kf_c, sb.R, sb.t, sb.s, self.cfg)
         m = fuse_loop_points(self.cam, m, kf_q, kf_c, self.cfg)
@@ -427,10 +430,13 @@ class LoopCloser:
         self.stats.n_loops_closed += 1
         self.stats.last_loop = (kf_q, kf_c)
         self.consistent_groups = []
+        if self.gba_runner is not None:
+            self.gba_runner.launch(m)
         return m
 
     def remap_rows(self, res: ms.CompactResult):
-        """Follow a map compaction: database rows, loop edges, last loop row."""
+        """Follow a map compaction: database rows, loop edges, last loop row;
+        a running global BA holds the old row numbers and is aborted."""
         self.db = self.db.reorder(res.kf_order, res.m.n_kf)
         kmap = res.kf_old2new
         li = kmap[self.loops.i.clamp_min(0).long()]
@@ -441,7 +447,12 @@ class LoopCloser:
         if self.last_loop_kf >= 0:
             nl = int(kmap[self.last_loop_kf])
             self.last_loop_kf = nl if nl >= 0 else -(10 ** 9)
+        if self.gba_runner is not None:
+            self.gba_runner.abort()
 
     def try_merge_gba(self, m: ms.MapState) -> ms.MapState:
-        """No global BA on this slice: the map as it is."""
-        return m
+        """The map with a finished global BA folded in (a new MapState), or
+        the same map when none is waiting."""
+        if self.gba_runner is None:
+            return m
+        return self.gba_runner.try_merge(m)

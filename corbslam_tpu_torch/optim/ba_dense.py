@@ -2,7 +2,8 @@
 over [C, Fb] observation planes (port of `corbslam_tpu/optim/ba_dense.py`:
 `BADense`, `build_point_major`, `_linearize`, `lm_step_dense` single-device,
 `optimize` / `optimize_core`, `_inv_sigma2_of` as `inv_sigma2_of`,
-`problem_from_window`).
+`problem_from_window`, and global BA's `compact_rows`, `problem_from_map`,
+`slice_problem`, `round_up`).
 
 Every per-observation quantity is a plane [C, Fb] (camera slot x feature
 slot): camera sums are row reductions, point sums gather through the
@@ -17,8 +18,8 @@ SE3 + XYZ BA with Huber kernels (Optimizer.cc:487, 711-758).
 
 `optimize` and `build_point_major` are the wrappers of kernel K8
 (`csrc/ba_dense.cu`): CUDA tensors launch it, CPU tensors take the plain
-versions below. `compact_rows`, `problem_from_map`, `slice_problem` and
-`round_up` come with global BA.
+versions below; `counter` names the launch count they add to (global BA
+counts its own).
 """
 
 from __future__ import annotations
@@ -92,7 +93,7 @@ def build_point_major_plain(obs_mp: torch.Tensor, obs_active: torch.Tensor, P: i
     return pm_src, pm_ok, obs_active & keep[:O].reshape(C, Fb)
 
 
-def _build_point_major_cuda(obs_mp, obs_active, P: int, K: int):
+def _build_point_major_cuda(obs_mp, obs_active, P: int, K: int, counter: str):
     C, Fb = obs_mp.shape
     dev = obs_mp.device
     kernels.check(obs_mp, "obs_mp", torch.int32, (C, Fb), dev)
@@ -103,16 +104,17 @@ def _build_point_major_cuda(obs_mp, obs_active, P: int, K: int):
     pm_ok = torch.empty(P, K, dtype=torch.bool, device=dev)
     active = torch.empty(C, Fb, dtype=torch.bool, device=dev)
     p = kernels.ptr
-    kernels.launch("ba_dense", "ba_point_major", p(obs_mp), p(obs_active), C, Fb, P, K, p(work),
+    kernels.launch(counter, "ba_point_major", p(obs_mp), p(obs_active), C, Fb, P, K, p(work),
                    p(pm_src), p(pm_ok), p(active))
     return pm_src, pm_ok, active
 
 
-def build_point_major(obs_mp: torch.Tensor, obs_active: torch.Tensor, P: int, K: int):
+def build_point_major(obs_mp: torch.Tensor, obs_active: torch.Tensor, P: int, K: int,
+                      counter: str = "ba_dense"):
     """Point-major gather table of a problem (K8 on CUDA tensors, the plain
     version on CPU tensors). Active observation ids must lie in [0, P)."""
     if obs_mp.is_cuda:
-        return _build_point_major_cuda(obs_mp, obs_active, P, K)
+        return _build_point_major_cuda(obs_mp, obs_active, P, K, counter)
     if obs_mp.device.type == "cpu":
         return build_point_major_plain(obs_mp, obs_active, P, K)
     raise ValueError(f"unsupported device {obs_mp.device}")
@@ -327,7 +329,8 @@ def optimize_plain(cam, problem: BADense, n_iters: int = 10, cg_iters: int = 40,
                          torch.tensor(trace, dtype=torch.int32).reshape(n_iters, 2))
 
 
-def _optimize_cuda(cam, pb: BADense, n_iters: int, cg_iters: int, huber_iters: int):
+def _optimize_cuda(cam, pb: BADense, n_iters: int, cg_iters: int, huber_iters: int,
+                   counter: str):
     C, Fb = pb.obs_mp.shape
     P = pb.X.shape[0]
     dev = pb.X.device
@@ -356,7 +359,7 @@ def _optimize_cuda(cam, pb: BADense, n_iters: int, cg_iters: int, huber_iters: i
     cost = torch.empty((), dtype=torch.float32, device=dev)
     trace = torch.empty(max(n_iters, 1), 2, dtype=torch.int32, device=dev)
     p = kernels.ptr
-    kernels.launch("ba_dense", "ba_optimize", p(pb.Tcw), p(pb.pose_fixed), p(pb.X),
+    kernels.launch(counter, "ba_optimize", p(pb.Tcw), p(pb.pose_fixed), p(pb.X),
                    p(pb.point_fixed), p(pb.obs_mp), p(pb.obs_uvr), p(pb.obs_inv_sigma2),
                    p(pb.obs_stereo), p(pb.obs_active), p(pb.pm_src), p(pb.pm_ok), C, Fb, P, K,
                    n_iters, cg_iters, huber_iters, float(cam.fx), float(cam.fy), float(cam.cx),
@@ -366,11 +369,11 @@ def _optimize_cuda(cam, pb: BADense, n_iters: int, cg_iters: int, huber_iters: i
 
 
 def optimize(cam, problem: BADense, n_iters: int = 10, cg_iters: int = 40,
-             huber_iters: int = 5) -> BADenseResult:
+             huber_iters: int = 5, counter: str = "ba_dense") -> BADenseResult:
     """LM loop with accept / reject (K8 on CUDA tensors, the plain version on
     CPU tensors). Needs the problem's point-major table."""
     if problem.X.is_cuda:
-        return _optimize_cuda(cam, problem, n_iters, cg_iters, huber_iters)
+        return _optimize_cuda(cam, problem, n_iters, cg_iters, huber_iters, counter)
     if problem.X.device.type == "cpu":
         return optimize_plain(cam, problem, n_iters, cg_iters, huber_iters)
     raise ValueError(f"unsupported device {problem.X.device}")
@@ -411,3 +414,62 @@ def problem_from_window(m, sel, scale_factor: float) -> BADense:
         obs_uvr=torch.stack([xy[..., 0], xy[..., 1], ur]),
         obs_inv_sigma2=inv_sigma2_of(m.kf.octave[rows], scale_factor), obs_stereo=ur > 0,
         obs_active=ok, pm_src=pm_src, pm_ok=pm_ok)
+
+
+# ---------------------------------------------------------------------------
+# Global BA's problem builders
+# ---------------------------------------------------------------------------
+
+def compact_rows(ok: torch.Tensor, budget: int) -> torch.Tensor:
+    """[N, F] validity -> [N, budget] column indices, valid entries first in
+    their order (a stable sort of ~ok); a row with fewer valid entries points
+    its tail at invalid columns (the caller re-checks ok)."""
+    return torch.sort((~ok).to(torch.uint8), dim=1, stable=True)[1][:, :budget]
+
+
+def problem_from_map(m, scale_factor: float, obs_per_kf: int, gauge_row: int = 0,
+                     pm_k: int | None = 24, counter: str = "ba_dense") -> BADense:
+    """The whole map as a BADense with a per-keyframe observation budget
+    (GlobalBundleAdjustemnt's all-keyframes / all-points graph, Optimizer.cc:
+    43-54): row c holds keyframe c's first `obs_per_kf` bound observations.
+    `pm_k` is the point-major table's K (observations past it are thinned by
+    the even-stride rule); None builds no table. Tcw and X are the map's own
+    tensors (views): copy the map first where it changes later."""
+    idx = m.kf.mp_idx
+    ok = (idx >= 0) & m.kf.fvalid & m.kf.valid[:, None]
+    ok &= torch.where(idx >= 0, m.mp.valid[idx.clamp_min(0).long()], torch.zeros_like(ok))
+    sel = compact_rows(ok, obs_per_kf)
+
+    def take(a):
+        return torch.gather(a, 1, sel)
+
+    active = take(ok)
+    ids = take(idx).clamp_min(0)
+    ur = take(m.kf.uright)
+    inv_sigma2 = inv_sigma2_of(take(m.kf.octave), scale_factor)
+    pm_src = pm_ok = None
+    if pm_k is not None:
+        pm_src, pm_ok, active = build_point_major(ids, active, m.mp.pos.shape[0], pm_k, counter)
+    pose_fixed = ~m.kf.valid | m.kf.fixed
+    pose_fixed[gauge_row] = True
+    return BADense(
+        Tcw=m.kf.Tcw, pose_fixed=pose_fixed, X=m.mp.pos, point_fixed=~m.mp.valid | m.mp.fixed,
+        obs_mp=ids, obs_uvr=torch.stack([take(m.kf.xy[..., 0]), take(m.kf.xy[..., 1]), ur]),
+        obs_inv_sigma2=inv_sigma2, obs_stereo=ur > 0, obs_active=active, pm_src=pm_src,
+        pm_ok=pm_ok)
+
+
+def slice_problem(p: BADense, Cr: int, Pr: int) -> BADense:
+    """The problem cut to its first Cr cameras and Pr points (lossless when
+    the active observations lie in them; table rows of cut points go)."""
+    return p._replace(
+        Tcw=p.Tcw[:Cr], pose_fixed=p.pose_fixed[:Cr], X=p.X[:Pr], point_fixed=p.point_fixed[:Pr],
+        obs_mp=p.obs_mp[:Cr].clamp_max(Pr - 1), obs_uvr=p.obs_uvr[:, :Cr].contiguous(),
+        obs_inv_sigma2=p.obs_inv_sigma2[:Cr], obs_stereo=p.obs_stereo[:Cr],
+        obs_active=p.obs_active[:Cr],
+        pm_src=None if p.pm_src is None else p.pm_src[:Pr],
+        pm_ok=None if p.pm_ok is None else p.pm_ok[:Pr])
+
+
+def round_up(n: int, step: int, cap: int) -> int:
+    return min(cap, max(step, ((n + step - 1) // step) * step))

@@ -1,7 +1,9 @@
 """Bag-of-binary-words vocabulary (port of `corbslam_tpu/place/vocab.py`:
-`Vocabulary`, `load` / `load_any` / `default_artifact_path` /
+`Vocabulary`, `load` / `load_any` / `save` / `default_artifact_path` /
 `load_default`, `_assign`, `_assign_tree`, `transform`, `transform_sparse`,
-`densify_bow`, `l1_scores`, `l1_scores_batch`).
+`densify_bow`, `l1_scores`, `l1_scores_batch`, and the training:
+`_kmajority` as `kmajority`, `train`, `train_chunked`, `train_hierarchical`,
+`build_tree`).
 
 The port keeps every centre PACKED, LSB-first per byte as descriptors are
 (`ops.descriptors.unpack_bits`), so the Hamming distance of a descriptor to
@@ -12,12 +14,33 @@ word meets bit position i of a descriptor as in the reference.
 
 On a CUDA tensor the assignment, the tf-idf histogram (dense and sparse) and
 the L1 scores run on kernel K9 (`csrc/vocab.cu`); on a CPU tensor their
-plain versions below. Training stays with the reference for now.
+plain versions below.
+
+Training is binary k-majority: each iteration assigns every descriptor to
+its nearest centre (first minimum), tallies per centre the descriptors and
+the 1-bits of each of the 256 positions (integer sums, times a row weight),
+and sets a centre bit where 2 ones > count (a tie gives 0); a centre with no
+descriptor keeps its bits. The idf comes from the last iteration's counts,
+taken against the centres before the last update. On a CUDA tensor
+`kmajority` runs the whole loop on the card with kernel K14
+(`csrc/kmajority.cu`, K9's flat assignment inside), with no host sync; on a
+CPU tensor `kmajority_plain`, which walks the corpus in chunks so that no
+[N, W] distance matrix is ever whole. Trained centres are packed LSB-first
+like loaded ones, and `save` writes the reference's format (MSB-first), so
+the reference's `load` reads a vocabulary trained here.
+
+The initial centres are drawn from a `torch.Generator` seeded with `seed`
+(`randperm` when the corpus has at least W rows, else `randint` with
+replacement, as the reference's `replace=n < W`); the reference draws with
+`jax.random.choice`, so parity tests pass its index array as `init_idx`.
+Level 2 of `train_hierarchical` draws with `np.random.default_rng(seed + 7)`
+exactly as the reference does.
 """
 
 from __future__ import annotations
 
 import os
+from functools import partial
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -84,6 +107,20 @@ def default_artifact_path() -> str:
 def load_default(device="cpu") -> Optional[Vocabulary]:
     p = default_artifact_path()
     return load_any(p, device) if os.path.exists(p) else None
+
+
+def save(voc: Vocabulary, path: str) -> None:
+    """The reference's artifact format: centres packed MSB-first
+    (`np.packbits` of the 0/1 bits), idf, and the tree when there is one."""
+    def msb(packed):
+        return np.packbits(D.unpack_bits(packed).cpu().numpy().astype(np.uint8), axis=1)
+
+    extra = {}
+    if voc.groups is not None:
+        extra = dict(group_bits_packed=msb(voc.groups),
+                     child_idx=voc.child_idx.cpu().numpy().astype(np.int32))
+    np.savez_compressed(path, word_bits_packed=msb(voc.words),
+                        idf=voc.idf.cpu().numpy().astype(np.float32), **extra)
 
 
 # ---------------------------------------------------------------------------
@@ -251,3 +288,239 @@ def l1_scores_batch(queries: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
 def l1_scores(query: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     """One query [W] against a database [N, W] -> [N]."""
     return l1_scores_batch(query[None, :].contiguous(), db)[0]
+
+
+# ---------------------------------------------------------------------------
+# Training: binary k-majority (K14 on the card)
+# ---------------------------------------------------------------------------
+
+TRAIN_CHUNK = 65536  # descriptors per step of the plain version
+
+
+def _block_assign(desc: torch.Tensor, words: torch.Tensor, grp: torch.Tensor, B: int):
+    """Nearest of the B words of block grp[f] (global id), first minimum."""
+    W = words.shape[0]
+    blocks = words.view(W // B, B, 32)[grp.long()]                      # [n, B, 32]
+    d = D.popcount_desc(desc[:, None, :] ^ blocks)
+    return (grp * B + torch.argmin(d, dim=1).to(torch.int32)).to(torch.int32)
+
+
+def assign_flat_plain(desc: torch.Tensor, words: torch.Tensor, chunk: int = TRAIN_CHUNK):
+    """Nearest centre [N] i32 of every descriptor, chunked over N."""
+    return torch.cat([_assign(desc[s:s + chunk], words)
+                      for s in range(0, desc.shape[0], chunk)]) if desc.shape[0] else \
+        torch.zeros(0, dtype=torch.int32, device=desc.device)
+
+
+def kmajority_plain(desc: torch.Tensor, init: torch.Tensor, n_iters: int,
+                    weight: Optional[torch.Tensor] = None, group: Optional[torch.Tensor] = None,
+                    block: int = 0, chunk: int = TRAIN_CHUNK):
+    """Plain version of K14: (centres [W, 32] u8 packed LSB-first, counts [W]
+    i32 of the last iteration). `weight` [N] i32 scales each row's vote;
+    with `group` [N] i32 a descriptor's argmin runs over block
+    [g B, (g + 1) B) of its group g only (level 2 of train_hierarchical)."""
+    dev = desc.device
+    W = init.shape[0]
+    words = init.clone()
+    counts = torch.zeros(W, dtype=torch.int64, device=dev)
+    for _ in range(n_iters):
+        ones = torch.zeros(W, 256, dtype=torch.int64, device=dev)
+        counts = torch.zeros(W, dtype=torch.int64, device=dev)
+        for s in range(0, desc.shape[0], chunk):
+            dc = desc[s:s + chunk]
+            a = (_assign(dc, words) if group is None
+                 else _block_assign(dc, words, group[s:s + chunk], block)).long()
+            w = (torch.ones(dc.shape[0], dtype=torch.int64, device=dev) if weight is None
+                 else weight[s:s + chunk].to(torch.int64))
+            ones.index_add_(0, a, D.unpack_bits(dc).to(torch.int64) * w[:, None])
+            counts.index_add_(0, a, w)
+        maj = 2 * ones > counts[:, None]
+        bits = torch.where((counts > 0)[:, None], maj, D.unpack_bits(words).bool())
+        words = D.pack_bits(bits)
+    return words, counts.to(torch.int32)
+
+
+def idf_plain(counts: torch.Tensor) -> torch.Tensor:
+    """log(max(sum counts, 1) / max(count, 1)) in f32."""
+    n_total = counts.to(torch.int64).sum().clamp_min(1).to(torch.float32)
+    return torch.log(n_total / counts.to(torch.float32).clamp_min(1.0))
+
+
+def _check_train(desc, init, weight, group, block, dev):
+    N, W = desc.shape[0], init.shape[0]
+    kernels.check(desc, "desc", torch.uint8, (N, 32), dev)
+    kernels.check(init, "init", torch.uint8, (W, 32), dev)
+    if weight is not None:
+        kernels.check(weight, "weight", torch.int32, (N,), dev)
+    if group is not None:
+        kernels.check(group, "group", torch.int32, (N,), dev)
+        if block <= 0 or W % block:
+            raise ValueError(f"kmajority: block {block} does not divide {W} centres")
+
+
+def kmajority(desc: torch.Tensor, init: torch.Tensor, n_iters: int,
+              weight: Optional[torch.Tensor] = None, group: Optional[torch.Tensor] = None,
+              block: int = 0):
+    """Binary k-majority from the centres `init` [W, 32] (K14 on CUDA tensors,
+    `kmajority_plain` on CPU tensors): (centres, last iteration's counts)."""
+    if not _on_cuda(desc):
+        return kmajority_plain(desc, init, n_iters, weight, group, block)
+    dev, N, W = desc.device, desc.shape[0], init.shape[0]
+    _check_train(desc, init, weight, group, block, dev)
+    words = init.clone()
+    assign_ = torch.empty(N, dtype=torch.int32, device=dev)
+    ones = torch.empty(W, 256, dtype=torch.int32, device=dev)
+    counts = torch.zeros(W, dtype=torch.int32, device=dev)
+    p = kernels.ptr
+    wp = p(weight) if weight is not None else None
+    for _ in range(n_iters):
+        if group is None:
+            kernels.launch("kmajority", "vocab_assign", p(desc), N, p(words), W, None, 0, None,
+                           0, 0, p(assign_))
+        else:
+            kernels.launch("kmajority", "km_assign_block", p(desc), N, p(words), p(group), block,
+                           p(assign_))
+        kernels.launch("kmajority", "km_vote", p(desc), wp, p(assign_), N, W, p(ones), p(counts))
+        kernels.launch("kmajority", "km_majority", p(ones), p(counts), W, p(words))
+    return words, counts
+
+
+def idf_of(counts: torch.Tensor) -> torch.Tensor:
+    """The idf of a training's last counts (K14's `km_idf` on the card)."""
+    if not _on_cuda(counts):
+        return idf_plain(counts)
+    W = counts.shape[0]
+    kernels.check(counts, "counts", torch.int32, (W,), counts.device)
+    idf = torch.empty(W, dtype=torch.float32, device=counts.device)
+    kernels.launch("kmajority", "km_idf", kernels.ptr(counts), W, kernels.ptr(idf))
+    return idf
+
+
+def assign_flat(desc: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
+    """Nearest centre of every descriptor during training (K9's flat
+    assignment on the card, counted as "kmajority")."""
+    if not _on_cuda(desc):
+        return assign_flat_plain(desc, words)
+    dev, N, W = desc.device, desc.shape[0], words.shape[0]
+    kernels.check(desc, "desc", torch.uint8, (N, 32), dev)
+    kernels.check(words, "words", torch.uint8, (W, 32), dev)
+    out = torch.empty(N, dtype=torch.int32, device=dev)
+    p = kernels.ptr
+    kernels.launch("kmajority", "vocab_assign", p(desc), N, p(words), W, None, 0, None, 0, 0,
+                   p(out))
+    return out
+
+
+def _draw(n: int, k: int, seed: int, device, init_idx) -> torch.Tensor:
+    """k initial rows of n: `init_idx` when given, else the generator's draw
+    (without replacement when n >= k)."""
+    if isinstance(init_idx, torch.Tensor):
+        return init_idx.to(device=device, dtype=torch.int64)
+    if init_idx is not None:
+        return torch.as_tensor(np.asarray(init_idx), dtype=torch.int64).to(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if n >= k:
+        return torch.randperm(n, generator=gen, device=device)[:k]
+    return torch.randint(0, n, (k,), generator=gen, device=device)
+
+
+def _trainer(desc: torch.Tensor, chunk: int = TRAIN_CHUNK):
+    """(k-majority, idf, flat assignment): K14 for a CUDA corpus, else the
+    plain versions walking `chunk` rows at a time."""
+    if not _on_cuda(desc):
+        return (partial(kmajority_plain, chunk=chunk), idf_plain,
+                partial(assign_flat_plain, chunk=chunk))
+    return kmajority, idf_of, assign_flat
+
+
+def train(descriptors: torch.Tensor, n_words: int = 4096, n_iters: int = 10, seed: int = 0,
+          init_idx=None, chunk: int = TRAIN_CHUNK) -> Vocabulary:
+    """A flat W-word vocabulary from packed descriptors [N, 32] u8, on their
+    device (TemplatedVocabulary::create). The plain version walks `chunk`
+    rows at a time; the card makes one pass over the corpus."""
+    desc = descriptors.contiguous()
+    km, idf_fn, _ = _trainer(desc, chunk)
+    idx = _draw(desc.shape[0], n_words, seed, desc.device, init_idx)
+    words, counts = km(desc, desc[idx].contiguous(), n_iters)
+    return Vocabulary(words, idf_fn(counts))
+
+
+def train_chunked(descriptors: torch.Tensor, n_words: int = 32768, n_iters: int = 8,
+                  seed: int = 0, chunk: int = 65536, init_idx=None) -> Vocabulary:
+    """The reference's `train` blocked over N (padding rows weigh 0 there
+    and are absent here): the same fixed point, `train` at this chunk."""
+    return train(descriptors, n_words, n_iters, seed, init_idx, chunk)
+
+
+def level2_init(desc: torch.Tensor, groups: torch.Tensor, grp: np.ndarray, B: int,
+                seed: int) -> torch.Tensor:
+    """[G B, 32] initial words of level 2: per group g, B of its members drawn
+    by `np.random.default_rng(seed + 7)` as the reference draws them (with
+    replacement when it has fewer than B), or its centre B times when it has
+    none."""
+    G = groups.shape[0]
+    rng = np.random.default_rng(seed + 7)
+    order = np.argsort(grp, kind="stable")
+    bounds = np.searchsorted(grp[order], np.arange(G + 1))
+    init = groups.repeat_interleave(B, dim=0).clone()
+    for g in range(G):
+        members = order[bounds[g]:bounds[g + 1]].astype(np.int64)
+        if len(members):
+            pick = rng.choice(members, B, replace=len(members) < B)
+            init[g * B:(g + 1) * B] = desc[torch.from_numpy(pick).to(desc.device)]
+    return init
+
+
+def train_hierarchical(descriptors: torch.Tensor, n_groups: int = 1024,
+                       words_per_group: int = 32, n_iters: int = 8, seed: int = 0,
+                       chunk: int = 16384, init_idx=None) -> Vocabulary:
+    """A 2-level vocabulary (DBoW2's HKmeansStep at branch factors G x B):
+    level 1 trains G group centres over the corpus, level 2 B words inside
+    each group's partition, each descriptor's argmin over its own group
+    block; child block g is words [g B, (g + 1) B). `init_idx` are level 1's
+    initial rows; the one host read is the level-1 grouping."""
+    G, B = n_groups, words_per_group
+    desc = descriptors.contiguous()
+    km, idf_fn, assign_fn = _trainer(desc, chunk)
+    dev = desc.device
+    idx = _draw(desc.shape[0], G, seed, dev, init_idx)
+    gb, _ = km(desc, desc[idx].contiguous(), n_iters)
+    grp = assign_fn(desc, gb)
+    init = level2_init(desc, gb, grp.cpu().numpy(), B, seed)
+    words, counts = km(desc, init, n_iters, group=grp, block=B)
+    child = torch.arange(G * B, dtype=torch.int32, device=dev).reshape(G, B)
+    return Vocabulary(words, idf_fn(counts), gb, child)
+
+
+def build_tree(voc: Vocabulary, n_groups: int = 1024, n_iters: int = 8, seed: int = 0,
+               dup: int = 4, init_idx=None) -> Vocabulary:
+    """A 2-level descent tree over a flat vocabulary: k-majority of the word
+    centres into G groups (initial rows drawn with seed + 101), then each
+    word stored in the buckets of its `dup` nearest groups, rank by rank,
+    capacity max(8, ceil(2 dup W / G)) a bucket (the reference's placement,
+    its numpy argsort included)."""
+    W = voc.n_words
+    G = min(n_groups, W)
+    dup = min(dup, G)
+    words = voc.words.contiguous()
+    km = _trainer(words)[0]
+    idx = _draw(W, G, seed + 101, words.device, init_idx)
+    gb, _ = km(words, words[idx].contiguous(), n_iters)
+    d = torch.cat([D.hamming_matrix(words[s:s + 4096], gb) for s in range(0, W, 4096)])
+    order = np.argsort(d.cpu().numpy(), axis=1)
+    cmax = max(8, int(np.ceil(2 * dup * W / G)))
+    buckets: list = [[] for _ in range(G)]
+    placed = [set() for _ in range(W)]
+    for r in range(dup):
+        for wi in range(W):
+            for gi in order[wi, r:]:
+                if gi in placed[wi]:
+                    continue
+                if len(buckets[gi]) < cmax:
+                    buckets[gi].append(wi)
+                    placed[wi].add(gi)
+                    break
+    child = np.full((G, cmax), -1, np.int32)
+    for gi, b in enumerate(buckets):
+        child[gi, : len(b)] = b
+    return voc._replace(groups=gb, child_idx=torch.from_numpy(child).to(words.device))

@@ -263,15 +263,26 @@ def test_loop_closer_sequence_compaction_and_relocalization(state):
     close(out.Tcw, jmc.kf.Tcw[2], 1e-2)
 
 
-def test_loop_closer_refuses_global_ba_and_the_tracker_takes_it_on_the_cpu():
-    pv = vocab.load_default("cpu")
-    with pytest.raises(NotImplementedError, match="GBA"):
-        lc.LoopCloser(CAM, CFG, pv, run_gba=True)
+def test_loop_closer_with_global_ba_and_the_trackers_take_it_on_the_cpu():
+    """A closer with global BA (and one without) in the stereo tracker, a
+    reset, and a mono tracker with a free-scale closer over a few frames of
+    the room orbit."""
+    from corbslam_tpu_torch import entry
     from corbslam_tpu_torch.frontend.tracking import StereoTracker
+    from corbslam_tpu_torch.io import synthetic
 
-    closer = lc.LoopCloser(CAM, CFG, pv, run_gba=False)
-    tr = StereoTracker(CAM, CFG, loop_closer=closer, device="cpu")
-    assert tr.loop_closer is closer and tr.loop_closer.try_merge_gba(tr.map) is tr.map
-    tr.reset()
-    assert closer.n_loops == 0 and not bool(closer.db.valid.any())
-    assert dataclasses.asdict(tr.stats)["n_relocalizations"] == 0
+    pv = vocab.load_default("cpu")
+    for run_gba in (True, False):
+        closer = lc.LoopCloser(CAM, CFG, pv, run_gba=run_gba)
+        assert (closer.gba_runner is not None) == run_gba
+        tr = StereoTracker(CAM, CFG, loop_closer=closer, device="cpu")
+        assert tr.loop_closer is closer and tr.loop_closer.try_merge_gba(tr.map) is tr.map
+        tr.reset()
+        assert closer.n_loops == 0 and not bool(closer.db.valid.any())
+        assert dataclasses.asdict(tr.stats)["n_relocalizations"] == 0
+    world = synthetic.MultiPlaneWorld.room(CAM, half=14.0, height=3.0, seed=2)
+    mono = StereoTracker(CAM, CFG, loop_closer=lc.LoopCloser(CAM, CFG, pv, fix_scale=False),
+                         device="cpu")
+    for i in range(4):
+        mono.process_mono(world.render(entry.orbit_pose(i)), 0.1 * i)
+    assert len(mono.frame_states) == 4 and mono.loop_closer.gba_runner.runs_started == 0

@@ -27,7 +27,7 @@ from corbslam_tpu.io import synthetic as jsynthetic
 from corbslam_tpu.ops import brief as jbrief
 from corbslam_tpu.ops import fast as jfast
 from corbslam_tpu.ops import pyramid as jpyramid
-from corbslam_tpu_torch import config, entry, interop, kernels
+from corbslam_tpu_torch import config, entry, interop, kernels, system
 from corbslam_tpu_torch.frontend import frame, track_ops
 from corbslam_tpu_torch.geometry import camera
 from corbslam_tpu_torch.io import synthetic
@@ -68,7 +68,8 @@ def test_import_leaves_out_jax_and_the_reference():
                 "mapping.local_mapping", "optim.ba_dense", "optim.smallmat", "io.trajectory",
                 "geometry.sim3", "place.vocab", "place.database", "solvers.sim3_solver",
                 "solvers.pnp", "optim.pose_graph", "loop.loop_closing", "frontend.reloc",
-                "geometry.linalg3", "solvers.initializer", "mapping.triangulation"):
+                "geometry.linalg3", "solvers.initializer", "mapping.triangulation",
+                "loop.gba", "system"):
         assert f"corbslam_tpu_torch.{sub}" in MODULES
 
 
@@ -85,7 +86,8 @@ def _tiny_inputs():
 
 
 @pytest.mark.parametrize("call", ["extract", "stereo", "mono", "rgbd", "entry", "track_entry",
-                                  "tracker_entry", "loop_entry", "sensor_entry"])
+                                  "tracker_entry", "loop_entry", "sensor_entry", "e2e_entry",
+                                  "client"])
 def test_entry_points_default_to_cuda_and_raise_without_it(call):
     assert not torch.cuda.is_available()
     img, cam = _tiny_inputs()
@@ -107,6 +109,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(call):
             entry.loop_entry()
         elif call == "sensor_entry":
             entry.sensor_entry()
+        elif call == "e2e_entry":
+            entry.e2e_entry()
+        elif call == "client":
+            system.CorbslamClient(cam, config.SlamConfig())
         else:
             fwd, imgs = entry.entry()
             fwd(*imgs)
@@ -184,6 +190,32 @@ def test_multi_plane_room_render_within_5e3_of_the_reference():
             assert a.dtype == torch.float32 and tuple(a.shape) == (240, 320)
             np.testing.assert_allclose(a.numpy(), b, rtol=0, atol=5e-3)
     assert ours_w.depth(entry.orbit_pose(3)).min() > 0
+
+
+def test_room_noise_is_seeded_per_frame_and_off_at_zero():
+    """The photometric noise of MultiPlaneWorld: the same (seed, frame) gives
+    the same draw, left and right differ, its std is 3 where no pixel is
+    clipped, and noise_std 0 renders the noise-free pixels (held against
+    the reference above)."""
+    kw = dict(fx=320.0, fy=320.0, cx=160.0, cy=120.0, bf=160.0, width=320, height=240)
+    cam = camera.Intrinsics.create(**kw)
+    clean = synthetic.MultiPlaneWorld.room(cam, half=14.0, height=3.0, seed=2)
+    noisy = synthetic.MultiPlaneWorld.room(cam, half=14.0, height=3.0, noise_std=3.0, seed=2)
+    T = entry.orbit_pose(5, 0.05, 6.0)
+    l0, r0 = clean.render_stereo(T)
+    l1, r1 = noisy.render_stereo(T, frame=5)
+    l2, r2 = noisy.render_stereo(T, frame=5)
+    assert torch.equal(l1, l2) and torch.equal(r1, r2)
+    assert not torch.equal(noisy.render_stereo(T, frame=6)[0], l1)
+    dl, dr = l1 - l0, r1 - r0
+    assert not torch.allclose(dl, dr)
+    mid = (l0 > 20) & (l0 < 235) & (r0 > 20) & (r0 < 235)
+    for d in (dl, dr):
+        assert abs(float(d[mid].std()) - 3.0) < 0.1 and abs(float(d[mid].mean())) < 0.1
+    assert float(l1.min()) >= 0.0 and float(l1.max()) <= 255.0
+    assert torch.equal(noisy.render(T, frame=5), l1)
+    assert torch.equal(clean.render_stereo(T, frame=9)[0], l0)
+    assert torch.equal(clean.render(T, frame=9), l0)
 
 
 def test_bench_trajectory_equals_the_reference():
@@ -276,7 +308,7 @@ def test_chip_smoke_fails_without_cuda():
                                      "window_mask", "compact", "vocab_assign", "l1_scores",
                                      "sim3_ransac", "sim3_refine", "pnp_ransac", "pose_graph",
                                      "covis_matrix", "rgbd_stereo", "two_view", "band_search",
-                                     "triangulate"])
+                                     "triangulate", "kmajority", "km_idf", "assign_flat"])
 def test_wrappers_refuse_devices_other_than_cpu_and_cuda(wrapper):
     """A wrapper takes its plain version only for a CPU tensor; a tensor on
     another device is refused, never silently moved."""
@@ -353,6 +385,14 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda(wrapper):
         elif wrapper == "triangulate":
             triangulation.points(None, None, None, None,
                                  torch.empty(2, 8, dtype=torch.int32, device="meta"), None)
+        elif wrapper in ("kmajority", "assign_flat"):
+            d = torch.empty(8, 32, dtype=torch.uint8, device="meta")
+            if wrapper == "kmajority":
+                vocab.kmajority(d, d[:4], 1)
+            else:
+                vocab.assign_flat(d, d[:4])
+        elif wrapper == "km_idf":
+            vocab.idf_of(torch.empty(8, dtype=torch.int32, device="meta"))
         else:
             f = orb.Features(*(torch.empty(64, 2, device="meta") for _ in range(7)))
             stereo.stereo_match(f, f, prm.scales, 1.0)

@@ -289,12 +289,13 @@ def test_tracker_defaults_to_cuda_and_keeps_its_slice():
     with pytest.raises(ValueError, match="loop closer on"):
         StereoTracker(CAM, small_cfg(config), loop_closer=SimpleNamespace(
             device=torch.device("meta")), device="cpu")
-    # Mono with a loop closer waits for free-scale Sim3 and global BA.
+    # Mono takes a loop closer (free-scale Sim3 and global BA): a featureless
+    # frame leaves it waiting for initialization.
     lc_tr = StereoTracker(CAM, small_cfg(config), device="cpu",
                           loop_closer=SimpleNamespace(device=torch.device("cpu")))
     img = np.zeros((240, 320), np.float32)
-    with pytest.raises(NotImplementedError, match="global BA"):
-        lc_tr.process_mono(img, 0.0)
+    lc_tr.process_mono(img, 0.0)
+    assert lc_tr.sensor == "mono" and lc_tr.frame_states == [TrackState.NOT_INITIALIZED]
     # Both other sensors run on the CPU port: a featureless frame leaves the
     # tracker waiting for initialization, as in the reference.
     for sensor in ("mono", "rgbd"):

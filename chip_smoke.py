@@ -26,7 +26,8 @@
    2048-observation pose LM, the local map over 131072 points, also with a
    1024-row window so that the compaction truncates), and times
    the kernel's wrapper, the plain version and, where one PyTorch call
-   computes the same function, that call. The times are device times
+   computes the same function, that call; K7's launches also one by one
+   (each C entry of one wrapper call replayed alone). The times are device times
    (torch.profiler: the summed time of every kernel and copy a call runs on
    the card; where that reads under 0.05 ms, whose profiler sums disagree
    from run to run, or where two profiler sessions record nothing, the
@@ -46,8 +47,10 @@
    the detections, attempts, sim3 log, relocalizations, the keyframe ATE
    after the closure and each loop stage's and the closure's time. Then the
    flagship schedule again with a loop closer attached (the 256 MB
-   [2048, 32768] database on the card): keyframes, points and ATE must
-   equal the run without it;
+   [2048, 32768] database on the card): keyframes and points must equal the
+   run without it, and the ATE (within 1e-4 m) that of a run whose
+   keyframes queue an idle stage in place of the loop-closing stage, which
+   shifts the later mapping stages by frames;
 8. drives the tracker's other two sensors at the flagship's width
    (`entry.sensor_entry`: the same camera, KITTI_STEREO and
    world, one frame per call through `process_mono` / `process_rgbd`), all
@@ -90,8 +93,12 @@
    closure's, frame p50 / p90 and the launches; then holds K14 against its
    plain version on the stereo run's training (its centres are the run's
    vocabulary; and with row weights), K8 against optimize_plain on that
-   run's first GBA chunk (one LM iteration and the 2-iteration chunk), and
-   K14 at the full width: a ~400k-descriptor
+   run's first GBA chunk (one LM iteration and the 2-iteration chunk), K8
+   at bench.py's bench_gba shape (its 1536-keyframe, 196608-point map made
+   from seed 0 in the port's MapState, through build_global_problem_dense:
+   C 1536, Fb 512; one LM iteration, its points held to the plain
+   version's own one-ulp spread, and a 2-iteration chunk run twice
+   bit-equal), and K14 at the full width: a ~400k-descriptor
    corpus of the port's front end over both images of 120 frames of the
    flagship world trained 2-level at G 1024 x B 32 (level-1 centres,
    grouping, words, child table and idf exact) and `build_tree` over the
@@ -124,6 +131,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from corbslam_tpu_torch import kernels  # noqa: E402
+from corbslam_tpu_torch.config import CapacityConfig  # noqa: E402
 from corbslam_tpu_torch.entry import (  # noqa: E402
     BENCH_FRAMES, BENCH_WARM, BENCH_WINDOW, CAM, CFG, E2E_RADIUS, E2E_TRAIN_ITERS, E2E_WORDS,
     LOOP_FRAMES, MONO_FRAMES, RGBD_FRAMES, TrackState, add_keyframe, bench_config, center_error,
@@ -135,7 +143,8 @@ from corbslam_tpu_torch.frontend.tracking import StereoTracker  # noqa: E402
 from corbslam_tpu_torch.frontend.tracking import TrackState as TrackerState  # noqa: E402
 from corbslam_tpu_torch.geometry import camera, se3, sim3  # noqa: E402
 from corbslam_tpu_torch.io import trajectory  # noqa: E402
-from corbslam_tpu_torch.loop import loop_closing  # noqa: E402
+from corbslam_tpu_torch.kernel_times import recorded_launches  # noqa: E402
+from corbslam_tpu_torch.loop import gba, loop_closing  # noqa: E402
 from corbslam_tpu_torch.mapping import local_mapping, triangulation  # noqa: E402
 from corbslam_tpu_torch.mapstate import covisibility as covis  # noqa: E402
 from corbslam_tpu_torch.mapstate import mapstate as ms  # noqa: E402
@@ -177,6 +186,7 @@ REPLACES = {
     "kmajority_l2": "corbslam_tpu/place/vocab.py:229",
     "kmajority_tree": "corbslam_tpu/place/vocab.py:349",
     "ba_dense_gba": "corbslam_tpu/optim/ba_dense.py:434",
+    "ba_dense_bench_gba": "corbslam_tpu/optim/ba_dense.py:434",
 }
 SOURCES = {k: f"corbslam_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 SOURCES["covisibility"] = "corbslam_tpu_torch/csrc/local_map.cu"  # K7's mapping-stage launches
@@ -188,6 +198,7 @@ SOURCES["match_band"] = "corbslam_tpu_torch/csrc/match_masked.cu"  # K5's epipol
 for _k in ("kmajority_l1", "kmajority_l2", "kmajority_tree"):  # K14 at the full-width shapes
     SOURCES[_k] = "corbslam_tpu_torch/csrc/kmajority.cu"
 SOURCES["ba_dense_gba"] = "corbslam_tpu_torch/csrc/ba_dense.cu"  # K8 at global BA's size
+SOURCES["ba_dense_bench_gba"] = "corbslam_tpu_torch/csrc/ba_dense.cu"  # K8 at bench_gba's size
 FRONT_END_KERNELS = ("pyramid", "fast_cells", "orb_describe", "stereo_match")
 TRACKING_KERNELS = FRONT_END_KERNELS + ("match_masked", "pose_opt", "local_map")
 REPORT = os.path.join(ROOT, "chiprun_out", "chip_smoke_report.json")
@@ -863,6 +874,7 @@ def check_tracking_kernels(te, st: TrackState, img_l, img_r, timed: bool = True)
         match_bytes_ops=[c[:2] for c in cost], local_map_bytes=k7_bytes, local_map_ops=k7_ops,
         tracked=n_tracked, candidate_rows_read=len(cand_read), observed_untracked=n_tests,
         geometry_rows_read=int(geo.sum()))
+    info["launch_ms"] = launch_times(lambda: track_ops.local_map_window(*args))
     key_mask = win.pmask
     row_ids = torch.arange(M, device=dev)
 
@@ -1087,6 +1099,15 @@ def same_ba(cam, pb, n_iters, huber_iters, name, one_step=False, cg_iters=16) ->
     return k, e
 
 
+def same_twice(a, b, name: str) -> None:
+    """Two K8 runs on one input: the same poses, points, inliers and cost,
+    bit for bit (its sums run in a fixed order)."""
+    torch.cuda.synchronize()
+    for f in ("Tcw", "X", "inlier", "cost", "trace"):
+        require(torch.equal(getattr(a, f), getattr(b, f)),
+                f"ba_dense ({name}): two runs on one input differ in {f}")
+
+
 def same_point_major(obs_mp, active, P, K, name) -> dict:
     k = ba_dense.build_point_major(obs_mp, active, P, K)
     p = ba_dense.build_point_major_plain(obs_mp, active, P, K)
@@ -1148,11 +1169,33 @@ def k8_bound(pb, trace) -> tuple:
     return bound_ms(k8_bytes, k8_ops)
 
 
+def compaction_edges(dev) -> dict:
+    """K7's compaction against its plain version where its 4096-row tiles
+    and 16-byte loads meet an edge: a ragged top tile, no True row, exactly
+    k True rows, every row True, fewer rows than one load, and a mask that
+    starts off a 16-byte boundary. {case: True rows}."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = {}
+    for name, n, n_true, k in (("ragged", 4096 * 3 + 77, 900, 512), ("all_false", 5000, 0, 64),
+                               ("exactly_k", 6000, 64, 64), ("all_true", 4096, 4096, 100),
+                               ("tiny", 10, 3, 4), ("unaligned", 9001, 700, 1000)):
+        mask = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+        mask[1 + torch.randperm(n, generator=gen, device=dev)[:n_true]] = True
+        mask = mask[1:] if name == "unaligned" else mask[1:].clone()
+        a, b = covis.compact_indices(mask, k), covis.compact_indices_plain(mask, k)
+        require(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+                f"compact_indices ({name}: {n} rows, {n_true} True, k {k}): kernel and plain "
+                "differ")
+        out[name] = int(mask.sum())
+    return out
+
+
 def check_mapping_kernels(tp: dict, timed: bool = True) -> tuple:
     """K8 on the run's first full-width local-BA problem at the schedule's
     two calls (and one LM iteration), its table, a small overflowing problem;
     K7's top_covisible_of (k 8 / 16 / 32, self weight 0 and 2**30), window
-    mask and compaction on the run's final map. Rows for the kernels' line."""
+    mask and compaction on the run's final map, and the compaction at its
+    edges (`compaction_edges`). Rows for the kernels' line."""
     tracker, kept = tp["tracker"], tp["kept"]
     cam, cfg = tracker.cam, tracker.cfg
     pb = kept["prob"]
@@ -1165,6 +1208,7 @@ def check_mapping_kernels(tp: dict, timed: bool = True) -> tuple:
     _, info["one_iteration"] = same_ba(cam, pb, 1, 3, "one LM iteration", one_step=True)
     n1 = max(cfg.mapping.local_ba_iters - 2, 1)
     ka, info["call_a"] = same_ba(cam, pb, n1, 3, "schedule call a")
+    same_twice(ka, ba_dense.optimize(cam, pb, n1, 16, 3), "schedule call a")
     pb2 = pb._replace(Tcw=ka.Tcw, X=ka.X, obs_active=pb.obs_active & ka.inlier)
     _, info["call_b"] = same_ba(cam, pb2, 2, 0, "schedule call b")
     small, raw = overflow_problem(pb.X.device)
@@ -1193,6 +1237,7 @@ def check_mapping_kernels(tp: dict, timed: bool = True) -> tuple:
         a, b = covis.compact_indices(pmask, k), covis.compact_indices_plain(pmask, k)
         require(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
                 f"compact_indices (k={k}): kernel and plain differ")
+    info["compaction_edges"] = compaction_edges(pmask.device)
     info["top_covisible"] = dict(q=q, window_points=int(pmask.sum()), **tops)
     if not timed:
         return [], info
@@ -1228,6 +1273,7 @@ def check_mapping_kernels(tp: dict, timed: bool = True) -> tuple:
         r, o = covis.top_covisible_plain(m, q, W, self_weight=covis.SELF_WEIGHT_PINNED)
         covis.compact_indices_plain(covis.local_map_mask_plain(m, r, o), 4 * F)
 
+    info["launch_ms"] = launch_times(covis_kernel)
     rows = [
         dict(name="covisibility", max_abs_err=0.0, bound=bound_ms(k7_bytes, k7_ops),
              fns=(covis_kernel, covis_plain,
@@ -1235,7 +1281,8 @@ def check_mapping_kernels(tp: dict, timed: bool = True) -> tuple:
         dict(name="ba_dense", max_abs_err=info["call_a"]["t_max_abs"],
              bound=k8_bound(pb, info["call_a"]["trace_kernel"]),
              fns=(lambda: ba_dense.optimize(cam, pb, n1, 16, 3),
-                  lambda: ba_dense.optimize_plain(cam, pb, n1, 16, 3), None, 1)),
+                  lambda: ba_dense.optimize_plain(cam, pb, n1, 16, 3), None, 1),
+             kernel_reps=5, events=True),
     ]
     return rows, info
 
@@ -1416,10 +1463,30 @@ def run_loop_phase() -> dict:
     return out
 
 
+def idle_stage_ate(imgs) -> float:
+    """The flagship schedule with every keyframe queueing one more mapping
+    stage that does nothing, where a loop closer queues its loop-closing
+    stage: the aligned ATE."""
+    tracker, _ = tracker_entry("cuda")
+    enqueue = tracker._enqueue_mapping_stages
+
+    def with_idle_stage(kf_row):
+        enqueue(kf_row)
+        tracker._stage_q.append(("idle", lambda: None))
+
+    tracker._enqueue_mapping_stages = with_idle_stage
+    run_bench_schedule(tracker, imgs)
+    return aligned_ate(tracker.trajectory)
+
+
 def run_flagship_with_loop_closer(kp: dict) -> dict:
     """The flagship schedule again with a LoopCloser (vocab32k, global BA off)
     on KITTI_STEREO at full capacity: its 9 keyframes never reach detection,
-    so keyframes, points and ATE equal the run without it."""
+    so keyframes and points equal the run without it. Each keyframe's
+    loop-closing stage takes a place in the stage queue (one stage a frame,
+    more while more than 4 wait), so the later mapping stages run frames
+    earlier and the trajectory moves: the ATE is held to a run whose
+    keyframes queue a stage that does nothing in its place."""
     tracker, _ = tracker_entry("cuda", loop_closer=True)
     times = {}
 
@@ -1446,8 +1513,10 @@ def run_flagship_with_loop_closer(kp: dict) -> dict:
     require(out["keyframes"] == kp["keyframes"] and out["valid_points"] == kp["valid_points"],
             f"flagship + loop closer: {out['keyframes']} keyframes / {out['valid_points']} "
             f"points, without it {kp['keyframes']} / {kp['valid_points']}")
-    require(abs(out["ate_m"] - kp["ate_m"]) <= 1e-4,
-            f"flagship + loop closer: ATE {out['ate_m']} vs {kp['ate_m']} without it")
+    out["idle_stage_ate_m"] = idle_stage_ate(kp["imgs"])
+    require(abs(out["ate_m"] - out["idle_stage_ate_m"]) <= 1e-4,
+            f"flagship + loop closer: ATE {out['ate_m']} vs {out['idle_stage_ate_m']} with an idle "
+            f"stage in its place ({kp['ate_m']} without either)")
     require(launches["vocab"] > 0 and all(s == "OK" for s in (x.name for x in tracker.frame_states)),
             "flagship + loop closer: no BoW launch or a frame not OK")
     return out
@@ -2317,6 +2386,122 @@ def check_e2e_kernels(ep: dict) -> tuple:
     return rows, info
 
 
+# bench.py's bench_gba map (bench.py:32-94): 1536 keyframes along a 60 m arc,
+# 196608 points, 512 observations a keyframe, capacities 2048 / 262144.
+BENCH_GBA_KF, BENCH_GBA_MP, BENCH_GBA_OBS = 1536, 196608, 512
+
+
+def bench_gba_map(cam, cfg, dev) -> ms.MapState:
+    """bench_gba's synthetic map, made from seed 0 with numpy in its order
+    (poses advancing along z, a band of points, each keyframe observing a
+    sliding window of 512 of them with 0.5 px noise), in the port's MapState
+    on `dev`."""
+    cap = CapacityConfig(max_keyframes=2048, max_map_points=262144,
+                         max_features=cfg.capacity.max_features,
+                         local_window_kfs=cfg.capacity.local_window_kfs,
+                         local_window_mps=cfg.capacity.local_window_mps)
+    rng = np.random.default_rng(0)
+    N_used, P_used, obs_per_kf = BENCH_GBA_KF, BENCH_GBA_MP, BENCH_GBA_OBS
+    t = np.linspace(0, 60.0, N_used)
+    Tcw = np.tile(np.eye(4, dtype=np.float32), (cap.max_keyframes, 1, 1))
+    Tcw[:N_used, 2, 3] = -t
+    X = np.zeros((cap.max_map_points, 3), np.float32)
+    X[:P_used, 0] = rng.uniform(-8, 8, P_used)
+    X[:P_used, 1] = rng.uniform(-2, 2, P_used)
+    X[:P_used, 2] = rng.uniform(2, 80, P_used) + np.repeat(
+        np.linspace(0, 60.0, P_used // 64 + 1), 64)[:P_used]
+    F = cap.max_features
+    mp_idx = np.full((cap.max_keyframes, F), -1, np.int32)
+    fv = np.zeros((cap.max_keyframes, F), bool)
+    xy = np.zeros((cap.max_keyframes, F, 2), np.float32)
+    ur = np.full((cap.max_keyframes, F), -1.0, np.float32)
+    stride = max(1, (P_used - obs_per_kf) // max(N_used - 1, 1))
+    for k in range(N_used):
+        pts = (k * stride + np.arange(obs_per_kf)) % P_used
+        Xc = X[pts] - np.array([0, 0, -t[k]], np.float32)
+        z = np.maximum(Xc[:, 2], 0.5)
+        u = cam.fx * Xc[:, 0] / z + cam.cx + rng.normal(0, 0.5, obs_per_kf)
+        v = cam.fy * Xc[:, 1] / z + cam.cy + rng.normal(0, 0.5, obs_per_kf)
+        mp_idx[k, :obs_per_kf] = pts
+        fv[k, :obs_per_kf] = True
+        xy[k, :obs_per_kf, 0] = u
+        xy[k, :obs_per_kf, 1] = v
+        ur[k, :obs_per_kf] = u - cam.bf / z
+    m = ms.empty(cap, dev)
+    on = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    kf = m.kf._replace(Tcw=on(Tcw), valid=on(np.arange(cap.max_keyframes) < N_used), xy=on(xy),
+                       uright=on(ur), fvalid=on(fv), mp_idx=on(mp_idx))
+    mp = m.mp._replace(pos=on(X), valid=on(np.arange(cap.max_map_points) < P_used))
+    return m._replace(kf=kf, mp=mp, n_kf=torch.tensor(N_used, dtype=torch.int32, device=dev),
+                      n_mp=torch.tensor(P_used, dtype=torch.int32, device=dev))
+
+
+def same_step_as_rounding(cam, pb, cg_iters: int) -> dict:
+    """One LM iteration of K8 against the plain version where the step is
+    metres long: the one-step pose tolerances (1e-4 m / rad), the cost
+    (1e-3 relative), no inlier flip off the gate; the points are held to the
+    plain version's own spread under one f32 rounding of its input (the
+    plain version again on X moved one ulp up): at the 50th / 90th / 99th
+    percentile the kernel's point differences at most twice that spread."""
+    name = "bench_gba one LM iteration"
+    k = ba_dense.optimize(cam, pb, 1, cg_iters, 1)
+    p = ba_dense.optimize_plain(cam, pb, 1, cg_iters, 1)
+    nudged = pb._replace(X=torch.nextafter(pb.X, torch.full_like(pb.X, float("inf"))))
+    p_ulp = ba_dense.optimize_plain(cam, nudged, 1, cg_iters, 1)
+    torch.cuda.synchronize()
+    e = ba_errors(k, p, cam, pb)
+    c = ba_errors(p_ulp, p, cam, pb)
+    pct = torch.tensor([0.5, 0.9, 0.99], dtype=torch.float64, device=pb.X.device)
+
+    def spread(a):
+        return torch.quantile((a.X - p.X).abs().max(dim=1).values.double(), pct).tolist()
+
+    e.update(points_q=spread(k), plain_ulp_points_q=spread(p_ulp),
+             plain_ulp=dict(t_max_abs=c["t_max_abs"], rot=c["rot"], x_frac_1mm=c["x_frac_1mm"],
+                            cost_rel=c["cost_rel"]),
+             step_q=torch.quantile((p.X - pb.X).abs().max(dim=1).values.double(), pct).tolist())
+    require(e["cost_rel"] <= 1e-3 and e["flips_off_gate"] == 0 and e["t_max_abs"] <= 1e-4
+            and e["rot"] <= 1e-4, f"ba_dense ({name}): {e}")
+    require(all(a <= 2 * b for a, b in zip(e["points_q"], e["plain_ulp_points_q"])),
+            f"ba_dense ({name}): point differences {e['points_q']} m (50/90/99 %) beyond twice "
+            f"the plain version's own one-ulp spread {e['plain_ulp_points_q']} m")
+    return e
+
+
+def check_bench_gba() -> tuple:
+    """K8 at bench_gba's shape, past the 256 cameras the one-CTA kernel held:
+    its map through the port's `build_global_problem_dense(n_kf_hint=1536,
+    n_mp_hint=196608)` (C 1536, Fb 512, P 196608), one LM iteration
+    (`same_step_as_rounding`: the map's observations were made at depths
+    that disagree with its poses, so the first step moves points 18-43 m)
+    and a 2-iteration chunk (GlobalBARunner's: Huber on, gba_cg_iters)
+    against optimize_plain, the chunk twice bit for bit. Its row's launches
+    are one chunk's (no path runs this size)."""
+    cam, cfg = CAM, bench_config()
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    m = bench_gba_map(cam, cfg, dev)
+    pb = gba.build_global_problem_dense(m, cfg, n_kf_hint=BENCH_GBA_KF, n_mp_hint=BENCH_GBA_MP)
+    torch.cuda.synchronize()
+    C, Fb = pb.obs_mp.shape
+    P, K = pb.pm_src.shape
+    info = dict(C=C, Fb=Fb, P=P, K=K, active=int(pb.obs_active.sum()),
+                build_s=time.perf_counter() - t0)
+    require((C, Fb, P) == (BENCH_GBA_KF, BENCH_GBA_OBS, BENCH_GBA_MP),
+            f"bench_gba problem: C {C}, Fb {Fb}, P {P}")
+    cg = cfg.loop.gba_cg_iters
+    info["one_iteration"] = same_step_as_rounding(cam, pb, cg)
+    k, info["chunk"] = same_ba(cam, pb, 2, 2, "bench_gba chunk", cg_iters=cg)
+    same_twice(k, ba_dense.optimize(cam, pb, 2, cg, 2), "bench_gba chunk")
+    chunk = lambda: ba_dense.optimize(cam, pb, 2, cg, 2, counter="ba_dense_gba")  # noqa: E731
+    rows = [dict(name="ba_dense_bench_gba", max_abs_err=info["chunk"]["t_max_abs"],
+                 bound=k8_bound(pb, info["chunk"]["trace_kernel"]),
+                 launches=launches_of(chunk, "ba_dense_gba"),
+                 fns=(chunk, lambda: ba_dense.optimize_plain(cam, pb, 2, cg, 2), None, 1),
+                 kernel_reps=5, events=True)]
+    return rows, info
+
+
 FULL_CORPUS_FRAMES = 120  # the bench trajectory leaves the plane's texture near frame 110
 
 
@@ -2440,6 +2625,12 @@ def graph_ms(fn, reps: int = 100) -> float:
     torch.cuda.synchronize()
     del g
     return start.elapsed_time(end) / reps
+
+
+def launch_times(call) -> dict:
+    """Each kernel launch of one `call()` on its own (`recorded_launches`),
+    `graph_ms` of up to 100 repeats: {C entry: ms}."""
+    return {name: graph_ms(fn) for name, fn in recorded_launches(call).items()}
 
 
 def timed_ms(fn, reps: int, call_ms: float) -> tuple:
@@ -2568,7 +2759,8 @@ def main() -> int:
     print("loop stage ms: " + json.dumps([round(v, 3) for v in lp["loop_stage_ms"]]), flush=True)
     phase("loop")
     fl = run_flagship_with_loop_closer(kp)
-    print(f"flagship with the loop closer: ATE {fl['ate_m']:.4f} m (without {kp['ate_m']:.4f}), "
+    print(f"flagship with the loop closer: ATE {fl['ate_m']:.6f} m (with an idle stage in its "
+          f"place {fl['idle_stage_ate_m']:.6f}, without either {kp['ate_m']:.6f}), "
           f"keyframes {fl['keyframes']}, points {fl['valid_points']}, database rows "
           f"{fl['db_rows']} of a {fl['db_mb']:.0f} MB [2048, 32768] matrix; frame p50 "
           f"{fl['frame_ms_p50']:.3f} ms p90 {fl['frame_ms_p90']:.3f} ms (without: "
@@ -2656,11 +2848,15 @@ def main() -> int:
           flush=True)
     brows, binfo = check_full_width_training(te)
     print(f"full-width training checks: {json.dumps(binfo)}", flush=True)
+    grows, ginfo = check_bench_gba()
+    print(f"K8 at bench_gba's shape: {json.dumps(ginfo)}", flush=True)
+    brows += grows
     time_rows(erows + brows)
     phase("kernels_k14_gba")
     # Launches: each row's count from the main path that runs it (the front
     # end, the tracking step, the tracker's mapping stages, the e2e stereo
-    # lap); K14's full-width rows, on no path, one call's count.
+    # lap); K14's full-width rows and K8 at bench_gba's shape, on no path,
+    # one call's count.
     launches = dict(mp["launches"], **{k: tp["launches"][k] for k in
                                        ("match_masked", "pose_opt", "local_map")},
                     **{k: kp["launches"][k] for k in ("covisibility", "ba_dense")},
@@ -2692,6 +2888,9 @@ def main() -> int:
     print(f"stereo median case: {kinfo['stereo_median']}", flush=True)
     print(f"tracking kernel checks (frame {CHECK_FRAME}): {tinfo}", flush=True)
     print(f"mapping kernel checks: {minfo}", flush=True)
+    for name, k7 in (("local_map (tracked frame)", tinfo), ("covisibility (mapping)", minfo)):
+        print(f"K7 {name} launch by launch, graph ms: {json.dumps(k7['launch_ms'])} (sum "
+              f"{sum(k7['launch_ms'].values()):.5f})", flush=True)
     print(f"mapping stage times (ms, final map): {json.dumps(stage_times)}", flush=True)
     print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}",
           flush=True)
@@ -2724,7 +2923,7 @@ def main() -> int:
                        tracker_vs_cpu=tracker_cmp, stage_times=stage_times, phase_s=phase_s,
                        loop=lp, flagship_loop_closer=fl, loop_checks=linfo, full_width=finfo,
                        mono=mono, rgbd=rgbd, sensor_checks=sinfo, e2e=e2e, e2e_checks=einfo,
-                       full_width_training=binfo,
+                       full_width_training=binfo, bench_gba=ginfo,
                        texture_s=texture_s), fh, indent=1)
     print(json.dumps(kernels_line))
     print(smi)

@@ -54,7 +54,7 @@ from .frame import FrameData
 NO_MP = ms.NO_MP
 N_CANDIDATES = 128  # candidate keyframes scored for the local window
 MAX_CANDIDATES = 1024  # local_select ranks one candidate per thread of one block
-MAX_KEYFRAMES = 12288  # local_candidates holds the anchor counts in 48 KB of shared memory
+MAX_KEYFRAMES = 12288  # local_scatter_current counts the anchors in 48 KB of shared memory
 
 
 @lru_cache(maxsize=16)
@@ -288,12 +288,13 @@ def _local_points_cuda(cam, m, local_rows, local_ok, cur_mask, T_init, cfg: Slam
     def out(*shape, dtype):
         return torch.empty(shape, dtype=dtype, device=dev)
 
-    obs_mask, pmask = out(M, dtype=torch.bool), out(M, dtype=torch.bool)
+    pmask = out(M, dtype=torch.bool)
     kernels.launch("local_map", "local_points", p(local_rows), p(local_ok), K1, p(m.kf.mp_idx),
                    p(m.kf.fvalid), F, p(m.mp.valid), p(cur_mask), p(m.mp.pos), p(m.mp.min_dist),
-                   p(m.mp.max_dist), p(m.mp.normal), p(T_init), M, *camf, p(obs_mask), p(pmask))
+                   p(m.mp.max_dist), p(m.mp.normal), p(T_init), M, *camf, p(pmask))
     rows, rows_ok = out(L, dtype=torch.int32), out(L, dtype=torch.bool)
-    kernels.launch("local_map", "local_compact", p(pmask), M, L, p(rows), p(rows_ok))
+    work = covis.compact_work(M, dev)
+    kernels.launch("local_map", "local_compact", p(pmask), M, L, p(rows), p(rows_ok), p(work))
     uv, visible, pred = out(L, 2, dtype=torch.float32), out(L, dtype=torch.bool), out(
         L, dtype=torch.int32)
     kernels.launch("local_map", "local_frustum", p(rows), p(rows_ok), L, p(m.mp.pos),

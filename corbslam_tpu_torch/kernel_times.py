@@ -1,0 +1,187 @@
+"""K7's launches one by one and K8's calls, timed on the card.
+
+    python -m corbslam_tpu_torch.kernel_times [--out PATH]
+
+Run from the root of a checkout (it drives the phases of `chip_smoke.py`
+there for its inputs): the tracking path (frame 12's local-map window, as
+chip_smoke's phase 6 replays it), the flagship tracker (its final map's
+mapping-stage window and its first local-BA problem) and the e2e stereo
+lap (its first GBA chunk's problem); it keeps the tracker's and the 2.5-lap
+orbit's frame times (asynchronous global BA beside the tracker). Then:
+
+- each of K7's C entry points on its own, on the buffers of one wrapper
+  call (`recorded_launches`), as a CUDA graph of up to 100 launches
+  replayed between CUDA events (`chip_smoke.graph_ms`),
+  with the whole wrapper calls (`local_map_window`; `top_covisible_of` +
+  `local_map_mask` + `compact_indices`) and `torch.topk` of the compaction
+  key beside them;
+- K8 (`ba_dense.optimize`) with CUDA events around back-to-back calls: call
+  a of the first local BA and a 2-iteration chunk of the first GBA problem,
+  and `build_point_major` of each as a replayed graph.
+
+Prints one JSON object (with the card's `nvidia-smi` name and power limit)
+and writes it to `--out`. `recorded_launches` is also how `chip_smoke.py`
+times K7 launch by launch. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import torch
+
+from . import kernels
+from .frontend import frame as frame_mod
+from .frontend import track_ops
+from .geometry import se3
+from .mapstate import covisibility as covis
+from .matching import matcher
+from .optim import ba_dense, pose_opt
+
+
+def recorded_launches(call) -> dict:
+    """Every kernel launch of one `call()` (through `kernels.launch`), each
+    as a closure that repeats that launch alone: {entry name: closure}. The
+    tensors whose pointers the call passed stay referenced by the closures,
+    so a repeat reads and writes the buffers of the recorded call."""
+    launch, ptr = kernels.launch, kernels.ptr
+    rec, keep = [], []
+
+    def record(counter, fn, *args):
+        rec.append((counter, fn, args))
+        launch(counter, fn, *args)
+
+    def hold(t):
+        keep.append(t)
+        return ptr(t)
+
+    kernels.launch, kernels.ptr = record, hold
+    try:
+        call()
+    finally:
+        kernels.launch, kernels.ptr = launch, ptr
+    out = {}
+    for counter, fn, args in rec:
+        name = fn if fn not in out else f"{fn}_{len(out)}"
+        out[name] = lambda counter=counter, fn=fn, args=args, keep=keep: launch(counter, fn, *args)
+    return out
+
+
+def window_args(te, st, img_l, img_r) -> tuple:
+    """The arguments of frame `img_l, img_r`'s `local_map_window` call from
+    tracking state `st`, as `_track_core` makes them (motion-model matches
+    and their pose; the card's kernels)."""
+    cam, cfg, _ = te
+    m, prev = st.m, st.prev
+    cur = frame_mod.build_frame_stereo(img_l, img_r, cam, cfg.orb, device=m.mp.pos.device)
+    T_pred = se3.compose(st.velocity, prev.Tcw)
+    ff = matcher.match_select(**track_ops.motion_model_query(cam, m, prev, cur, T_pred, cfg))
+    match_mp = track_ops.lookup(ff.idx, prev.mp_idx)
+    po = pose_opt.optimize_pose(cam, T_pred, *track_ops.pose_inputs(cur, m.mp.pos, match_mp))
+    mp0 = torch.where(po.inliers, match_mp, torch.full_like(match_mp, -1))
+    return cam, m, mp0, st.local_rows, st.local_ok, st.ref_kf, po.Tcw, cfg
+
+
+def events_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean time of one fn() call, CUDA events around `reps` back-to-back
+    calls after `warmup` (calls of milliseconds: launch gaps negligible)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def time_k7(launches: dict, whole, library, graph_ms) -> dict:
+    out = {name: graph_ms(fn) for name, fn in launches.items()}
+    out["sum_of_launches"] = sum(out.values())
+    out["wrapper_call"] = graph_ms(whole)
+    out["torch_topk"] = graph_ms(library)
+    return out
+
+
+def time_k8(cam, pb, n_iters: int, cg: int, huber: int, graph_ms, counter="ba_dense",
+            reps: int = 5) -> dict:
+    C, Fb = pb.obs_mp.shape
+    P, K = pb.pm_src.shape
+    res = ba_dense.optimize(cam, pb, n_iters, cg, huber, counter=counter)
+    return dict(C=C, Fb=Fb, P=P, K=K, n_iters=n_iters, cg_iters=cg, huber_iters=huber,
+                active=int(pb.obs_active.sum()), trace=res.trace.tolist(),
+                optimize_events_ms=events_ms(
+                    lambda: ba_dense.optimize(cam, pb, n_iters, cg, huber, counter=counter), reps),
+                point_major_graph_ms=graph_ms(
+                    lambda: ba_dense.build_point_major(pb.obs_mp, pb.obs_active, P, K, counter)))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=os.path.join("chiprun_out", "kernel_times.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: needs a CUDA device")
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as cs  # the phases of the checkout's chip_smoke.py
+
+    out = dict(nvidia_smi=cs.nvidia_smi_line(), device=torch.cuda.get_device_name(0))
+    kernels.lib()
+    dev = torch.device("cuda")
+    te = cs.track_entry("cuda")
+    tp = cs.run_tracking_path(te, dev)
+    wargs = window_args(te, tp["check_state"], *tp["imgs"][cs.CHECK_FRAME])
+    m, L = wargs[1], wargs[-1].capacity.local_window_mps
+    M = m.mp.capacity
+    win = track_ops.local_map_window(*wargs)
+    key = win.pmask.to(torch.int64) * (M + 1) + torch.arange(M, device=dev)
+    window = lambda: track_ops.local_map_window(*wargs)  # noqa: E731
+    out["k7_window"] = time_k7(recorded_launches(window), window, lambda: torch.topk(key, L),
+                               cs.graph_ms)
+    out["k7_window"]["n_pmask"] = int(win.pmask.sum())
+
+    kp = cs.run_tracker_phase()
+    out["tracker"] = {k: kp[k] for k in ("frame_ms_p50", "frame_ms_p90", "frame_ms_max",
+                                         "keyframes", "valid_points", "ate_m")}
+    tracker = kp["tracker"]
+    mt, cfg = tracker.map, tracker.cfg
+    q = cs.newest_keyframe(mt)
+    W, Lm = cfg.mapping.local_ba_window, 4 * mt.kf.n_features
+    r, o = covis.top_covisible_of(mt, q, W, self_weight=covis.SELF_WEIGHT_PINNED)
+    pm = covis.local_map_mask(mt, r, o)
+    keym = pm.to(torch.int64) * (M + 1) + torch.arange(M, device=dev)
+
+    def mapping_call():
+        rr, oo = covis.top_covisible_of(mt, q, W, self_weight=covis.SELF_WEIGHT_PINNED)
+        covis.compact_indices(covis.local_map_mask(mt, rr, oo), Lm)
+
+    out["k7_mapping"] = time_k7(recorded_launches(mapping_call), mapping_call,
+                                lambda: torch.topk(keym, Lm), cs.graph_ms)
+    out["k7_mapping"]["n_mask"] = int(pm.sum())
+    n1 = max(cfg.mapping.local_ba_iters - 2, 1)
+    out["k8_call_a"] = time_k8(tracker.cam, kp["kept"]["prob"], n1, cfg.mapping.local_ba_cg_iters,
+                               3, cs.graph_ms)
+    del kp, tracker, mt
+    ep = cs.run_e2e_phase("stereo")
+    ecfg = ep["ee"].cfg
+    out["k8_gba_chunk"] = time_k8(ep["ee"].cam, ep["kept"]["prob"], 2, ecfg.loop.gba_cg_iters, 2,
+                                  cs.graph_ms, counter="ba_dense_gba")
+    del ep
+    lp = cs.run_e2e_phase("stereo", laps=True)
+    out["e2e_laps"] = {k: lp[k] for k in ("frame_ms_p50", "frame_ms_p90", "frame_ms_max",
+                                          "n_loops", "gba_started", "gba_finished",
+                                          "gba_chunk_ms", "keyframe_ate_m")}
+    text = json.dumps(out)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as fh:
+        fh.write(text)
+    print(text)
+
+
+if __name__ == "__main__":
+    main()

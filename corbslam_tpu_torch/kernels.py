@@ -82,14 +82,14 @@ _SIGNATURES = {
     "local_weights": [VP] * 2 + [I32] * 2 + [VP] * 3 + [I32] + [VP] * 2 + [VP],
     "local_select": [VP] * 3 + [I32] * 5 + [VP] * 3 + [VP],
     "local_points": ([VP] * 2 + [I32] + [VP] * 2 + [I32] + [VP] * 7 + [I32] + [F32] * 4
-                     + [I32] * 2 + [VP] * 2 + [VP]),
-    "local_compact": [VP, I32, I32, VP, VP, VP],
+                     + [I32] * 2 + [VP] + [VP]),
+    "local_compact": [VP, I32, I32, VP, VP, VP, VP],
     "local_window_mask": [VP, VP, I32, VP, VP, I32, VP, I32, VP, VP],
     "local_frustum": ([VP] * 2 + [I32] + [VP] * 5 + [F32] * 4 + [I32] * 2 + [F32, I32]
                       + [VP] * 3 + [VP]),
     # ba_dense.cu
     "ba_point_major": [VP, VP] + [I32] * 4 + [VP] * 4 + [VP],
-    "ba_optimize": [VP] * 11 + [I32] * 7 + [F32] * 5 + [VP] * 7 + [VP],
+    "ba_optimize": [VP] * 11 + [I32] * 7 + [F32] * 5 + [VP, I32] + [VP] * 6 + [VP],
     # vocab.cu
     "vocab_assign": [VP, I32, VP, I32, VP, I32, VP, I32, I32, VP] + [VP],
     "vocab_hist": [VP, VP, I32, VP, I32, VP] + [VP],

@@ -67,9 +67,10 @@ def point_major_k(m: ms.MapState) -> int:
 
 def build_global_problem_dense(m: ms.MapState, cfg: SlamConfig, n_kf_hint: Optional[int] = None,
                                n_mp_hint: Optional[int] = None) -> ba_dense.BADense:
-    """The map as one BADense (the dense path; row 0 is the gauge), cut to the
-    used rows rounded up to 256 cameras / 8192 points when the hints (host
-    cursors) are given. Tcw and X are views of the map's tensors."""
+    """The map as one BADense (the dense path; row 0 is the gauge). With the
+    hints (host cursors) it is cut to the used rows, rounded up to a multiple
+    of 256 cameras / 8192 points and at most the map's capacity. Tcw and X are
+    views of the map's tensors."""
     p = ba_dense.problem_from_map(m, cfg.orb.scale_factor, cfg.loop.gba_obs_per_kf,
                                   pm_k=point_major_k(m), counter=COUNTER)
     if n_kf_hint is not None:

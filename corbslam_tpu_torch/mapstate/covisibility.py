@@ -87,9 +87,15 @@ def compact_indices(mask: torch.Tensor, k: int):
     kernels.check(mask, "mask", torch.bool, (n,), mask.device)
     rows = torch.empty(k, dtype=torch.int32, device=mask.device)
     ok = torch.empty(k, dtype=torch.bool, device=mask.device)
+    work = compact_work(n, mask.device)
     kernels.launch("covisibility", "local_compact", kernels.ptr(mask), n, k, kernels.ptr(rows),
-                   kernels.ptr(ok))
+                   kernels.ptr(ok), kernels.ptr(work))
     return rows, ok
+
+
+def compact_work(n: int, device) -> torch.Tensor:
+    """Scratch of K7's compaction of an [n] mask: one int per 4096-row tile."""
+    return torch.empty(-(-n // 4096), dtype=torch.int32, device=device)
 
 
 def compact_indices_plain(mask: torch.Tensor, k: int):

@@ -34,7 +34,6 @@ from . import reproj
 from .smallmat import chol_solve_factored, chol_unrolled, inv_spd_unrolled
 
 CG_TOL = 0.03
-MAX_CAMERAS = 256  # K8 keeps its per-camera state in shared memory
 
 
 class BADense(NamedTuple):
@@ -192,7 +191,9 @@ def lm_step_dense(cam, p: BADense, active, lam, use_huber: bool, cg_iters: int, 
     Jp_w = [[Jp[i][j] * w[i] for j in range(3)] for i in range(3)]
     free_c = (~p.pose_fixed).to(torch.float32)[:, None]
     free_p = (~p.point_fixed).to(torch.float32)[:, None]
-    src, ok = p.pm_src.long(), p.pm_ok
+    # Slots that are not ok may index past a sliced problem's C x Fb (global
+    # BA cuts the cameras): clamped, as the reference's gather clamps.
+    src, ok = p.pm_src.long().clamp(0, p.obs_mp.numel() - 1), p.pm_ok
 
     def seg_multi(vals):
         """list of [C, F] planes -> [P, len(vals)] summed per point through
@@ -337,8 +338,6 @@ def _optimize_cuda(cam, pb: BADense, n_iters: int, cg_iters: int, huber_iters: i
     if pb.pm_src is None:
         raise ValueError("optimize: the problem has no point-major table (build_point_major)")
     K = pb.pm_src.shape[1]
-    if C > MAX_CAMERAS:
-        raise ValueError(f"optimize: {C} cameras > the kernel's {MAX_CAMERAS}")
     chk = kernels.check
     for name, t, dt, shape in (
             ("Tcw", pb.Tcw, torch.float32, (C, 4, 4)), ("pose_fixed", pb.pose_fixed, torch.bool, (C,)),
@@ -351,7 +350,10 @@ def _optimize_cuda(cam, pb: BADense, n_iters: int, cg_iters: int, huber_iters: i
             ("pm_src", pb.pm_src, torch.int32, (P, K)), ("pm_ok", pb.pm_ok, torch.bool, (P, K))):
         chk(t, name, dt, shape, dev)
     O = C * Fb
-    scratch_f = torch.empty(13 * O + 12 * P, dtype=torch.float32, device=dev)
+    # Per observation 10 floats, per point 15, per camera 136, per 64-slot
+    # tile 21, and 9 x 1024 per-CTA partials (the layout in ba_dense.cu).
+    n_scratch = 10 * O + 15 * P + 136 * C + 21 * C * -(-Fb // 64) + 9 * 1024
+    scratch_f = torch.empty(n_scratch, dtype=torch.float32, device=dev)
     scratch_b = torch.empty(O, dtype=torch.uint8, device=dev)
     Tcw = torch.empty(C, 4, 4, dtype=torch.float32, device=dev)
     X = torch.empty(P, 3, dtype=torch.float32, device=dev)
@@ -363,8 +365,8 @@ def _optimize_cuda(cam, pb: BADense, n_iters: int, cg_iters: int, huber_iters: i
                    p(pb.point_fixed), p(pb.obs_mp), p(pb.obs_uvr), p(pb.obs_inv_sigma2),
                    p(pb.obs_stereo), p(pb.obs_active), p(pb.pm_src), p(pb.pm_ok), C, Fb, P, K,
                    n_iters, cg_iters, huber_iters, float(cam.fx), float(cam.fy), float(cam.cx),
-                   float(cam.cy), float(cam.bf), p(scratch_f), p(scratch_b), p(Tcw), p(X),
-                   p(inlier), p(cost), p(trace))
+                   float(cam.cy), float(cam.bf), p(scratch_f), n_scratch, p(scratch_b), p(Tcw),
+                   p(X), p(inlier), p(cost), p(trace))
     return BADenseResult(Tcw, X, inlier, cost, trace[:n_iters])
 
 

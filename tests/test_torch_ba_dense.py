@@ -230,6 +230,17 @@ def test_optimize_schedule_full_width():
     _check_schedule(d)
 
 
+def test_optimize_schedule_past_256_cameras():
+    """More cameras than K8's first form held in one SM's shared memory:
+    C = 320, Fb = 32, P = 640, K = C. At 16 slots a camera some of the 320
+    poses rest on a handful of inliers, and the reference itself moves them
+    by more than the schedule's 1e-5 m when its points move by one f32
+    rounding; 32 slots keep the poses determined well enough."""
+    d = make_problem(13, C=320, Fb=32, P=640)
+    assert d["Tcw"].shape[0] == 320
+    _check_schedule(d)
+
+
 def test_problem_carry_over_round_trips():
     d = make_problem(2, C=4, Fb=32, P=40)
     back = interop.problem_to_numpy(interop.problem_from_numpy(d))

@@ -34,6 +34,7 @@ from corbslam_tpu_torch import config, entry, interop
 from corbslam_tpu_torch.geometry import se3
 from corbslam_tpu_torch.loop import gba
 from corbslam_tpu_torch.loop import loop_closing as lc
+from corbslam_tpu_torch.mapstate import mapstate as ms
 from corbslam_tpu_torch.optim import ba_dense
 from corbslam_tpu_torch.place import vocab
 from corbslam_tpu_torch.system import CorbslamClient
@@ -79,6 +80,59 @@ def test_the_global_problem_equals_the_references(noisy, obs):
     sel = ba_dense.compact_rows(pm.kf.fvalid & (pm.kf.mp_idx >= 0), obs)
     jsel = jba.compact_rows(jm.kf.fvalid & (jm.kf.mp_idx >= 0), obs)
     assert np.array_equal(sel.numpy(), np.asarray(jsel))
+
+
+def wide_map(n_kf, n_mp=1200, F=16, seed=11):
+    """numpy fields of a map past 256 keyframes: n_kf keyframes of a
+    640-row table advancing along z, each observing a sliding window of F of
+    n_mp points (of 9000 rows) with 0.5 px noise."""
+    cap = config.CapacityConfig(max_keyframes=640, max_map_points=9000, max_features=F,
+                                local_window_kfs=8, local_window_mps=512)
+    d = interop.map_to_numpy(ms.empty(cap))
+    rng = np.random.default_rng(seed)
+    kf, mp = d["kf"], d["mp"]
+    z = np.linspace(0.0, 30.0, n_kf).astype(np.float32)
+    X = np.stack([rng.uniform(-4, 4, n_mp), rng.uniform(-2, 2, n_mp),
+                  rng.uniform(4, 12, n_mp) + np.linspace(0, 30, n_mp)], -1).astype(np.float32)
+    mp["pos"][:n_mp], mp["valid"][:n_mp] = X, True
+    stride = (n_mp - F) // (n_kf - 1)
+    for k in range(n_kf):
+        pts = k * stride + np.arange(F)
+        pc = X[pts] - np.float32([0.0, 0.0, z[k]])
+        uv = pc[:, :2] / pc[:, 2:] * 320.0 + [160.0, 120.0] + rng.normal(0, 0.5, (F, 2))
+        kf["Tcw"][k, 2, 3], kf["valid"][k] = -z[k], True
+        kf["xy"][k], kf["fvalid"][k], kf["mp_idx"][k] = uv, True, pts
+        kf["uright"][k] = uv[:, 0] - 160.0 / pc[:, 2]
+    d["n_kf"], d["n_mp"] = n_kf, n_mp
+    return d
+
+
+@pytest.mark.parametrize("n_kf", [300, 512])
+def test_the_global_problem_past_256_keyframes_is_cut_as_the_references(n_kf):
+    """300 or 512 keyframes: both packages cut the problem to 512 cameras and
+    8192 points (the used rows rounded up, below the capacities) and agree on
+    every field, and one LM iteration on it within K8's tolerances. At 512
+    the table's slots that are not ok point past the cut cameras' slots."""
+    d = wide_map(n_kf)
+    jp = jgba.build_global_problem_dense(jax_map(d), JCFG, n_kf_hint=n_kf, n_mp_hint=d["n_mp"])
+    pp = gba.build_global_problem_dense(interop.map_from_numpy(d), CFG, n_kf_hint=n_kf,
+                                        n_mp_hint=d["n_mp"])
+    assert pp.Tcw.shape[0] == np.asarray(jp.Tcw).shape[0] == 512
+    assert pp.X.shape[0] == 8192 and pp.obs_mp.shape == (512, 16)
+    assert int(pp.obs_active.sum()) == n_kf * 16
+    assert (int(pp.pm_src.max()) >= 512 * 16) == (n_kf == 512)
+    pn = interop.problem_to_numpy(pp)
+    for name in jba.BADense._fields:
+        a, b = pn[name], np.asarray(getattr(jp, name))
+        assert a.shape == b.shape, name
+        assert np.array_equal(a, b), name
+    rj = jba.optimize(JCAM, jp, n_iters=1, cg_iters=CFG.loop.gba_cg_iters, huber_iters=1)
+    rp = ba_dense.optimize(CAM, pp, n_iters=1, cg_iters=CFG.loop.gba_cg_iters, huber_iters=1)
+    close(rp.Tcw[:, :3, 3], np.asarray(rj.Tcw)[:, :3, 3], 1e-4)
+    close(rp.Tcw[:, :3, :3], np.asarray(rj.Tcw)[:, :3, :3], 1e-4)
+    dx = np.abs(rp.X.numpy() - np.asarray(rj.X)).max(axis=1)
+    assert (dx <= 1e-3).mean() >= 0.995
+    assert abs(float(rp.cost) - float(rj.cost)) <= 1e-3 * abs(float(rj.cost))
 
 
 def test_one_gba_chunk_equals_the_references(noisy):

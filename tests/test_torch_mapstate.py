@@ -103,16 +103,24 @@ def test_local_map_mask_equals_the_reference():
     assert 10 < int(got.sum()) < 200
 
 
-@pytest.mark.parametrize("n_true", [5, 300], ids=["fewer_than_k", "more_than_k"])
-def test_compact_indices_newest_first(n_true):
+@pytest.mark.parametrize("n, n_true, k", [(1000, 5, 64), (1000, 300, 64), (4096 * 3 + 77, 900, 512),
+                                          (5000, 0, 64), (6000, 64, 64), (4096, 4096, 100)],
+                         ids=["fewer_than_k", "more_than_k", "ragged_tiles", "all_false",
+                              "exactly_k_true", "all_true"])
+def test_compact_indices_newest_first(n, n_true, k):
+    """The plain compaction (what `compact_indices` runs on the CPU) against
+    the reference's; K7 tiles [M] in 4096 rows from the top, so the cases
+    include a ragged top tile, no True row, exactly k True rows and every row
+    True."""
     rng = np.random.default_rng(n_true)
-    mask = np.zeros(1000, bool)
-    mask[rng.choice(1000, n_true, replace=False)] = True
+    mask = np.zeros(n, bool)
+    mask[rng.choice(n, n_true, replace=False)] = True
     ref_rows, ref_ok = jax.jit(jcovis.compact_indices, static_argnames=("k",))(
-        jnp.asarray(mask), k=64)
-    rows, ok = covis.compact_indices(T(mask), 64)
+        jnp.asarray(mask), k=k)
+    rows, ok = covis.compact_indices(T(mask), k)
     np.testing.assert_array_equal(rows.numpy(), np.asarray(ref_rows))
     np.testing.assert_array_equal(ok.numpy(), np.asarray(ref_ok))
+    assert int(ok.sum()) == min(n_true, k)
 
 
 def test_dedupe_candidate_weights_keeps_the_first_valid():

@@ -4,7 +4,8 @@
 
 1. prints the environment and the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from corbslam_tpu_torch/csrc/ (nvcc) and
-   prints nvcc's register and spill counts per kernel;
+   prints nvcc's register, spill and stack-frame bytes per kernel (K6's and
+   K2's kernels must not spill, and K6's has no stack frame);
 3. drives the front end — `build_frame_stereo` through `entry.entry()` — on
    3 warm-up and 20 timed stereo frames with all launch counters reset just
    before, checks its four kernels were launched, the outputs are finite and
@@ -27,7 +28,13 @@
    1024-row window so that the compaction truncates), and times
    the kernel's wrapper, the plain version and, where one PyTorch call
    computes the same function, that call; K7's launches also one by one
-   (each C entry of one wrapper call replayed alone). The times are device times
+   (each C entry of one wrapper call replayed alone). K6 (two runs on one
+   input bit-equal, the cost within 1e-3) and K2 are also held against
+   their plain versions at their edges: K6 with 1, 2048, 2049 and 8192
+   observations, none valid and most behind the camera; K2 on a flat
+   image, at 97x131 with 12-px cells and with levels over and under their
+   budgets. K6's row is timed as a replayed CUDA graph (its cluster
+   launch). The other times are device times
    (torch.profiler: the summed time of every kernel and copy a call runs on
    the card; where that reads under 0.05 ms, whose profiler sums disagree
    from run to run, or where two profiler sessions record nothing, the
@@ -213,19 +220,39 @@ def nvidia_smi_line() -> str:
 
 
 def ptxas_summary(log: str) -> dict:
-    """{kernel: (registers, spill bytes)} from nvcc's -Xptxas -v output."""
+    """{kernel: (registers, spill bytes, stack frame bytes)} from nvcc's
+    -Xptxas -v output."""
     out, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = re.search(r"\d([a-z][a-z_]*_kernel)", m.group(1))
             fn = name.group(1) if name else m.group(1)
-            out[fn] = [0, 0]
-        elif fn and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
-            out[fn][1] = int(m.group(1)) + int(m.group(2))
+            out[fn] = [0, 0, 0]
+        elif fn and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                    r"(\d+) bytes spill loads", line)):
+            out[fn][1] = int(m.group(2)) + int(m.group(3))
+            out[fn][2] = int(m.group(1))
         elif fn and (m := re.search(r"Used (\d+) registers", line)):
             out[fn][0] = int(m.group(1))
     return out
+
+
+# The kernels redesigned for the card must not spill, and K6's (its 6x6
+# solve in registers) has no stack frame at all.
+NO_SPILL = ("pose_opt_kernel", "fast_cell_max_kernel", "fast_topk_kernel")
+
+
+def check_ptxas(ptxas: dict) -> None:
+    """Holds NO_SPILL to 0 spill bytes and pose_opt_kernel to no stack
+    frame; a cached build prints no ptxas log and is not checked."""
+    if not ptxas:
+        return
+    for name in NO_SPILL:
+        require(name in ptxas, f"ptxas log has no {name}")
+        require(ptxas[name][1] == 0, f"{name} spills {ptxas[name][1]} bytes")
+    require(ptxas["pose_opt_kernel"][2] == 0,
+            f"pose_opt_kernel has a {ptxas['pose_opt_kernel'][2]}-byte stack frame")
 
 
 def host_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -759,15 +786,114 @@ def pose_errors(k, p, cam, X, obs, inv_s2, stereo_mask, valid) -> dict:
 
 
 def same_pose(cam, T0, inputs, name: str) -> tuple:
+    """K6 against its plain version: the pose within 1e-4 m / 1e-5 rad,
+    inlier flips only at the chi2 gate, the cost within 1e-3 (relative;
+    costs both under 1e-6 count as zero: a pose that fits its observations
+    leaves f32 rounding); and a second kernel run on the same input
+    bit-equal to the first."""
     k = pose_opt.optimize_pose(cam, T0, *inputs)
     p = pose_opt.optimize_pose_plain(cam, T0, *inputs)
+    k2 = pose_opt.optimize_pose(cam, T0, *inputs)
     torch.cuda.synchronize()
     e = pose_errors(k, p, cam, *inputs)
     require(e["t_max_abs"] <= 1e-4 and e["rot_rad"] <= 1e-5,
             f"pose_opt ({name}): pose differs by {e['t_max_abs']:.2e} m / {e['rot_rad']:.2e} rad")
     require(e["flips_off_gate"] == 0, f"pose_opt ({name}): {e['flips_off_gate']} inlier flips "
             "away from the chi2 gate")
+    ck, cp = float(k.cost), float(p.cost)
+    e["cost_rel"] = abs(ck - cp) / max(abs(cp), 1e-30) if ck != cp else 0.0
+    require(e["cost_rel"] <= 1e-3 or max(abs(ck), abs(cp)) <= 1e-6,
+            f"pose_opt ({name}): cost {ck} against {cp}")
+    for f in pose_opt.PoseOptResult._fields:
+        require(torch.equal(getattr(k, f), getattr(k2, f)),
+                f"pose_opt ({name}): two runs on one input differ in {f}")
     return k, e
+
+
+# K6's and K2's edges, as tests/test_torch_pose_opt.py and test_torch_orb.py
+# hold the plain versions to JAX's: name -> (K, noise px, outlier share,
+# stereo share, T0 perturbation, edge).
+POSE_EDGES = {
+    "k1": (1, 0.0, 0.0, 1.0, [0.0] * 6, None),
+    "k2048": (2048, 0.3, 0.1, 0.6, [0.2, -0.1, 0.15, 0.02, -0.01, 0.02], None),
+    "k2049": (2049, 0.3, 0.1, 0.6, [-0.1, 0.2, 0.1, -0.01, 0.02, 0.01], None),
+    "k8192": (8192, 0.3, 0.1, 0.6, [0.15, 0.1, -0.2, 0.01, -0.02, 0.02], None),
+    "all_invalid": (300, 0.2, 0.0, 1.0, [0.2, -0.1, 0.1, 0.02, 0.01, -0.02], "invalid"),
+    "most_behind": (400, 0.2, 0.0, 0.6, [0.1, -0.1, 0.2, 0.01, -0.01, 0.02], "behind"),
+}
+# name -> (h, w, cell, n_features, n_levels): a flat image (no corner, every
+# cell tied at 0), widths that are no multiple of a tile, and levels over
+# and under their budgets (cells 99, 70, 48, 35 against 88, 64, 56, 48).
+FAST_EDGES = {
+    "flat": (120, 200, 16, 256, 3),
+    "97x131_cell12": (97, 131, 12, 200, 3),
+    "over_and_under_budget": (97, 131, 12, 256, 4),
+}
+
+
+def pose_scene(seed: int, n: int, noise: float, outliers: float, stereo_share: float, dxi,
+               edge, dev) -> tuple:
+    """tests/test_torch_pose_opt.py's scene in the port's f32: points in
+    front of a true camera, noisy (u, v, u_right), outliers; `edge` "invalid"
+    clears `valid`, "behind" mirrors 90 % of the points behind the camera.
+    Returns (T0, (X, obs, inv_sigma2, is_stereo, valid)) on `dev`."""
+    rng = np.random.default_rng(seed)
+    stereo = rng.random(n) < stereo_share if stereo_share < 1.0 else np.ones(n, bool)
+    X = np.stack([rng.uniform(-15, 15, n), rng.uniform(-5, 5, n),
+                  rng.uniform(8, 40, n)], -1).astype(np.float32)
+    Tt = se3.exp(torch.tensor([0.3, -0.1, 0.2, 0.02, -0.04, 0.01])).numpy()
+    pc = X @ Tt[:3, :3].T + Tt[:3, 3]
+    u = CAM.fx * pc[:, 0] / pc[:, 2] + CAM.cx
+    uvr = np.stack([u, CAM.fy * pc[:, 1] / pc[:, 2] + CAM.cy, u - CAM.bf / pc[:, 2]], -1)
+    uvr += rng.normal(scale=noise, size=uvr.shape) if noise else 0.0
+    n_out = int(outliers * n)
+    if n_out:
+        idx = rng.choice(n, n_out, replace=False)
+        uvr[idx, :2] += rng.uniform(30, 80, (n_out, 2)) * rng.choice([-1, 1], (n_out, 2))
+    inv_s2 = (1.0 / 1.2 ** (2.0 * rng.integers(0, 8, n))).astype(np.float32)
+    valid = rng.random(n) < 0.95 if n > 1 else np.ones(n, bool)
+    if edge == "invalid":
+        valid[:] = False
+    if edge == "behind":
+        pc[rng.random(n) < 0.9, 2] *= -1.0
+        X = ((pc - Tt[:3, 3]) @ Tt[:3, :3]).astype(np.float32)
+    T0 = se3.retract(torch.from_numpy(Tt), torch.tensor(dxi, dtype=torch.float32))
+    t = lambda a, dt=torch.float32: torch.tensor(np.asarray(a), dtype=dt, device=dev)  # noqa: E731
+    return T0.to(dev), (t(X), t(uvr), t(inv_s2), t(stereo, torch.bool), t(valid, torch.bool))
+
+
+def pose_fast_edges(dev) -> dict:
+    """K6 (`same_pose`: the tolerances, the cost, two runs bit-equal) on
+    POSE_EDGES and K2 (every Keypoints field exact, on K1's pyramid of
+    the image) on FAST_EDGES, kernel against plain version on the card."""
+    from corbslam_tpu_torch.config import OrbConfig
+    from corbslam_tpu_torch.io import synthetic
+
+    out = {}
+    for i, (name, (n, noise, o, sh, dxi, edge)) in enumerate(POSE_EDGES.items()):
+        T0, inputs = pose_scene(i, n, noise, o, sh, dxi, edge, dev)
+        k, e = same_pose(CAM, T0, inputs, f"edge {name}")
+        if edge == "invalid":
+            require(int(k.n_inliers) == 0 and float(k.cost) == 0.0,
+                    "pose_opt (edge all_invalid): inliers or cost without a valid observation")
+        out[f"pose_opt {name}"] = e
+    for name, (h, w, cell, nf, nl) in FAST_EDGES.items():
+        img = (np.full((h, w), 128.0, np.float32) if name == "flat"
+               else synthetic.random_texture(h, w, seed=13))
+        prm = orb.params(OrbConfig(n_features=nf, n_levels=nl, cell_size=cell), h, w, str(dev))
+        pyr = pyramid.build_pyramid(orb.as_images([img, img[:, ::-1].copy()], dev), prm)
+        kp_k, kp_p = fast.detect_pyramid(pyr, prm), fast.detect_pyramid_plain(pyr, prm)
+        torch.cuda.synchronize()
+        for f in fast.Keypoints._fields:
+            a, b = getattr(kp_k, f), getattr(kp_p, f)
+            require(torch.equal(a, b.to(a.dtype)), f"fast_cells (edge {name}): field {f} "
+                    f"differs in {(a != b.to(a.dtype)).sum().item()} places")
+        if name == "flat":
+            require(not bool(kp_k.valid.any()), "fast_cells (edge flat): a corner on a flat image")
+        out[f"fast_cells {name}"] = dict(valid=int(kp_k.valid.sum()),
+                                         cells=[gy * gx for gy, gx in prm.grids],
+                                         budgets=list(prm.budgets))
+    return out
 
 
 def check_tracking_kernels(te, st: TrackState, img_l, img_r, timed: bool = True):
@@ -894,7 +1020,8 @@ def check_tracking_kernels(te, st: TrackState, img_l, img_r, timed: bool = True)
         dict(name="pose_opt", max_abs_err=max(e1["t_max_abs"], e2["t_max_abs"]),
              bound=bound_ms(sum(c[0] for c in pc), sum(c[1] for c in pc)),
              fns=(lambda: (pose_opt.optimize_pose(cam, T_pred, *pin1),
-                           pose_opt.optimize_pose(cam, Tcw0, *pin2)), plain_pose, None, 3)),
+                           pose_opt.optimize_pose(cam, Tcw0, *pin2)), plain_pose, None, 3),
+             graph=True),
         dict(name="local_map", max_abs_err=k7["uv_max_abs"], bound=bound_ms(k7_bytes, k7_ops),
              fns=(lambda: track_ops.local_map_window(*args),
                   lambda: track_ops.local_map_window_plain(*args), library_compact, 5)),
@@ -2652,8 +2779,9 @@ def time_rows(rows: list) -> None:
     library, plain reps); a row's "kernel_reps" (default 20) sets the
     kernel's, and a row with "events" takes the host-inclusive CUDA-event
     time as its "ms" (calls of milliseconds, where launch gaps are
-    negligible; torch.profiler read one 10.7 ms K8 call as 2.15 ms), the
-    profiler's reading printed beside it."""
+    negligible; torch.profiler read one 10.7 ms K8 call as 2.15 ms), and a
+    row with "graph" the replayed CUDA graph (`graph_ms`: K6's cluster
+    launch), each with the profiler's reading beside it."""
     for r in rows:
         kernel_fn, plain_fn, _, reps = r["fns"]
         kreps = r.get("kernel_reps", 20)
@@ -2664,6 +2792,9 @@ def time_rows(rows: list) -> None:
         kreps = r.pop("kernel_reps", 20)
         if r.pop("events", False):  # milliseconds a call: CUDA events suffice
             r["ms"], r["ms_by"] = r["host_ms"], "events"
+            r["profiler_ms"] = device_ms(kernel_fn, reps=kreps, warmup=min(3, kreps))
+        elif r.pop("graph", False):  # a cluster launch: the replayed graph
+            r["ms"], r["ms_by"] = graph_ms(kernel_fn), "graph"
             r["profiler_ms"] = device_ms(kernel_fn, reps=kreps, warmup=min(3, kreps))
         else:
             r["ms"], r["ms_by"] = timed_ms(kernel_fn, kreps, r["host_ms"])
@@ -2688,7 +2819,8 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     ptxas = ptxas_summary(kernels.BUILD_INFO.get("log", ""))
     print(f"build: {build_s:.1f} s ({kernels.BUILD_INFO.get('path')})", flush=True)
-    print("ptxas (registers, spill bytes): " + json.dumps(ptxas), flush=True)
+    print("ptxas (registers, spill bytes, stack frame bytes): " + json.dumps(ptxas), flush=True)
+    check_ptxas(ptxas)
 
     # The main paths first, so that their frame times precede every
     # profiler session of the kernel checks: the front end, tracking, then
@@ -2823,6 +2955,8 @@ def main() -> int:
     rows, kinfo = check_kernels(imgs, prm)
     kinfo["stereo_median"] = check_stereo_median(prm)
     kinfo["small_geometry"] = check_small_geometry(dev)
+    kinfo["edges"] = pose_fast_edges(dev)
+    print(f"K6 / K2 edge cases: {json.dumps(kinfo['edges'])}", flush=True)
     trows, tinfo = check_tracking_kernels(te, tp.pop("check_state"), *tp["imgs"][CHECK_FRAME])
     time_rows(trows)
     kinfo["tracking"] = tinfo

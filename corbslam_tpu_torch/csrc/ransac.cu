@@ -15,7 +15,8 @@
 // solves the model into shared memory with the reference's arithmetic
 // (Gershgorin-shifted power iteration; Hartley normalization, regularized
 // Cholesky inverse iteration, det sign and cube-root scale, Cramer polar
-// steps), then every thread tests its strided matches and a block
+// steps, the PnP model in double as its plain version), then every thread
+// tests its strided matches and a block
 // reduction counts the inliers exactly (integers). `*_select` is one CTA:
 // the first maximum of the counts (jnp.argmax), then the winner's inlier
 // mask by the same test. `sim3_refine` is one 1024-thread CTA for all
@@ -232,123 +233,136 @@ __global__ void sim3_select_kernel(const float* p1, const float* p2, const bool*
 }
 
 // smallmat.chol_unrolled / chol_solve_factored for an n x n system (n <= 12).
-__device__ void chol_n(const float* A, float* L, int n) {
+template <class Real>
+__device__ void chol_n(const Real* A, Real* L, int n) {
     for (int i = 0; i < n; ++i)
         for (int j = 0; j <= i; ++j) {
-            float s = A[n * i + j];
+            Real s = A[n * i + j];
             for (int k = 0; k < j; ++k) s -= L[n * i + k] * L[n * j + k];
-            L[n * i + j] = (i == j) ? sqrtf(fmaxf(s, 1e-12f)) : s / L[n * j + j];
+            L[n * i + j] = (i == j) ? sqrt(fmax(s, (Real)1e-12)) : s / L[n * j + j];
         }
 }
 
-__device__ void chol_solve_n(const float* L, const float* b, float* x, int n) {
-    float y[12];
+template <class Real>
+__device__ void chol_solve_n(const Real* L, const Real* b, Real* x, int n) {
+    Real y[12];
     for (int i = 0; i < n; ++i) {
-        float s = b[i];
+        Real s = b[i];
         for (int k = 0; k < i; ++k) s -= L[n * i + k] * y[k];
         y[i] = s / L[n * i + i];
     }
     for (int i = n - 1; i >= 0; --i) {
-        float s = y[i];
+        Real s = y[i];
         for (int k = i + 1; k < n; ++k) s -= L[n * k + i] * x[k];
         x[i] = s / L[n * i + i];
     }
 }
 
 // camera.solve3x3 (Cramer) of G x = b.
-__device__ void solve3x3(const float* g, const float* b, float* x) {
-    const float c00 = g[4] * g[8] - g[5] * g[7];
-    const float c01 = g[5] * g[6] - g[3] * g[8];
-    const float c02 = g[3] * g[7] - g[4] * g[6];
-    const float det = g[0] * c00 + g[1] * c01 + g[2] * c02;
-    const float inv_det = 1.f / (fabsf(det) < 1e-20f ? 1e-20f : det);
-    const float c10 = g[2] * g[7] - g[1] * g[8];
-    const float c11 = g[0] * g[8] - g[2] * g[6];
-    const float c12 = g[1] * g[6] - g[0] * g[7];
-    const float c20 = g[1] * g[5] - g[2] * g[4];
-    const float c21 = g[2] * g[3] - g[0] * g[5];
-    const float c22 = g[0] * g[4] - g[1] * g[3];
+template <class Real>
+__device__ void solve3x3(const Real* g, const Real* b, Real* x) {
+    const Real c00 = g[4] * g[8] - g[5] * g[7];
+    const Real c01 = g[5] * g[6] - g[3] * g[8];
+    const Real c02 = g[3] * g[7] - g[4] * g[6];
+    const Real det = g[0] * c00 + g[1] * c01 + g[2] * c02;
+    const Real inv_det = (Real)1 / (fabs(det) < (Real)1e-20 ? (Real)1e-20 : det);
+    const Real c10 = g[2] * g[7] - g[1] * g[8];
+    const Real c11 = g[0] * g[8] - g[2] * g[6];
+    const Real c12 = g[1] * g[6] - g[0] * g[7];
+    const Real c20 = g[1] * g[5] - g[2] * g[4];
+    const Real c21 = g[2] * g[3] - g[0] * g[5];
+    const Real c22 = g[0] * g[4] - g[1] * g[3];
     x[0] = (c00 * b[0] + c10 * b[1] + c20 * b[2]) * inv_det;
     x[1] = (c01 * b[0] + c11 * b[1] + c21 * b[2]) * inv_det;
     x[2] = (c02 * b[0] + c12 * b[1] + c22 * b[2]) * inv_det;
 }
 
-// pnp._dlt_pose on K = 6 correspondences: (R, t).
-__device__ void dlt6(const float (*X)[3], const float (*uv)[2], float* R, float* t) {
+// pnp._dlt_pose on K = 6 correspondences: (R, t), computed in double as
+// the plain version computes it (a near-degenerate 12x12 normal matrix
+// carries f32 rounding into the pose).
+__device__ void dlt6(const float (*Xf)[3], const float (*uvf)[2], float* Rf, float* tf) {
+    typedef double Real;
     constexpr int K = 6;
-    float c[3] = {0.f, 0.f, 0.f};
+    Real X[K][3], uv[K][2];
+    for (int k = 0; k < K; ++k) {
+        for (int i = 0; i < 3; ++i) X[k][i] = Xf[k][i];
+        uv[k][0] = uvf[k][0];
+        uv[k][1] = uvf[k][1];
+    }
+    Real c[3] = {0, 0, 0};
     for (int i = 0; i < 3; ++i) {
         for (int k = 0; k < K; ++k) c[i] += X[k][i];
-        c[i] = c[i] / (float)K;
+        c[i] = c[i] / (Real)K;
     }
-    float Xn[K][3], ss = 0.f;
+    Real Xn[K][3], ss = 0;
     for (int k = 0; k < K; ++k) {
-        float r = 0.f;
+        Real r = 0;
         for (int i = 0; i < 3; ++i) {
             Xn[k][i] = X[k][i] - c[i];
             r += Xn[k][i] * Xn[k][i];
         }
         ss += r;
     }
-    const float sigma = fmaxf(sqrtf(ss / (float)K / 3.f), 1e-6f);
+    const Real sigma = fmax(sqrt(ss / (Real)K / (Real)3), (Real)1e-6);
     for (int k = 0; k < K; ++k)
         for (int i = 0; i < 3; ++i) Xn[k][i] = Xn[k][i] / sigma;
-    float AtA[144];
-    for (int q = 0; q < 144; ++q) AtA[q] = 0.f;
+    Real AtA[144];
+    for (int q = 0; q < 144; ++q) AtA[q] = 0;
     for (int r = 0; r < 2 * K; ++r) {
         const int k = r % K;
-        const float Xh[4] = {Xn[k][0], Xn[k][1], Xn[k][2], 1.f};
-        const float m = r < K ? uv[k][0] : uv[k][1];
-        float row[12];
+        const Real Xh[4] = {Xn[k][0], Xn[k][1], Xn[k][2], 1};
+        const Real m = r < K ? uv[k][0] : uv[k][1];
+        Real row[12];
         for (int q = 0; q < 4; ++q) {
-            row[q] = r < K ? Xh[q] : 0.f;
-            row[4 + q] = r < K ? 0.f : Xh[q];
+            row[q] = r < K ? Xh[q] : 0;
+            row[4 + q] = r < K ? 0 : Xh[q];
             row[8 + q] = -m * Xh[q];
         }
         for (int i = 0; i < 12; ++i)
             for (int j = 0; j < 12; ++j) AtA[12 * i + j] += row[i] * row[j];
     }
-    float tr = 0.f;
+    Real tr = 0;
     for (int i = 0; i < 12; ++i) tr += AtA[13 * i];
-    const float eps = 1e-7f * tr + 1e-12f;
+    const Real eps = (Real)1e-7 * tr + (Real)1e-12;
     for (int i = 0; i < 12; ++i) AtA[13 * i] += eps;
-    float L[144], p[12], pn[12];
+    Real L[144], p[12], pn[12];
     chol_n(AtA, L, 12);
-    for (int i = 0; i < 12; ++i) p[i] = 1.f / sqrtf(12.f);
+    for (int i = 0; i < 12; ++i) p[i] = (Real)1 / sqrt((Real)12);
     for (int it = 0; it < 8; ++it) {
         chol_solve_n(L, p, pn, 12);
-        float nr = 0.f;
+        Real nr = 0;
         for (int i = 0; i < 12; ++i) nr += pn[i] * pn[i];
-        nr = fmaxf(sqrtf(nr), 1e-20f);
+        nr = fmax(sqrt(nr), (Real)1e-20);
         for (int i = 0; i < 12; ++i) p[i] = pn[i] / nr;
     }
     // P = Pn @ [[I / sigma, -c / sigma], [0, 0, 0, 1]].
-    float P[12];
+    Real P[12];
     for (int i = 0; i < 3; ++i) {
         for (int j = 0; j < 3; ++j) P[4 * i + j] = p[4 * i + j] / sigma;
         P[4 * i + 3] = p[4 * i] * (-c[0] / sigma) + p[4 * i + 1] * (-c[1] / sigma) +
                        p[4 * i + 2] * (-c[2] / sigma) + p[4 * i + 3];
     }
-    const float detM = P[0] * (P[5] * P[10] - P[6] * P[9]) - P[1] * (P[4] * P[10] - P[6] * P[8]) +
-                       P[2] * (P[4] * P[9] - P[5] * P[8]);
-    const float sign = detM < 0.f ? -1.f : 1.f;
-    const float scale = cbrtf(fmaxf(fabsf(detM), 1e-20f));
-    float M[9];
+    const Real detM = P[0] * (P[5] * P[10] - P[6] * P[9]) - P[1] * (P[4] * P[10] - P[6] * P[8]) +
+                      P[2] * (P[4] * P[9] - P[5] * P[8]);
+    const Real sign = detM < 0 ? -1 : 1;
+    const Real scale = cbrt(fmax(fabs(detM), (Real)1e-20));
+    Real M[9], t[3];
     for (int i = 0; i < 3; ++i) {
         for (int j = 0; j < 3; ++j) M[3 * i + j] = (P[4 * i + j] * sign) / scale;
         t[i] = (P[4 * i + 3] * sign) / scale;
     }
     for (int it = 0; it < 8; ++it) {
-        float inv[9], col[3];
+        Real inv[9], col[3];
         for (int cidx = 0; cidx < 3; ++cidx) {
-            const float e[3] = {cidx == 0 ? 1.f : 0.f, cidx == 1 ? 1.f : 0.f, cidx == 2 ? 1.f : 0.f};
+            const Real e[3] = {(Real)(cidx == 0), (Real)(cidx == 1), (Real)(cidx == 2)};
             solve3x3(M, e, col);
             for (int i = 0; i < 3; ++i) inv[3 * i + cidx] = col[i];
         }
         for (int i = 0; i < 3; ++i)
-            for (int j = 0; j < 3; ++j) M[3 * i + j] = 0.5f * (M[3 * i + j] + inv[3 * j + i]);
+            for (int j = 0; j < 3; ++j) M[3 * i + j] = (Real)0.5 * (M[3 * i + j] + inv[3 * j + i]);
     }
-    for (int q = 0; q < 9; ++q) R[q] = M[q];
+    for (int q = 0; q < 9; ++q) Rf[q] = (float)M[q];
+    for (int i = 0; i < 3; ++i) tf[i] = (float)t[i];
 }
 
 __device__ bool pnp_inlier(const float* R, const float* t, const float* X, const float* uv,

@@ -1,14 +1,29 @@
-"""K7's launches one by one and K8's calls, timed on the card.
+"""K2's and K6's, K7's and K8's calls and launches, timed on the card.
 
-    python -m corbslam_tpu_torch.kernel_times [--out PATH]
+    python -m corbslam_tpu_torch.kernel_times [--out PATH] [--parts k6k2,k6sweep,k7k8]
 
 Run from the root of a checkout (it drives the phases of `chip_smoke.py`
-there for its inputs): the tracking path (frame 12's local-map window, as
-chip_smoke's phase 6 replays it), the flagship tracker (its final map's
-mapping-stage window and its first local-BA problem) and the e2e stereo
-lap (its first GBA chunk's problem); it keeps the tracker's and the 2.5-lap
-orbit's frame times (asynchronous global BA beside the tracker). Then:
+there for its inputs): the tracking path (frame 12's K6 calls and
+local-map window, as chip_smoke's phase 6 replays them; it keeps the
+tracked frames' times), the front end's entry pair (K2), the flagship
+tracker (its final map's mapping-stage window and its first local-BA
+problem) and the e2e stereo lap (its first GBA chunk's problem); it keeps
+the tracker's and the 2.5-lap orbit's frame times (asynchronous global BA
+beside the tracker). `--parts` picks what to time (default all). Then:
 
+- K6 (`pose_opt.optimize_pose`): frame 12's two calls, and each alone, as
+  a CUDA graph of up to 100 calls replayed between CUDA events
+  (`chip_smoke.graph_ms`), and the two calls with CUDA events around
+  back-to-back eager calls;
+- K2 (`fast.detect_pyramid` of the entry pair's pyramid): the whole call
+  and each of its two launches on its own (`recorded_launches`), as
+  replayed graphs; and over the pyramid's interior pixels the share that
+  scores above 0, the share that passes FAST's 4-point test (two of ring
+  points 0, 4, 8, 12 beyond +-th) and the share of 32-pixel row segments
+  holding a pixel that passes it (k6k2);
+- K6 on `chip_smoke.pose_scene` at K = 1, 2048 and 8192 observations, with
+  4 rounds of 10 iterations and of none: the cost of an LM iteration
+  whatever K (k6sweep);
 - each of K7's C entry points on its own, on the buffers of one wrapper
   call (`recorded_launches`), as a CUDA graph of up to 100 launches
   replayed between CUDA events (`chip_smoke.graph_ms`),
@@ -39,6 +54,7 @@ from .frontend import track_ops
 from .geometry import se3
 from .mapstate import covisibility as covis
 from .matching import matcher
+from .ops import fast, pyramid
 from .optim import ba_dense, pose_opt
 
 
@@ -85,6 +101,87 @@ def window_args(te, st, img_l, img_r) -> tuple:
     return cam, m, mp0, st.local_rows, st.local_ok, st.ref_kf, po.Tcw, cfg
 
 
+def pose_args(te, st, img_l, img_r) -> tuple:
+    """(cam, T_pred, inputs 1, Tcw0, inputs 2): the two `optimize_pose`
+    calls of frame `img_l, img_r` from tracking state `st`, as `_track_core`
+    makes them (motion-model matches, then the local map's)."""
+    cam, m, mp0, rows, ok, ref_kf, Tcw0, cfg = window_args(te, st, img_l, img_r)
+    cur = frame_mod.build_frame_stereo(img_l, img_r, cam, cfg.orb, device=m.mp.pos.device)
+    T_pred = se3.compose(st.velocity, st.prev.Tcw)
+    ff = matcher.match_select(**track_ops.motion_model_query(cam, m, st.prev, cur, T_pred, cfg))
+    pin1 = track_ops.pose_inputs(cur, m.mp.pos, track_ops.lookup(ff.idx, st.prev.mp_idx))
+    win = track_ops.local_map_window(cam, m, mp0, rows, ok, ref_kf, Tcw0, cfg)
+    has = mp0 >= 0
+    pr = matcher.match_select(**track_ops.local_map_query(m, cur, win, has, cfg))
+    merged = torch.where(has, mp0, track_ops.lookup(pr.idx, win.rows))
+    return cam, T_pred, pin1, Tcw0, track_ops.pose_inputs(cur, m.mp.pos, merged)
+
+
+def time_k6_k2(cs, te, tp) -> dict:
+    """K6 on frame CHECK_FRAME's two calls and K2 on the entry pair."""
+    cam, T_pred, pin1, Tcw0, pin2 = pose_args(te, tp["check_state"],
+                                              *tp["imgs"][cs.CHECK_FRAME])
+    first = lambda: pose_opt.optimize_pose(cam, T_pred, *pin1)  # noqa: E731
+    second = lambda: pose_opt.optimize_pose(cam, Tcw0, *pin2)  # noqa: E731
+    both = lambda: (first(), second())  # noqa: E731
+    out = dict(k6=dict(observations=[int(pin1[0].shape[0]), int(pin2[0].shape[0])],
+                       valid=[int(pin1[4].sum()), int(pin2[4].sum())],
+                       frame_graph_ms=cs.graph_ms(both), first_graph_ms=cs.graph_ms(first),
+                       second_graph_ms=cs.graph_ms(second), frame_events_ms=events_ms(both, 20)))
+    dev = pin1[0].device
+    _, entry_imgs = cs.entry("cuda")
+    imgs = cs.orb.as_images(list(entry_imgs), dev)
+    prm = cs.orb.params(cs.CFG, imgs.shape[1], imgs.shape[2], str(dev))
+    pyr = pyramid.build_pyramid(imgs, prm)
+    detect = lambda: fast.detect_pyramid(pyr, prm)  # noqa: E731
+    k2 = {name: cs.graph_ms(fn) for name, fn in recorded_launches(detect).items()}
+    k2.update(call_graph_ms=cs.graph_ms(detect), call_events_ms=events_ms(detect, 50),
+              cells=[gy * gx for gy, gx in prm.grids])
+    out["k2"] = k2
+    k2.update(fast_pass_rates(pyr, prm, cs.CFG.min_th_fast))
+    out["tracked_frame"] = {k: tp[k] for k in ("frame_ms_p50", "frame_ms_p90",
+                                               "track_only_ms_p50", "track_only_ms_p90")}
+    return out
+
+
+def fast_pass_rates(pyr, prm, th: float) -> dict:
+    """Over the interior pixels of every level of every image: the share
+    whose FAST score is above 0, the share passing the 4-point test, and
+    the share of 32-pixel row segments holding a pixel that passes it."""
+    n = n_corner = n_pass = n_seg = n_seg_pass = 0
+    b = fast.BORDER
+    for lvl in range(prm.n_levels):
+        for i in range(pyr.levels.shape[0]):
+            img = pyr.level(lvl, i)
+            h, w = img.shape
+            inner = img[b:h - b, b:w - b]
+            d = torch.stack([img[b + dy:h - b + dy, b + dx:w - b + dx] - inner
+                             for dy, dx in ((-3, 0), (0, 3), (3, 0), (0, -3))])
+            ok = ((d > th).sum(0) >= 2) | ((d < -th).sum(0) >= 2)
+            n += ok.numel()
+            n_pass += int(ok.sum())
+            n_corner += int((fast.fast_score_map(img, th)[b:h - b, b:w - b] > 0).sum())
+            seg = ok[:, :ok.shape[1] // 32 * 32].reshape(ok.shape[0], -1, 32).any(-1)
+            n_seg += seg.numel()
+            n_seg_pass += int(seg.sum())
+    return dict(corner_share=n_corner / n, four_point_pass_share=n_pass / n,
+                segments_with_a_pass_share=n_seg_pass / n_seg)
+
+
+def time_k6_sweep(cs) -> dict:
+    """K6 (`optimize_pose`, replayed graphs) on `chip_smoke.pose_scene` at
+    1, 2048 and 8192 observations, 4 rounds of 10 and of 0 iterations."""
+    out = {}
+    for K in (1, 2048, 8192):
+        T0, inputs = cs.pose_scene(3, K, 0.3, 0.1 if K > 1 else 0.0, 0.6,
+                                   [0.2, -0.1, 0.15, 0.02, -0.01, 0.02], None,
+                                   torch.device("cuda"))
+        for it in (10, 0):
+            out[f"K{K}_iters{it}_graph_ms"] = cs.graph_ms(
+                lambda: pose_opt.optimize_pose(cs.CAM, T0, *inputs, n_rounds=4, n_iters=it))
+    return out
+
+
 def events_ms(fn, reps: int, warmup: int = 1) -> float:
     """Mean time of one fn() call, CUDA events around `reps` back-to-back
     calls after `warmup` (calls of milliseconds: launch gaps negligible)."""
@@ -124,7 +221,11 @@ def time_k8(cam, pb, n_iters: int, cg: int, huber: int, graph_ms, counter="ba_de
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join("chiprun_out", "kernel_times.json"))
+    ap.add_argument("--parts", default="k6k2,k6sweep,k7k8",
+                    help="k6k2: K6 and K2 on the tracking path; k6sweep: K6 by observations "
+                         "and iterations; k7k8: K7, K8 and the tracker")
     args = ap.parse_args()
+    parts = set(args.parts.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA device")
     sys.path.insert(0, os.getcwd())
@@ -135,6 +236,12 @@ def main() -> None:
     dev = torch.device("cuda")
     te = cs.track_entry("cuda")
     tp = cs.run_tracking_path(te, dev)
+    if "k6k2" in parts:
+        out.update(time_k6_k2(cs, te, tp))
+    if "k6sweep" in parts:
+        out["k6_sweep"] = time_k6_sweep(cs)
+    if "k7k8" not in parts:
+        return finish(out, args.out)
     wargs = window_args(te, tp["check_state"], *tp["imgs"][cs.CHECK_FRAME])
     m, L = wargs[1], wargs[-1].capacity.local_window_mps
     M = m.mp.capacity
@@ -176,9 +283,13 @@ def main() -> None:
     out["e2e_laps"] = {k: lp[k] for k in ("frame_ms_p50", "frame_ms_p90", "frame_ms_max",
                                           "n_loops", "gba_started", "gba_finished",
                                           "gba_chunk_ms", "keyframe_ate_m")}
+    finish(out, args.out)
+
+
+def finish(out: dict, path: str) -> None:
     text = json.dumps(out)
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as fh:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as fh:
         fh.write(text)
     print(text)
 

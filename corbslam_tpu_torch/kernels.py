@@ -63,8 +63,8 @@ _SIGNATURES = {
     "resize_level": [VP] * 3 + [I32] * 10 + [VP],
     "blur_levels": [VP] * 4 + [I32] * 4 + [VP],
     # fast_cells.cu
-    "fast_cell_max": [VP] * 4 + [I32] * 3 + [F32, I32, I32, VP],
-    "fast_topk": [VP] * 11 + [I32] * 7 + [VP],
+    "fast_cell_max": [VP] * 4 + [I32] * 3 + [F32] + [I32] * 5 + [VP],
+    "fast_topk": [VP] * 11 + [I32] * 6 + [VP],
     # orb_describe.cu
     "orb_describe": [VP] * 12 + [I32] * 4 + [VP],
     # stereo_match.cu
@@ -75,7 +75,7 @@ _SIGNATURES = {
     "match_rows": [VP] * 10 + [F32] + [I32] * 6 + [VP] * 4 + [VP],
     "match_finish": [VP] * 6 + [I32] * 4 + [F32, I32] + [VP] * 3 + [VP],
     # pose_opt.cu
-    "pose_opt": [VP] * 6 + [I32] * 4 + [F32] * 5 + [VP] * 4 + [VP],
+    "pose_opt": [VP] * 6 + [I32] * 3 + [F32] * 5 + [VP] * 4 + [VP],
     # local_map.cu
     "local_scatter_current": [VP, VP, I32, VP, I32, I32, VP, VP, VP],
     "local_candidates": [VP, I32] + [VP] * 3 + [I32] * 3 + [VP, I32] + [VP] * 2 + [VP],

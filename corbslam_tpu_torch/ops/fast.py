@@ -9,7 +9,8 @@ pixel (first in row-major order on ties) and the `max_kp` best boxes, the
 lower box index first on ties, as `jax.lax.top_k` orders them.
 
 `detect_pyramid` is the wrapper of kernel K2 (`csrc/fast_cells.cu`): all
-levels of both stereo images in two launches on a CUDA input,
+levels of both stereo images in two launches on a CUDA input (FAST, NMS and
+the cell maxima over tiles of up to 64 x 32 px, then one sort a level),
 `detect_pyramid_plain` on a CPU input.
 """
 
@@ -38,7 +39,8 @@ FAST_OFFSETS = np.array(
 
 ARC_LEN = 9  # FAST-9
 BORDER = 16
-MAX_LEVEL_CELLS = 12288  # fast_topk keeps a level's cell values in 48 KB of shared memory
+MAX_LEVEL_CELLS = 12288  # fast_topk keeps a level's keys and its selection in <= 224 KB
+TILE_PX = (64, 32)  # the most pixels (x, y) a fast_cell_max tile spans (fast_cells.cu)
 
 
 class Keypoints(NamedTuple):
@@ -159,12 +161,16 @@ def _detect_pyramid_cuda(pyr: Pyramid, params: OrbParams) -> Keypoints:
     B = pyr.levels.shape[0]
     kernels.check(pyr.levels, "levels", torch.float32, (B, params.total))
     N, C, L = params.n_features, params.n_cells, params.n_levels
+    cell = cfg.cell_size
+    tcx, tcy = TILE_PX[0] // cell, TILE_PX[1] // cell
+    n_tiles = sum(-(-gx // tcx) * -(-gy // tcy) for gy, gx in params.grids)
     cell_val = torch.empty(B, C, dtype=torch.float32, device=dev)
     cell_arg = torch.empty(B, C, dtype=torch.int32, device=dev)
     P = kernels.ptr
     kernels.launch(
         "fast_cells", "fast_cell_max", P(pyr.levels), P(params.level_table),
-        P(cell_val), P(cell_arg), L, B, params.total, float(cfg.min_th_fast), C, cfg.cell_size,
+        P(cell_val), P(cell_arg), L, B, params.total, float(cfg.min_th_fast), C, cell,
+        tcx, tcy, n_tiles,
     )
     xy = torch.empty(B, N, 2, dtype=torch.float32, device=dev)
     resp = torch.empty(B, N, dtype=torch.float32, device=dev)
@@ -173,11 +179,10 @@ def _detect_pyramid_cuda(pyr: Pyramid, params: OrbParams) -> Keypoints:
     max_cells = max(gy * gx for gy, gx in params.grids)
     if max_cells > MAX_LEVEL_CELLS:
         raise ValueError(f"fast_topk holds at most {MAX_LEVEL_CELLS} cells a level")
-    max_slots = max(max(gy * gx, k) for (gy, gx), k in zip(params.grids, params.budgets))
     kernels.launch(
         "fast_cells", "fast_topk", P(cell_val), P(cell_arg), P(params.level_table),
         P(params.scales), P(xy), P(resp), P(valid), P(cell_id), P(iy), P(ix), P(octave),
-        L, B, C, N, max_cells, max_slots, cfg.cell_size,
+        L, B, C, N, max_cells, cell,
     )
     return Keypoints(xy, resp, valid, cell_id, iy, ix, octave)
 

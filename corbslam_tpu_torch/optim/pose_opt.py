@@ -10,9 +10,10 @@ back). delta2 is 7.815 for stereo and 5.991 for mono observations and is also
 the Huber delta^2. The pose is re-orthonormalized at the end.
 
 `optimize_pose` is the wrapper of kernel K6 (`csrc/pose_opt.cu`), which runs
-all 40 iterations of one problem in one CTA; CPU tensors take
-`optimize_pose_plain`, the reference's loop in PyTorch. `optimize_pose_batch`
-comes with relocalization.
+all 40 iterations of one problem in one launch on a cluster of 8 CTAs; CPU
+tensors take `optimize_pose_plain`, the reference's loop in PyTorch. There
+is no batched form: relocalization and loop closing check their candidates
+one at a time.
 """
 
 from __future__ import annotations
@@ -87,7 +88,7 @@ def optimize_pose_plain(cam, T_init, X, obs, inv_sigma2, is_stereo, valid,
     return PoseOptResult(T, inliers, inliers.sum(dtype=torch.int32), cost)
 
 
-MAX_OBS = 8192  # pose_opt keeps one active flag per observation in shared memory
+MAX_OBS = 8192  # pose_opt's cluster owns at most 4 observations a thread
 
 
 def _optimize_pose_cuda(cam, T_init, X, obs, inv_sigma2, is_stereo, valid, n_rounds, n_iters):
@@ -110,7 +111,7 @@ def _optimize_pose_cuda(cam, T_init, X, obs, inv_sigma2, is_stereo, valid, n_rou
     p = kernels.ptr
     kernels.launch(
         "pose_opt", "pose_opt", p(T_init), p(X), p(obs), p(inv_sigma2), p(is_stereo), p(valid),
-        1, K, int(n_rounds), int(n_iters), float(cam.fx), float(cam.fy), float(cam.cx),
+        K, int(n_rounds), int(n_iters), float(cam.fx), float(cam.fy), float(cam.cx),
         float(cam.cy), float(cam.bf), p(T), p(inliers), p(n_in), p(cost))
     return PoseOptResult(T, inliers, n_in, cost)
 

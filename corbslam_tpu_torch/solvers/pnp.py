@@ -5,9 +5,10 @@ Each hypothesis solves the pose from 6 correspondences by DLT: Hartley
 normalization of the world points, the 12x12 normal matrix, its smallest
 eigenvector by 8 inverse iterations on a regularized Cholesky factor, the
 sign and scale from det(M), and 8 Newton polar steps (Cramer 3x3
-inverses) onto SO(3). The sampling is an input as in `sim3_solver`. On CUDA
-tensors the hypotheses and the choice of the best run on kernel K10
-(`csrc/ransac.cu`).
+inverses) onto SO(3), in float64 (the reference's f32 carries rounding
+into poses of near-degenerate samples). The sampling is an input as in
+`sim3_solver`. On CUDA tensors the hypotheses and the choice of the best
+run on kernel K10 (`csrc/ransac.cu`).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from .. import kernels
 from ..geometry import camera as cam_mod
 from ..geometry import se3
+from ..matching.matcher import div
 from ..optim.smallmat import chol_solve_factored, chol_unrolled
 from .sim3_solver import sample_indices
 
@@ -32,7 +34,13 @@ class PnPResult(NamedTuple):
 
 def _dlt_pose(X: torch.Tensor, uv_norm: torch.Tensor):
     """Poses from [H, K, 3] world points and [H, K, 2] normalized image
-    coordinates: (R [H, 3, 3], t [H, 3])."""
+    coordinates: (R [H, 3, 3], t [H, 3]) in X's dtype, computed in float64.
+    Six noisy matches can leave the 12x12 normal matrix's two smallest
+    eigenvalues close; in f32 the inverse iteration then carries rounding
+    into the pose (at the flagship's 19 m, two f32 orders of the same sums
+    gave poses centimetres apart), in f64 a negligible part of it."""
+    dt = X.dtype
+    X, uv_norm = X.double(), uv_norm.double()
     H, K, _ = X.shape
     dev = X.device
     c = X.mean(dim=1)
@@ -66,11 +74,13 @@ def _dlt_pose(X: torch.Tensor, uv_norm: torch.Tensor):
     for _ in range(8):
         Minv = torch.stack([cam_mod.solve3x3(M, eye[i].expand(H, 3)) for i in range(3)], dim=-1)
         M = 0.5 * (M + Minv.transpose(1, 2))
-    return M, t
+    return M.to(dt), t.to(dt)
 
 
 def normalized(cam, uv: torch.Tensor) -> torch.Tensor:
-    return torch.stack([(uv[:, 0] - cam.cx) / cam.fx, (uv[:, 1] - cam.cy) / cam.fy], dim=-1)
+    """(uv - c) / f, correctly rounded on every device as K10 divides (the
+    DLT would carry an ulp of the input into the pose)."""
+    return torch.stack([div(uv[:, 0] - cam.cx, cam.fx), div(uv[:, 1] - cam.cy, cam.fy)], dim=-1)
 
 
 def solve_pnp_ransac_plain(cam, X, uv, valid, sigma2, idx, min_inliers: int = 15,

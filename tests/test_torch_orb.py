@@ -181,3 +181,50 @@ def test_extract_end_to_end_120x200():
         n_shared += len(shared)
         n_desc_equal += sum(np.array_equal(ref["desc"][kr[k]], got["desc"][kg[k]]) for k in shared)
     assert n_shared > 0 and n_desc_equal >= 0.99 * n_shared
+
+
+# K2's edges: a flat image (no corner, every cell tied at 0), level widths
+# that are no multiple of a multi-cell tile (97 x 131 with 12-px cells), and
+# levels with more cells than their budget beside levels with fewer (cells
+# 99, 70, 48, 35 against budgets 88, 64, 56, 48).
+EDGES = {
+    "flat": (120, 200, 16, 256, 3),
+    "97x131_cell12": (97, 131, 12, 200, 3),
+    "over_and_under_budget": (97, 131, 12, 256, 4),
+}
+
+
+@pytest.mark.parametrize("edge", list(EDGES))
+def test_detect_pyramid_plain_edges_exact(edge):
+    """`detect_pyramid_plain` on JAX's own levels against JAX's detect_cells
+    level by level: every Keypoints field exact."""
+    h, w, cell, nf, nl = EDGES[edge]
+    if edge == "flat":
+        img = np.full((h, w), 128.0, np.float32)
+    else:
+        img = jsynthetic.random_texture(h, w, seed=13)
+    cfg = OrbConfig(n_features=nf, n_levels=nl, cell_size=cell)
+    jlevels, _ = jax.jit(jpyramid.build_pyramid, static_argnums=(1, 2))(
+        jnp.asarray(img), nl, cfg.scale_factor)
+    prm = orb.params(cfg, h, w, "cpu")
+    flat = np.concatenate([np.asarray(lv).reshape(-1) for lv in jlevels])[None]
+    pyr = pyramid.Pyramid(T(flat), T(flat), prm.shapes, prm.offsets)
+    got = fast.detect_pyramid_plain(pyr, prm)
+    budgets = cfg.features_per_level()
+    grids = [(-(-lh // cell)) * (-(-lw // cell)) for lh, lw in prm.shapes]
+    if edge == "over_and_under_budget":
+        assert any(g > k for g, k in zip(grids, budgets))
+        assert any(g < k for g, k in zip(grids, budgets))
+    k0 = 0
+    for lvl, level in enumerate(jlevels):
+        ref = jfast.detect_cells(level, cfg.ini_th_fast, cell, budgets[lvl], cfg.min_th_fast)
+        sl = slice(k0, k0 + budgets[lvl])
+        np.testing.assert_array_equal(got.xy[0, sl].numpy(),
+                                      np.asarray(ref["xy"]) * prm.scales[lvl].numpy())
+        for f in ("resp", "valid", "cell_id", "iy", "ix"):
+            np.testing.assert_array_equal(getattr(got, f)[0, sl].numpy(), np.asarray(ref[f]),
+                                          err_msg=f"level {lvl} field {f}")
+        np.testing.assert_array_equal(got.octave[0, sl].numpy(), lvl)
+        k0 += budgets[lvl]
+    if edge == "flat":
+        assert not got.valid.any() and (got.resp == 0).all()

@@ -4,8 +4,9 @@
 
 1. prints the environment and the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from corbslam_tpu_torch/csrc/ (nvcc) and
-   prints nvcc's register, spill and stack-frame bytes per kernel (K6's and
-   K2's kernels must not spill, and K6's has no stack frame);
+   prints nvcc's register, spill and stack-frame bytes per kernel (K6's,
+   K2's, K11's pose graph and K5's kernels must not spill, and K6's and
+   K11's have no stack frame);
 3. drives the front end — `build_frame_stereo` through `entry.entry()` — on
    3 warm-up and 20 timed stereo frames with all launch counters reset just
    before, checks its four kernels were launched, the outputs are finite and
@@ -33,7 +34,12 @@
    their plain versions at their edges: K6 with 1, 2048, 2049 and 8192
    observations, none valid and most behind the camera; K2 on a flat
    image, at 97x131 with 12-px cells and with levels over and under their
-   budgets. K6's row is timed as a replayed CUDA graph (its cluster
+   budgets. K5 is also held to its plain version, exactly, at its edges
+   (`match_edges`: Nq 1, Nt 2 and Nt 1 refused, a ragged tile and chunk,
+   Nq 12288 with the rotation check, every target masked, equal-distance
+   ties, 6 band batches with and without the epipole guard, the mutual and
+   rotation checks each on and off in modes 0-2, and its workspace left
+   empty). K6's row is timed as a replayed CUDA graph (its cluster
    launch). The other times are device times
    (torch.profiler: the summed time of every kernel and copy a call runs on
    the card; where that reads under 0.05 ms, whose profiler sums disagree
@@ -78,7 +84,11 @@
    the LOST frame) and at the flagship's sizes (2048 features against the
    whole database, Sim3 and PnP on 2048 matches, the covisibility count of
    the final map, its essential graph of 2048 vertices and 18464 edges with
-   a synthetic loop edge), and times those full-width calls;
+   a synthetic loop edge), and times those full-width calls (K11's
+   cooperative launch with CUDA events); K11 (two runs bit-equal) also at
+   its edges (`pose_graph_edges`: 64, 512 and 2048 live rows of 2048, every
+   vertex fixed, no weighted edge, E not a multiple of the grid, fewer
+   edges than CTAs, one vertex with all 32 loop slots);
 10. drives the three end-to-end loop orbits of the reference's
    tests/test_loop_e2e.py through the port's CorbslamClient
    (`entry.e2e_entry`: the 320x240 loop config, the room with photometric
@@ -150,7 +160,8 @@ from corbslam_tpu_torch.frontend.tracking import StereoTracker  # noqa: E402
 from corbslam_tpu_torch.frontend.tracking import TrackState as TrackerState  # noqa: E402
 from corbslam_tpu_torch.geometry import camera, se3, sim3  # noqa: E402
 from corbslam_tpu_torch.io import trajectory  # noqa: E402
-from corbslam_tpu_torch.kernel_times import recorded_launches  # noqa: E402
+from corbslam_tpu_torch.kernel_times import (  # noqa: E402
+    flagship_graph, recorded_launches, ring_graph)
 from corbslam_tpu_torch.loop import gba, loop_closing  # noqa: E402
 from corbslam_tpu_torch.mapping import local_mapping, triangulation  # noqa: E402
 from corbslam_tpu_torch.mapstate import covisibility as covis  # noqa: E402
@@ -228,31 +239,34 @@ def ptxas_summary(log: str) -> dict:
         if m:
             name = re.search(r"\d([a-z][a-z_]*_kernel)", m.group(1))
             fn = name.group(1) if name else m.group(1)
-            out[fn] = [0, 0, 0]
+            out.setdefault(fn, [0, 0, 0])  # a template's instances: their largest numbers
         elif fn and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                                     r"(\d+) bytes spill loads", line)):
-            out[fn][1] = int(m.group(2)) + int(m.group(3))
-            out[fn][2] = int(m.group(1))
+            out[fn][1] = max(out[fn][1], int(m.group(2)) + int(m.group(3)))
+            out[fn][2] = max(out[fn][2], int(m.group(1)))
         elif fn and (m := re.search(r"Used (\d+) registers", line)):
-            out[fn][0] = int(m.group(1))
+            out[fn][0] = max(out[fn][0], int(m.group(1)))
     return out
 
 
 # The kernels redesigned for the card must not spill, and K6's (its 6x6
-# solve in registers) has no stack frame at all.
-NO_SPILL = ("pose_opt_kernel", "fast_cell_max_kernel", "fast_topk_kernel")
+# solve in registers) and K11's (its 7x7 blocks and dual numbers in
+# registers) have no stack frame at all.
+NO_SPILL = ("pose_opt_kernel", "fast_cell_max_kernel", "fast_topk_kernel", "pg_optimize_kernel",
+            "match_select_kernel")
+NO_STACK = ("pose_opt_kernel", "pg_optimize_kernel")
 
 
 def check_ptxas(ptxas: dict) -> None:
-    """Holds NO_SPILL to 0 spill bytes and pose_opt_kernel to no stack
-    frame; a cached build prints no ptxas log and is not checked."""
+    """Holds NO_SPILL to 0 spill bytes and NO_STACK to no stack frame; a
+    cached build prints no ptxas log and is not checked."""
     if not ptxas:
         return
     for name in NO_SPILL:
         require(name in ptxas, f"ptxas log has no {name}")
         require(ptxas[name][1] == 0, f"{name} spills {ptxas[name][1]} bytes")
-    require(ptxas["pose_opt_kernel"][2] == 0,
-            f"pose_opt_kernel has a {ptxas['pose_opt_kernel'][2]}-byte stack frame")
+    for name in NO_STACK:
+        require(ptxas[name][2] == 0, f"{name} has a {ptxas[name][2]}-byte stack frame")
 
 
 def host_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -893,6 +907,157 @@ def pose_fast_edges(dev) -> dict:
         out[f"fast_cells {name}"] = dict(valid=int(kp_k.valid.sum()),
                                          cells=[gy * gx for gy, gx in prm.grids],
                                          budgets=list(prm.budgets))
+    return out
+
+
+def match_scene(dev, seed: int, Nq: int, Nt: int, B: int = 0, ties: int = 0) -> dict:
+    """Queries and targets of K5's edge cases, made from a seed: each target
+    is a query (row j mod Nq) with up to 40 of its 256 bits flipped, its uv
+    within ~2 px of that query's keypoint in a 400 x 300 image, its octave
+    within 1 of the query's, its angle turned by 0.3 rad (+- 0.05, a fifth
+    of them at random); 90 % of rows valid on each side. `ties` targets
+    repeat target 0 (descriptor and uv): equal distances, the lower index
+    first. With B > 0 the targets, their flags and the query flags get a
+    leading batch axis of B (each batch its own draw)."""
+    g = np.random.default_rng(seed)
+    dq = g.integers(0, 256, (Nq, 32), dtype=np.uint8)
+    xy_q = g.uniform([0, 0], [400, 300], (Nq, 2)).astype(np.float32)
+    oct_q = g.integers(0, 8, Nq).astype(np.int32)
+    ang_q = g.uniform(-np.pi, np.pi, Nq).astype(np.float32)
+
+    def targets():
+        src = np.arange(Nt) % Nq
+        flip = g.random((Nt, 256)) < g.integers(0, 41, Nt)[:, None] / 256.0
+        dt = dq[src] ^ np.packbits(flip, axis=1)
+        uv = (xy_q[src] + g.normal(0, 2.0, (Nt, 2))).astype(np.float32)
+        ot = np.clip(oct_q[src] + g.integers(-1, 2, Nt), 0, 7).astype(np.int32)
+        at = (ang_q[src] - 0.3 + g.normal(0, 0.05, Nt)).astype(np.float32)
+        wild = g.random(Nt) < 0.2
+        at[wild] = g.uniform(-np.pi, np.pi, int(wild.sum()))
+        if ties:
+            dt[1:ties + 1], uv[1:ties + 1], ot[1:ties + 1] = dt[0], uv[0], ot[0]
+        return dt, uv, ot, at, g.random(Nt) < 0.9, g.random(Nq) < 0.9
+
+    drawn = [targets() for _ in range(max(B, 1))]
+    stack = (lambda i: np.stack([d[i] for d in drawn])) if B else (lambda i: drawn[0][i])
+    t_ = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return dict(desc_q=t_(dq), xy_q=t_(xy_q), oct_q=t_(oct_q), ang_q=t_(ang_q),
+                desc_t=t_(stack(0)), uv_t=t_(stack(1)), oct_t=t_(stack(2)), ang_t=t_(stack(3)),
+                valid_t=t_(stack(4)), valid_q=t_(stack(5)))
+
+
+def scene_query(sc: dict, mode: str, mutual: bool = True, rotation: bool = False,
+                max_dist: int = 80, ratio: float = 0.9) -> dict:
+    """A `match_select` query of a `match_scene`: mode "valid" (no window),
+    "window" (projection window, 15 px, octave +-1) or "area" (20 px)."""
+    scales = torch.tensor([1.2 ** k for k in range(8)], dtype=torch.float32,
+                          device=sc["xy_q"].device)
+    win = None
+    if mode == "window":
+        win = matcher.Window(sc["uv_t"], sc["xy_q"], sc["oct_q"], sc["oct_t"], scales, 15.0, 1, 1)
+    elif mode == "area":
+        win = matcher.AreaWindow(sc["uv_t"], sc["xy_q"], 20.0)
+    return dict(desc_q=sc["desc_q"], desc_t=sc["desc_t"], valid_q=sc["valid_q"],
+                valid_t=sc["valid_t"], max_dist=max_dist, ratio=ratio, mutual=mutual, window=win,
+                angle_q=sc["ang_q"] if rotation else None,
+                angle_t=sc["ang_t"] if rotation else None)
+
+
+def same_band(sc: dict, epipole: bool, name: str) -> dict:
+    """K5's batched band mode against `band_search_plain` on a `match_scene`
+    with a batch axis: F12 of a sideways camera move per batch (epipolar
+    lines near-horizontal), with or without an epipole guard."""
+    dev = sc["desc_q"].device
+    B = sc["desc_t"].shape[0]
+    F = torch.zeros(B, 3, 3, device=dev)
+    for b in range(B):
+        tx, ty = 1.0, 0.002 * (b + 1)
+        F[b] = torch.tensor([[0.0, 0.0, ty], [0.0, 0.0, -tx], [-ty, tx, 0.0]])
+    e = torch.tensor([[200.0, 150.0]], device=dev).expand(B, 2).contiguous() if epipole else None
+    scales = torch.tensor([1.2 ** k for k in range(8)], dtype=torch.float32, device=dev)
+    args = (sc["desc_q"], sc["valid_q"], sc["xy_q"], sc["desc_t"], sc["valid_t"], sc["uv_t"],
+            sc["oct_t"], F, e, scales, 60, 1.0, True)
+    k, p = matcher.band_search(*args), matcher.band_search_plain(*args)
+    torch.cuda.synchronize()
+    for f in ("idx", "dist", "ok"):
+        a, b = getattr(k, f), getattr(p, f)
+        require(torch.equal(a, b.to(a.dtype)),
+                f"match_band ({name}): {f} differs in {(a != b.to(a.dtype)).sum().item()} places")
+    return dict(ok=int(k.ok.sum()))
+
+
+def match_edges(dev) -> dict:
+    """K5 against its plain version on the card, exactly (idx, dist, ok), at
+    its edges: Nq 1, Nt 2 (the least it takes; Nt 1 is refused), Nq not a
+    multiple of the 16-row tile and Nt not one of the 2048-target chunk,
+    Nq 12288 (the finish's limit, with the rotation check), every target
+    masked, equal-distance ties, B = 6 band batches with and without the
+    epipole guard, and the mutual and rotation checks each on and off in
+    every window mode; then the workspace is back to its empty state."""
+    out = {}
+    cases = [("nq1", 1, 2048, 0, "window", True, True),
+             ("nt2", 2048, 2, 0, "valid", True, False),
+             ("nq1_nt2", 1, 2, 0, "area", True, True),
+             ("ragged", 2047, 3001, 0, "window", True, True),
+             ("nq12288", 12288, 4096, 0, "area", True, True)]
+    for mode in ("valid", "window", "area"):
+        for mutual in (True, False):
+            for rotation in (True, False):
+                cases.append((f"{mode}_mutual{int(mutual)}_rot{int(rotation)}", 2048, 2048, 0,
+                              mode, mutual, rotation))
+    for i, (name, nq, nt, ties, mode, mutual, rotation) in enumerate(cases):
+        sc = match_scene(dev, 100 + i, nq, nt, ties=ties)
+        if nq == 1:
+            sc["valid_q"][:] = True
+        out[name] = int(same_match(scene_query(sc, mode, mutual, rotation), name).ok.sum())
+    # Ties: targets 0..40 hold one descriptor and uv, the only ones near
+    # query 0 (Nt <= Nq); no ratio test and no mutual check, so query 0
+    # keeps its tie and takes the lowest index.
+    sc = match_scene(dev, 96, 64, 64, ties=40)
+    sc["valid_q"][0] = True
+    sc["valid_t"][:41] = True
+    res = same_match(scene_query(sc, "window", mutual=False, ratio=1.0), "ties")
+    require(bool(res.ok[0]) and int(res.idx[0]) == 0, f"match_masked (ties): query 0 took "
+            f"target {int(res.idx[0])}, not the lowest of its tied targets")
+    out["ties"] = int(res.ok.sum())
+    sc = match_scene(dev, 99, 512, 1024)
+    sc["valid_t"] = torch.zeros_like(sc["valid_t"])
+    res = same_match(scene_query(sc, "window"), "all_masked")
+    require(not bool(res.ok.any()) and bool((res.dist == 512).all()),
+            "match_masked (all_masked): a match without a candidate")
+    out["all_masked"] = 0
+    try:
+        matcher.match_select(**scene_query(match_scene(dev, 98, 16, 1), "valid"))
+        raise AssertionError("match_select took Nt = 1")
+    except ValueError:
+        out["nt1"] = "refused"
+    sc = match_scene(dev, 97, 2048, 2048, B=6)
+    out["band6_epipole"] = same_band(sc, True, "B 6, epipole")
+    out["band6"] = same_band(sc, False, "B 6")
+    torch.cuda.synchronize()
+    cols, tick = matcher.k5_workspace(dev, 1, 2, kernels.stream())
+    require(bool((cols == matcher.COL_EMPTY).all()) and not bool(tick.any()),
+            "match_masked: the workspace was not restored")
+    return out
+
+
+def pose_graph_edges(dev) -> dict:
+    """K11 against its plain version (`same_graph`, two runs bit-equal) at
+    its edges: `ring_graph` at 2048 rows with 64, 512 and 2048 live (the
+    rest fixed and unweighted), every vertex fixed, no weighted edge, 100
+    rows (E 932, not a multiple of the grid), 5 rows (E 19, fewer edges
+    than CTAs), both 0.15 m apart as the 2048-row ring's, and one vertex
+    carrying all 32 loop slots."""
+    rg = ring_graph(2048, device=dev)
+    cases = {f"live{L}": ring_graph(2048, device=dev, live=L) for L in (64, 512)}
+    cases.update(live2048=rg, all_fixed=rg._replace(fixed=torch.ones_like(rg.fixed)),
+                 no_weighted_edge=rg._replace(e_valid=torch.zeros_like(rg.e_valid)),
+                 rows100=ring_graph(100, radius=50.0 * 100 / 2048, device=dev),
+                 rows5=ring_graph(5, 2, 4, radius=50.0 * 5 / 2048, device=dev),
+                 hub=ring_graph(2048, device=dev, live=512, hub=True))
+    out = {}
+    for name, g in cases.items():
+        out[name] = same_graph(g, t_rel=True)
     return out
 
 
@@ -1729,7 +1894,8 @@ def same_vocab(voc, db, desc, valid) -> dict:
 
 def same_graph(g, n_iters=20, cg_iters=40, t_rel: bool = False) -> dict:
     """K11's linearization (1e-4 relative) and optimize against the plain
-    versions: R and s within 1e-4, the cost within 1e-3 (relative), t within
+    versions (two kernel runs bit-equal): R and s within 1e-4, the cost
+    within 1e-3 (relative), t within
     1e-4 m, or with `t_rel` within 1e-4 of the graph's extent (the largest
     |t|). The relative form is for graphs tens of metres across: there
     rounding alone moves the plain result further than 1e-4 m, and the
@@ -1738,8 +1904,11 @@ def same_graph(g, n_iters=20, cg_iters=40, t_rel: bool = False) -> dict:
     r, Ji, Jj = pose_graph.linearize_edges(g)
     r2, Ji2, Jj2 = pose_graph.linearize_edges_plain(g)
     (R, t, s), c = pose_graph.optimize(g, n_iters, cg_iters)
+    (Rb, tb, sb), cb = pose_graph.optimize(g, n_iters, cg_iters)
     (R2, t2, s2), c2 = pose_graph.optimize_plain(g, n_iters, cg_iters)
     torch.cuda.synchronize()
+    for name, a, b in (("R", R, Rb), ("t", t, tb), ("s", s, sb), ("costs", c, cb)):
+        require(torch.equal(a, b), f"pose_graph: two runs on one input differ in {name}")
     rel = lambda a, b: float((a - b).abs().max() / max(float(b.abs().max()), 1.0))  # noqa: E731
     out = dict(lin=[rel(r, r2), rel(Ji, Ji2), rel(Jj, Jj2)], t=float((t - t2).abs().max()),
                R=float((R - R2).abs().max()), s=float((s - s2).abs().max()),
@@ -1750,56 +1919,15 @@ def same_graph(g, n_iters=20, cg_iters=40, t_rel: bool = False) -> dict:
     if t_rel:
         out["extent_m"] = float(t2.abs().max())
         t_tol = 1e-4 * out["extent_m"]
-        (_, t3, _), _ = pose_graph.optimize_plain(g._replace(t=g.t * (1 + 1.2e-7)), n_iters,
-                                                  cg_iters)
+        (R3, t3, _), _ = pose_graph.optimize_plain(g._replace(t=g.t * (1 + 1.2e-7)), n_iters,
+                                                   cg_iters)
         out["plain_t_ulp_sensitivity"] = float((t3 - t2).abs().max())
+        out["plain_R_ulp_sensitivity"] = float((R3 - R2).abs().max())
     out["t_tol"] = t_tol
     require(max(out["lin"]) <= 1e-4 and out["t"] <= t_tol and out["R"] <= 1e-4
             and out["s"] <= 1e-4 and out["cost"] <= 1e-3,
             f"pose graph: kernel and plain differ {out}")
     return out
-
-
-def ring_graph(N: int = 2048, covis_k: int = 8, n_loop_slots: int = 32, radius: float = 50.0,
-               seed: int = 13, device="cuda") -> pose_graph.PoseGraph:
-    """A populated essential graph in `build_essential_graph`'s layout
-    (E = N + N covis_k + n_loop_slots): N keyframes on a ring of `radius`
-    metres (0.15 m apart at 2048 and 50 m), the spanning chain (parent
-    i - 1, row 0 without one), each row's covisibility edges to rows
-    i + 2 .. i + covis_k + 1 (those past the last row unweighted), and two
-    loop edges closing the ring in the first two of the loop slots.
-    Measurements are the true relative poses with 2 cm / 0.01 rad of noise,
-    the vertices the true poses with 5 cm / 0.02 rad of drift; row 0 is
-    fixed (the gauge)."""
-    rng = np.random.default_rng(seed)
-    th = 2 * np.pi * np.arange(N) / N
-    xi = np.zeros((N, 7), np.float32)
-    xi[:, 0], xi[:, 2], xi[:, 4] = radius * np.cos(th), radius * np.sin(th), th
-    gt = sim3.exp(torch.from_numpy(xi))
-    rows = np.arange(N)
-    sp_i, sp_j = np.maximum(rows - 1, 0), rows
-    cv_j = rows[:, None] + 2 + np.arange(covis_k)[None, :]
-    cv_ok = cv_j < N
-    lp_i, lp_j = np.zeros(n_loop_slots, np.int64), np.zeros(n_loop_slots, np.int64)
-    lp_i[:2], lp_j[:2] = (N - 1, N - 2), (0, 1)
-    e_i = np.concatenate([sp_i, np.repeat(rows, covis_k), lp_i])
-    e_j = np.concatenate([sp_j, np.where(cv_ok, cv_j, 0).reshape(-1), lp_j])
-    e_ok = np.concatenate([rows > 0, cv_ok.reshape(-1), np.arange(n_loop_slots) < 2])
-    E = e_i.shape[0]
-    sd = np.array([0.02, 0.02, 0.02, 0.01, 0.01, 0.01, 0.0], np.float32)
-    noise = torch.from_numpy((rng.normal(size=(E, 7)) * sd).astype(np.float32))
-    drift = torch.from_numpy((rng.normal(size=(N, 7)) * 2.5 * sd).astype(np.float32))
-    take = lambda S, idx: tuple(x[torch.from_numpy(idx)] for x in S)  # noqa: E731
-    mR, mt, msc = sim3.compose(sim3.exp(noise),
-                               sim3.compose(take(gt, e_j), sim3.inverse(take(gt, e_i))))
-    R, t, sc = sim3.compose(sim3.exp(drift), gt)
-    dev = torch.device(device)
-    i32 = lambda a: torch.from_numpy(a.astype(np.int32)).to(dev)  # noqa: E731
-    return pose_graph.PoseGraph(
-        R.contiguous().to(dev), t.contiguous().to(dev), sc.contiguous().to(dev),
-        torch.from_numpy(rows == 0).to(dev), i32(e_i), i32(e_j), mR.contiguous().to(dev),
-        mt.contiguous().to(dev), msc.contiguous().to(dev), torch.from_numpy(e_ok).to(dev),
-        torch.ones(E, device=dev))
 
 
 def check_loop_kernels(lp: dict) -> dict:
@@ -1937,16 +2065,9 @@ def check_full_width(fl: dict) -> tuple:
                      fns=(lambda: covis.covis_matrix(m), lambda: covis.covis_matrix_plain(m),
                           library_covis, 3)))
     # K11 B14: the essential graph of the final map with one synthetic loop
-    # edge (first and last live keyframes, their relative pose moved 5 cm);
-    # it has few free vertices, so the row is timed on `ring_graph`, a
-    # populated graph of the same layout and size.
-    a0, a1 = live[0], live[-1]
-    Ta, Tb = m.kf.Tcw[a0], m.kf.Tcw[a1]
-    T_rel = Tb @ se3.inverse(Ta)
-    loops = loop_closing.LoopEdges.empty(device="cuda").add(
-        0, a0, a1, T_rel[:3, :3], T_rel[:3, 3] + torch.tensor([0.05, 0.0, 0.0], device="cuda"),
-        torch.ones((), device="cuda"))
-    g = loop_closing.build_essential_graph(m, loops, a0, m.kf.Tcw.clone())
+    # edge (`flagship_graph`); it has few free vertices, so the row is timed
+    # on `ring_graph`, a populated graph of the same layout and size.
+    g = flagship_graph(m)
     info["pose_graph_flagship_map"] = same_graph(g)
     rg = ring_graph(N, device="cuda")
     require(rg.e_i.shape == g.e_i.shape, f"ring graph: {rg.e_i.shape[0]} edges, the essential "
@@ -1969,7 +2090,7 @@ def check_full_width(fl: dict) -> tuple:
                      bound=bound_ms(pg_bytes, pg_ops),
                      fns=(lambda: pose_graph.optimize(rg, 20, 40),
                           lambda: pose_graph.optimize_plain(rg, 20, 40), None, 2),
-                     kernel_reps=3))  # ~1 s a call
+                     kernel_reps=10, events=True))  # one cooperative launch: CUDA events
     info["sizes"] = dict(N=N, F=F, M=M, W=W, E=E, valid_edges=ev, free_vertices=nf,
                          matches_sim3=nb, matches_pnp=nh, features=nv)
     return rows, info
@@ -2960,6 +3081,8 @@ def main() -> int:
     trows, tinfo = check_tracking_kernels(te, tp.pop("check_state"), *tp["imgs"][CHECK_FRAME])
     time_rows(trows)
     kinfo["tracking"] = tinfo
+    kinfo["match_edges"] = match_edges(dev)
+    print(f"K5 edge cases (accepted matches): {json.dumps(kinfo['match_edges'])}", flush=True)
     phase("kernels_k1_k7")
     mrows, minfo = check_mapping_kernels(kp)
     time_rows(mrows)
@@ -2972,6 +3095,8 @@ def main() -> int:
     frows, finfo = check_full_width(fl)
     time_rows(frows)
     print(f"full-width kernel checks: {json.dumps(finfo)}", flush=True)
+    finfo["pose_graph_edges"] = pose_graph_edges(dev)
+    print(f"K11 edge cases: {json.dumps(finfo['pose_graph_edges'])}", flush=True)
     phase("kernels_k9_k11")
     srows, sinfo = check_sensor_kernels(mono, rgbd)
     time_rows(srows)

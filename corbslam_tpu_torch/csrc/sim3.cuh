@@ -45,10 +45,28 @@ __device__ __forceinline__ Dual dsqrt(Dual x) {
     const float r = sqrtf(x.v);
     return {r, x.d / (2.f * r)};
 }
-__device__ __forceinline__ float dsin(float x) { return sinf(x); }
-__device__ __forceinline__ Dual dsin(Dual x) { return {sinf(x.v), cosf(x.v) * x.d}; }
-__device__ __forceinline__ float dcos(float x) { return cosf(x); }
-__device__ __forceinline__ Dual dcos(Dual x) { return {cosf(x.v), -sinf(x.v) * x.d}; }
+// sin and cos: sinf / cosf, or with SIM3_SINCOSPI defined before this
+// header sincospif(x / pi), which has no large-argument reduction and so no
+// local-memory stack frame (within an ulp of sinf / cosf).
+#ifdef SIM3_SINCOSPI
+__device__ __forceinline__ float sin_(float x) {
+    float s, c;
+    sincospif(x * 0.318309886183790672f, &s, &c);
+    return s;
+}
+__device__ __forceinline__ float cos_(float x) {
+    float s, c;
+    sincospif(x * 0.318309886183790672f, &s, &c);
+    return c;
+}
+#else
+__device__ __forceinline__ float sin_(float x) { return sinf(x); }
+__device__ __forceinline__ float cos_(float x) { return cosf(x); }
+#endif
+__device__ __forceinline__ float dsin(float x) { return sin_(x); }
+__device__ __forceinline__ Dual dsin(Dual x) { return {sin_(x.v), cos_(x.v) * x.d}; }
+__device__ __forceinline__ float dcos(float x) { return cos_(x); }
+__device__ __forceinline__ Dual dcos(Dual x) { return {cos_(x.v), -sin_(x.v) * x.d}; }
 __device__ __forceinline__ float dexp(float x) { return expf(x); }
 __device__ __forceinline__ Dual dexp(Dual x) {
     const float e = expf(x.v);
@@ -140,12 +158,19 @@ template <class T> __device__ void so3_log(const T* R, T* phi) {
         axis2[i] = dmax((diag[i] - cos_t) / dmax(1.f - cos_t, SIM3_EPS), 0.f);
         axis[i] = dsqrt(dmax(axis2[i], 1e-24f));
     }
-    int k = 0;  // argmax, first maximum
-    if (val(axis2[1]) > val(axis2[k])) k = 1;
-    if (val(axis2[2]) > val(axis2[k])) k = 2;
+    // k = argmax (first maximum); the row of each k is formed with constant
+    // indices and the one of k selected, so no array is indexed at run time.
+    const bool k1 = val(axis2[1]) > val(axis2[0]);
+    const bool k2 = val(axis2[2]) > (k1 ? val(axis2[1]) : val(axis2[0]));
     T row[3];
 #pragma unroll
-    for (int j = 0; j < 3; ++j) row[j] = (j == k) ? axis2[k] : (R[3 * k + j] + R[3 * j + k]) * 0.5f;
+    for (int j = 0; j < 3; ++j) {
+        T rk[3];
+#pragma unroll
+        for (int kk = 0; kk < 3; ++kk)
+            rk[kk] = (j == kk) ? axis2[kk] : (R[3 * kk + j] + R[3 * j + kk]) * 0.5f;
+        row[j] = k2 ? rk[2] : (k1 ? rk[1] : rk[0]);
+    }
     T ap[3];
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
@@ -246,20 +271,34 @@ __device__ inline void solve3_f(const float* W, const float* b, float* x) {
     }
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
+        // The pivot row p (first largest |A[r][c]|), swapped in with constant
+        // indices under a condition: no array is indexed at run time.
         int p = c;
+        float big = fabsf(A[c][c]);
+#pragma unroll
         for (int r = c + 1; r < 3; ++r)
-            if (fabsf(A[r][c]) > fabsf(A[p][c])) p = r;
-        if (p != c)
-            for (int k = 0; k < 4; ++k) {
-                const float tmp = A[c][k]; A[c][k] = A[p][k]; A[p][k] = tmp;
+            if (fabsf(A[r][c]) > big) {
+                big = fabsf(A[r][c]);
+                p = r;
             }
+#pragma unroll
+        for (int r = c + 1; r < 3; ++r)
+            if (p == r)
+#pragma unroll
+                for (int k = 0; k < 4; ++k) {
+                    const float tmp = A[c][k]; A[c][k] = A[r][k]; A[r][k] = tmp;
+                }
+#pragma unroll
         for (int r = c + 1; r < 3; ++r) {
             const float f = A[r][c] / A[c][c];
+#pragma unroll
             for (int k = c; k < 4; ++k) A[r][k] -= f * A[c][k];
         }
     }
+#pragma unroll
     for (int i = 2; i >= 0; --i) {
         float v = A[i][3];
+#pragma unroll
         for (int k = i + 1; k < 3; ++k) v -= A[i][k] * x[k];
         x[i] = v / A[i][i];
     }
@@ -268,12 +307,16 @@ __device__ inline void solve3_f(const float* W, const float* b, float* x) {
 __device__ inline void solve3(const float* W, const float* b, float* x) { solve3_f(W, b, x); }
 __device__ inline void solve3(const Dual* W, const Dual* b, Dual* x) {
     float Wv[9], bv[3], xv[3], rd[3], xd[3];
+#pragma unroll
     for (int i = 0; i < 9; ++i) Wv[i] = W[i].v;
+#pragma unroll
     for (int i = 0; i < 3; ++i) bv[i] = b[i].v;
     solve3_f(Wv, bv, xv);
+#pragma unroll
     for (int i = 0; i < 3; ++i)
         rd[i] = b[i].d - (W[3 * i].d * xv[0] + W[3 * i + 1].d * xv[1] + W[3 * i + 2].d * xv[2]);
     solve3_f(Wv, rd, xd);
+#pragma unroll
     for (int i = 0; i < 3; ++i) x[i] = Dual{xv[i], xd[i]};
 }
 

@@ -1,9 +1,9 @@
-"""K2's and K6's, K7's and K8's calls and launches, timed on the card.
+"""K2's and K6's, K5's and K11's, K7's and K8's calls and launches, timed on the card.
 
-    python -m corbslam_tpu_torch.kernel_times [--out PATH] [--parts k6k2,k6sweep,k7k8]
+    python -m corbslam_tpu_torch.kernel_times [--out PATH] [--parts k6k2,k6sweep,k11k5,k7k8]
 
 Run from the root of a checkout (it drives the phases of `chip_smoke.py`
-there for its inputs): the tracking path (frame 12's K6 calls and
+there for its inputs): the tracking path (frame 12's K5 and K6 calls and
 local-map window, as chip_smoke's phase 6 replays them; it keeps the
 tracked frames' times), the front end's entry pair (K2), the flagship
 tracker (its final map's mapping-stage window and its first local-BA
@@ -24,6 +24,16 @@ beside the tracker). `--parts` picks what to time (default all). Then:
 - K6 on `chip_smoke.pose_scene` at K = 1, 2048 and 8192 observations, with
   4 rounds of 10 iterations and of none: the cost of an LM iteration
   whatever K (k6sweep);
+- K5 (`matcher.match_select`): frame 12's two calls (the motion-model and
+  the local-map search) together and each alone as replayed graphs, each
+  of their C entries on its own (`recorded_launches`), and K5's launches a
+  frame; K11 (`pose_graph.optimize(g, 20, 40)`) with CUDA events around
+  back-to-back calls on `ring_graph` at 512, 1024 and 2048 live rows of
+  2048 and on the flagship map's essential graph (`flagship_graph`), its
+  launches a call, and `optimize_plain` on the 2048-row ring; the tracker's
+  device time a frame (torch.profiler over 10 frames of the schedule after
+  its warm part, as `profile_frame --tracker`); the loop orbit's and the
+  stereo e2e lap's closure times and largest frame (k11k5);
 - each of K7's C entry points on its own, on the buffers of one wrapper
   call (`recorded_launches`), as a CUDA graph of up to 100 launches
   replayed between CUDA events (`chip_smoke.graph_ms`),
@@ -36,7 +46,11 @@ beside the tracker). `--parts` picks what to time (default all). Then:
 
 Prints one JSON object (with the card's `nvidia-smi` name and power limit)
 and writes it to `--out`. `recorded_launches` is also how `chip_smoke.py`
-times K7 launch by launch. Needs a CUDA device.
+times K7 launch by launch, and `ring_graph` / `flagship_graph` are the
+graphs it holds K11 to. To time a parent commit in the same call, copy this
+file into an unpacked parent tree and run it there too: it needs of that
+tree only the phases of its `chip_smoke.py` and the wrappers' public
+functions. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -45,17 +59,20 @@ import argparse
 import json
 import os
 import sys
+from collections import defaultdict
 
+import numpy as np
 import torch
 
 from . import kernels
 from .frontend import frame as frame_mod
 from .frontend import track_ops
-from .geometry import se3
+from .geometry import se3, sim3
+from .loop import loop_closing
 from .mapstate import covisibility as covis
 from .matching import matcher
 from .ops import fast, pyramid
-from .optim import ba_dense, pose_opt
+from .optim import ba_dense, pose_graph, pose_opt
 
 
 def recorded_launches(call) -> dict:
@@ -115,6 +132,178 @@ def pose_args(te, st, img_l, img_r) -> tuple:
     pr = matcher.match_select(**track_ops.local_map_query(m, cur, win, has, cfg))
     merged = torch.where(has, mp0, track_ops.lookup(pr.idx, win.rows))
     return cam, T_pred, pin1, Tcw0, track_ops.pose_inputs(cur, m.mp.pos, merged)
+
+
+def ring_graph(N: int = 2048, covis_k: int = 8, n_loop_slots: int = 32, radius: float = 50.0,
+               seed: int = 13, device="cuda", live: int | None = None,
+               hub: bool = False) -> pose_graph.PoseGraph:
+    """A populated essential graph in `build_essential_graph`'s layout
+    (E = N + N covis_k + n_loop_slots): `live` keyframes (all N by default)
+    on a ring of radius x live / N metres (0.15 m apart at 2048 and 50 m),
+    the spanning chain (parent i - 1, row 0 without one), each row's
+    covisibility edges to rows i + 2 .. i + covis_k + 1 (those past the last
+    live row unweighted), and two loop edges closing the ring in the first
+    two of the loop slots, or with `hub` every loop slot holding an edge of
+    row live // 2 to rows spread over the ring. Measurements are the true
+    relative poses with 2 cm / 0.01 rad of noise, the vertices the true
+    poses with 5 cm / 0.02 rad of drift; row 0 is fixed (the gauge), and so
+    are the rows past `live` (the identity, as a map's unused rows)."""
+    L = N if live is None else live
+    rng = np.random.default_rng(seed)
+    th = 2 * np.pi * np.arange(N) / L
+    xi = np.zeros((N, 7), np.float32)
+    r = radius * L / N
+    xi[:L, 0], xi[:L, 2], xi[:L, 4] = r * np.cos(th[:L]), r * np.sin(th[:L]), th[:L]
+    gt = sim3.exp(torch.from_numpy(xi))
+    rows = np.arange(N)
+    sp_i, sp_j = np.maximum(rows - 1, 0), rows
+    cv_j = rows[:, None] + 2 + np.arange(covis_k)[None, :]
+    cv_ok = cv_j < L
+    lp_i, lp_j = np.zeros(n_loop_slots, np.int64), np.zeros(n_loop_slots, np.int64)
+    lp_ok = np.arange(n_loop_slots) < 2
+    if hub:
+        h = L // 2
+        lp_i[:] = h
+        lp_j[:] = (h + 2 + np.arange(n_loop_slots) * max(1, (L - 3) // n_loop_slots)) % L
+        lp_ok[:] = True
+    else:
+        lp_i[:2], lp_j[:2] = (L - 1, L - 2), (0, 1)
+    e_i = np.concatenate([sp_i, np.repeat(rows, covis_k), lp_i])
+    e_j = np.concatenate([sp_j, np.where(cv_ok, cv_j, 0).reshape(-1), lp_j])
+    e_ok = np.concatenate([(rows > 0) & (rows < L), cv_ok.reshape(-1), lp_ok])
+    E = e_i.shape[0]
+    sd = np.array([0.02, 0.02, 0.02, 0.01, 0.01, 0.01, 0.0], np.float32)
+    noise = torch.from_numpy((rng.normal(size=(E, 7)) * sd).astype(np.float32))
+    drift = torch.from_numpy((rng.normal(size=(N, 7)) * 2.5 * sd).astype(np.float32))
+    drift[L:] = 0.0
+    take = lambda S, idx: tuple(x[torch.from_numpy(idx)] for x in S)  # noqa: E731
+    mR, mt, msc = sim3.compose(sim3.exp(noise),
+                               sim3.compose(take(gt, e_j), sim3.inverse(take(gt, e_i))))
+    R, t, sc = sim3.compose(sim3.exp(drift), gt)
+    dev = torch.device(device)
+    i32 = lambda a: torch.from_numpy(a.astype(np.int32)).to(dev)  # noqa: E731
+    return pose_graph.PoseGraph(
+        R.contiguous().to(dev), t.contiguous().to(dev), sc.contiguous().to(dev),
+        torch.from_numpy((rows == 0) | (rows >= L)).to(dev), i32(e_i), i32(e_j),
+        mR.contiguous().to(dev), mt.contiguous().to(dev), msc.contiguous().to(dev),
+        torch.from_numpy(e_ok).to(dev), torch.ones(E, device=dev))
+
+
+def flagship_graph(m) -> pose_graph.PoseGraph:
+    """The essential graph of map `m` (`build_essential_graph`, N = its
+    keyframe capacity) with one synthetic loop edge between its first and
+    last live keyframes, their relative pose moved 5 cm; the first is the
+    fixed row."""
+    live = torch.nonzero(m.kf.valid)[:, 0].tolist()
+    a0, a1 = live[0], live[-1]
+    dev = m.kf.Tcw.device
+    T_rel = m.kf.Tcw[a1] @ se3.inverse(m.kf.Tcw[a0])
+    loops = loop_closing.LoopEdges.empty(device=dev).add(
+        0, a0, a1, T_rel[:3, :3], T_rel[:3, 3] + torch.tensor([0.05, 0.0, 0.0], device=dev),
+        torch.ones((), device=dev))
+    return loop_closing.build_essential_graph(m, loops, a0, m.kf.Tcw.clone())
+
+
+def match_queries(te, st, img_l, img_r) -> tuple:
+    """The two `match_select` queries of frame `img_l, img_r` from tracking
+    state `st`, as `_track_core` makes them: the motion-model match, then
+    the local map's projection search."""
+    cam, m, mp0, rows, ok, ref_kf, Tcw0, cfg = window_args(te, st, img_l, img_r)
+    cur = frame_mod.build_frame_stereo(img_l, img_r, cam, cfg.orb, device=m.mp.pos.device)
+    T_pred = se3.compose(st.velocity, st.prev.Tcw)
+    q_ff = track_ops.motion_model_query(cam, m, st.prev, cur, T_pred, cfg)
+    win = track_ops.local_map_window(cam, m, mp0, rows, ok, ref_kf, Tcw0, cfg)
+    q_pr = track_ops.local_map_query(m, cur, win, mp0 >= 0, cfg)
+    return q_ff, q_pr
+
+
+def time_k5(cs, te, tp) -> dict:
+    """K5 on frame CHECK_FRAME's two calls: together, each alone and each C
+    entry alone, as replayed graphs; the launches a frame."""
+    q_ff, q_pr = match_queries(te, tp["check_state"], *tp["imgs"][cs.CHECK_FRAME])
+    ff = lambda: matcher.match_select(**q_ff)  # noqa: E731
+    pr = lambda: matcher.match_select(**q_pr)  # noqa: E731
+    both = lambda: (ff(), pr())  # noqa: E731
+    out = dict(queries=[[int(q["valid_q"].sum()), int(q["valid_t"].sum()),
+                         q["desc_q"].shape[0], q["desc_t"].shape[0]] for q in (q_ff, q_pr)],
+               frame_graph_ms=cs.graph_ms(both), motion_graph_ms=cs.graph_ms(ff),
+               local_map_graph_ms=cs.graph_ms(pr), launches_per_frame=cs.launches_of(
+                   both, "match_masked"))
+    for name, fn in (("motion", ff), ("local_map", pr)):
+        out[f"{name}_launches_graph_ms"] = {k: cs.graph_ms(f)
+                                           for k, f in recorded_launches(fn).items()}
+    return out
+
+
+def time_k11(cs, graphs: dict, reps: int = 3) -> dict:
+    """K11's `optimize(g, 20, 40)` on each graph, CUDA events around
+    back-to-back calls, and its launches a call."""
+    out = {}
+    for name, g in graphs.items():
+        opt = lambda g=g: pose_graph.optimize(g, 20, 40)  # noqa: E731
+        out[name] = dict(free_vertices=int((~g.fixed).sum()),
+                         weighted_edges=int(g.e_valid.sum()), edges=g.e_i.shape[0],
+                         launches_per_optimize=cs.launches_of(opt, "pose_graph"),
+                         optimize_events_ms=events_ms(opt, reps))
+    return out
+
+
+def device_per_frame(step, n: int) -> dict:
+    """torch.profiler over n step() calls: wall and device ms a frame, the
+    device's idle share, launches a frame (as `profile_frame` reports)."""
+    from time import perf_counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    per = defaultdict(float)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = (perf_counter() - t0) * 1e3 / n
+    count = 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            per[ev.name] += ev.device_time_total / 1e3 / n
+            count += 1
+    dev_ms = sum(per.values())
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:12]
+    return dict(wall_ms_per_frame=wall, device_ms_per_frame=dev_ms,
+                device_idle_share=max(0.0, 1.0 - dev_ms / wall), launches_per_frame=count / n,
+                top_kernels_ms=[[k[:80], v] for k, v in top])
+
+
+def time_k11_k5(cs, te, tp) -> dict:
+    """K5 on frame 12, K11 on the ring graphs and the flagship map's graph,
+    the tracker's device time a frame, the loop orbit's and the stereo e2e
+    lap's closures and largest frame."""
+    from . import profile_frame
+
+    out = dict(k5=time_k5(cs, te, tp))
+    graphs = {f"ring_live{L}": ring_graph(2048, live=L) for L in (512, 1024, 2048)}
+    kp = cs.run_tracker_phase()
+    out["tracker_schedule"] = {k: kp[k] for k in ("frame_ms_p50", "frame_ms_p90",
+                                                  "frame_ms_max", "keyframes", "valid_points",
+                                                  "ate_m")}
+    graphs["flagship_map"] = flagship_graph(kp["tracker"].map)
+    del kp
+    out["k11"] = time_k11(cs, graphs)
+    ring = graphs["ring_live2048"]
+    out["k11"]["ring_live2048"]["plain_events_ms"] = events_ms(
+        lambda: pose_graph.optimize_plain(ring, 20, 40), 2)
+    out["tracker_device"] = device_per_frame(profile_frame.tracker_frames(10), 10)
+    lp = cs.run_loop_phase()
+    out["loop_orbit"] = dict(close_ms=lp["close_ms"], frame_ms_max=max(lp["frame_ms"]),
+                             frame_ms_p50=lp["frame_ms_p50"], frame_ms_p90=lp["frame_ms_p90"],
+                             loops=lp["loops"], pose_graph_launches=lp["launches"]["pose_graph"])
+    del lp
+    ep = cs.run_e2e_phase("stereo")
+    out["e2e_stereo"] = dict(close_ms=ep["close_ms"], frame_ms_max=ep["frame_ms_max"],
+                             frame_ms_p50=ep["frame_ms_p50"], frame_ms_p90=ep["frame_ms_p90"],
+                             loops=ep["n_loops"], pose_graph_launches=ep["launches"]["pose_graph"])
+    return out
 
 
 def time_k6_k2(cs, te, tp) -> dict:
@@ -221,9 +410,10 @@ def time_k8(cam, pb, n_iters: int, cg: int, huber: int, graph_ms, counter="ba_de
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join("chiprun_out", "kernel_times.json"))
-    ap.add_argument("--parts", default="k6k2,k6sweep,k7k8",
+    ap.add_argument("--parts", default="k6k2,k6sweep,k11k5,k7k8",
                     help="k6k2: K6 and K2 on the tracking path; k6sweep: K6 by observations "
-                         "and iterations; k7k8: K7, K8 and the tracker")
+                         "and iterations; k11k5: K5 on the tracking path, K11, the tracker's "
+                         "device time and the loop closures; k7k8: K7, K8 and the tracker")
     args = ap.parse_args()
     parts = set(args.parts.split(","))
     if not torch.cuda.is_available():
@@ -240,6 +430,8 @@ def main() -> None:
         out.update(time_k6_k2(cs, te, tp))
     if "k6sweep" in parts:
         out["k6_sweep"] = time_k6_sweep(cs)
+    if "k11k5" in parts:
+        out.update(time_k11_k5(cs, te, tp))
     if "k7k8" not in parts:
         return finish(out, args.out)
     wargs = window_args(te, tp["check_state"], *tp["imgs"][cs.CHECK_FRAME])

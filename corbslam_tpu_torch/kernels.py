@@ -72,8 +72,7 @@ _SIGNATURES = {
     "stereo_finish": [VP] * 4 + [I32, F32] + [VP] * 4,
     "rgbd_stereo": [VP, I32, I32] + [VP] * 3 + [I32, F32, F32] + [VP] * 3 + [VP],
     # match_masked.cu
-    "match_rows": [VP] * 10 + [F32] + [I32] * 6 + [VP] * 4 + [VP],
-    "match_finish": [VP] * 6 + [I32] * 4 + [F32, I32] + [VP] * 3 + [VP],
+    "match_select": [VP] * 10 + [F32] + [I32] * 7 + [F32, I32] + [VP] * 8 + [VP],
     # pose_opt.cu
     "pose_opt": [VP] * 6 + [I32] * 3 + [F32] * 5 + [VP] * 4 + [VP],
     # local_map.cu
@@ -103,8 +102,8 @@ _SIGNATURES = {
     "pnp_select": [VP] * 4 + [I32] + [VP] * 3 + [I32, I32] + [F32] * 5 + [VP] * 4 + [VP],
     # pose_graph.cu
     "pg_linearize": [VP] * 8 + [I32] + [VP] * 2 + [VP],
-    "pg_step": [VP] * 4 + [I32] + [VP] * 3 + [I32] + [VP] * 4 + [I32, F32, I32] + [VP] * 2
-               + [VP],
+    "pg_optimize": ([VP] * 4 + [I32] + [VP] * 6 + [I32] + [VP] * 2 + [I32] * 2 + [F32]
+                    + [VP] * 2 + [I32] + [VP]),
     "covis_count": [VP] * 3 + [I32] * 3 + [VP] + [VP],
     "covis_fill": [VP] * 3 + [I32] * 3 + [VP] * 3 + [VP],
     "covis_pairs": [VP, VP, I32, I32, VP] + [VP],

@@ -10,7 +10,9 @@ ratio test with a strict `<` against the second best, the mutual
 cross-check, and for frame-to-frame matching the 30-bin rotation histogram.
 The reference builds the dense [Nq, Nt] candidacy mask and distance matrix;
 `match_select` is the wrapper of kernel K5 (`csrc/match_masked.cu`), which
-evaluates the mask inline and stores nothing Nq x Nt. On CPU tensors it runs
+evaluates the mask inline and stores nothing Nq x Nt, in one launch per
+call (its column keys and batch tickets live in `k5_workspace`, which the
+kernel restores before it ends). On CPU tensors it runs
 `match_select_plain`, the reference's dense formulation. The mask is the
 validity of both sides and, optionally, one geometric test: the projection
 window (`Window`), an area window around the query (`AreaWindow`, mono
@@ -33,7 +35,9 @@ from ..ops import descriptors as D
 
 NO_MATCH = -1
 TWO_PI = 2.0 * math.pi  # a Python float, rounded to f32 where it meets f32
-MAX_FINISH_N = 12288     # match_finish keeps one int per query in 48 KB of shared memory
+MAX_FINISH_N = 12288     # K5's finish keeps one int per query in 48 KB of shared memory
+COL_EMPTY = 512 << 32    # a column key with no candidate: (INF_DIST << 32) | row 0
+_K5_WORK: dict = {}
 
 
 class MatchResult(NamedTuple):
@@ -194,27 +198,41 @@ def match_select_plain(desc_q, desc_t, valid_q, valid_t, max_dist: int, ratio: f
     return MatchResult(torch.where(ok, res.idx, torch.full_like(res.idx, NO_MATCH)), res.dist, ok)
 
 
+def k5_workspace(device, B: int, Nt: int, stream: int = 0) -> tuple:
+    """K5's column keys (at least B * Nt, int64, all COL_EMPTY) and batch
+    tickets (at least B, int32, all 0) for one stream. They are kept from
+    call to call: each call's last CTA of a batch restores its keys and
+    ticket before the launch ends, so a call needs no fill. A call that
+    needs more than the kept buffers gets new ones, filled once."""
+    key = (torch.device(device), stream)
+    cols, tick = _K5_WORK.get(key, (None, None))
+    if cols is None or cols.numel() < B * Nt or tick.numel() < B:
+        n_cols = max(B * Nt, 0 if cols is None else cols.numel())
+        n_tick = max(B, 0 if tick is None else tick.numel())
+        cols = torch.full((n_cols,), COL_EMPTY, dtype=torch.int64, device=device)
+        tick = torch.zeros(n_tick, dtype=torch.int32, device=device)
+        _K5_WORK[key] = (cols, tick)
+    return cols, tick
+
+
 def _launch_k5(counter: str, desc_q, desc_t, valid_q, valid_t, win_args, mode: int, B: int,
                max_dist: int, ratio: float, mutual: bool, angle_q=None, angle_t=None
                ) -> MatchResult:
-    """K5's two launches over B batches of Nq queries (fields [B * Nq])."""
+    """K5's one launch over B batches of Nq queries (fields [B * Nq])."""
     Nq, Nt = desc_q.shape[0], desc_t.shape[-2]
     dev = desc_q.device
     p = kernels.ptr
-    best_d, best_j, second = (torch.empty(B * Nq, dtype=torch.int32, device=dev)
-                              for _ in range(3))
-    col = torch.empty(B * Nt, dtype=torch.int64, device=dev) if mutual else None
-    kernels.launch(
-        counter, "match_rows", p(desc_q), p(desc_t), p(valid_q), p(valid_t), *win_args,
-        Nq, Nt, B, mode, p(best_d), p(best_j), p(second), p(col) if mutual else None)
+    cols, tick = k5_workspace(dev, B, Nt, kernels.stream())
+    rows = torch.empty(2 * B * Nq, dtype=torch.int32, device=dev)
     idx = torch.empty(B * Nq, dtype=torch.int32, device=dev)
     dist = torch.empty(B * Nq, dtype=torch.int32, device=dev)
     ok = torch.empty(B * Nq, dtype=torch.bool, device=dev)
+    rot = angle_q is not None
     kernels.launch(
-        counter, "match_finish", p(best_d), p(best_j), p(second),
-        p(col) if mutual else None,
-        p(angle_q) if angle_q is not None else None, p(angle_t) if angle_q is not None else None,
-        Nq, Nt, B, int(max_dist), float(ratio), int(ratio < 1.0), p(idx), p(dist), p(ok))
+        counter, "match_select", p(desc_q), p(desc_t), p(valid_q), p(valid_t), *win_args,
+        Nq, Nt, B, mode, int(max_dist), float(ratio), int(ratio < 1.0),
+        p(angle_q) if rot else None, p(angle_t) if rot else None,
+        p(cols) if mutual else None, p(tick), p(rows), p(idx), p(dist), p(ok))
     return MatchResult(idx, dist, ok)
 
 

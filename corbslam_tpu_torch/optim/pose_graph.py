@@ -12,10 +12,13 @@ equations, then two polar steps of the rotations: no tolerance exit, so the
 card runs it without a host sync.
 
 On CUDA tensors both run on kernel K11 (`csrc/pose_graph.cu`): the
-linearization as one launch over (edge, direction) pairs, each Gauss-Newton
-iteration as one CTA that builds the 7x7 blocks, runs the PCG and retracts,
-with the segment sums taken from a vertex-major incidence list in a fixed
-order (no float atomics).
+linearization alone as one launch over (edge, direction) pairs, and the
+whole of `optimize` as one cooperative launch (one CTA on each SM) that
+linearizes each CTA's range of edges into its shared memory, builds and
+inverts the 7x7 blocks of its range of vertices, runs the PCG with grid
+barriers between its phases and retracts, with the segment sums taken from
+a vertex-major incidence list in a fixed order (no float atomics) and the
+dot products added in CTA order, so two runs are bit-equal.
 """
 
 from __future__ import annotations
@@ -174,40 +177,59 @@ def optimize_plain(g: PoseGraph, n_iters: int = 20, cg_iters: int = 50, lam: flo
     return (_polar(R), t, s), torch.stack(costs)
 
 
-def optimize(g: PoseGraph, n_iters: int = 20, cg_iters: int = 50, lam: float = 1e-6):
-    """Gauss-Newton with fixed damping; returns ((R, t, s), costs [n_iters])."""
-    if not g.R.is_cuda:
-        if g.R.device.type != "cpu":
-            raise ValueError(f"unsupported device {g.R.device}")
-        return optimize_plain(g, n_iters, cg_iters, lam)
-    g = PoseGraph(*(x.contiguous() for x in g))
-    dev, N, E = _check_graph(g)
-    # Vertex-major incidence list of the weighted edges, ordered (vertex,
-    # side, edge): the segment sums add the i-side terms in edge order, then
-    # the j-side terms, as the reference's two segment sums do. Edges of
-    # weight 0 (invalid) add exactly 0 there and are left out: they sort
-    # past the last vertex's segment (without a host sync), so the vertices
-    # they default to (rows 0-7) carry no long lists.
-    w = (g.e_valid.to(torch.float32) * g.e_weight).contiguous()
+def scratch_floats(N: int, E: int) -> int:
+    """Floats of `pg_optimize`'s device-memory scratch (the layout of
+    `csrc/pose_graph.cu`: per edge its Jacobians and residual, 2 x 35 block
+    terms and 2 x 7 CG terms; per vertex z and two CG directions; 3 x 1024
+    per-CTA partials). A vertex's other state lives in its CTA's shared
+    memory."""
+    return E * (2 * 49 + 7 + 2 * 35 + 14) + N * 3 * 7 + 3 * 1024
+
+
+def incidence(g: PoseGraph, w: torch.Tensor):
+    """Vertex-major incidence list of the weighted edges (w != 0): (off
+    [N + 1], inc), inc holding side * E + edge ordered (vertex, side, edge),
+    so a segment sum adds the i-side terms in edge order, then the j-side
+    terms, as the reference's two segment sums do. Edges of weight 0 add
+    exactly 0 there and are left out: they sort past the last vertex's
+    segment (without a host sync), so the vertices they default to carry no
+    long lists."""
+    N, E = g.R.shape[0], g.e_i.shape[0]
+    dev = g.R.device
     ends = torch.cat([g.e_i, g.e_j]).long()
     live = torch.cat([w, w]) != 0
     side = torch.cat([torch.zeros(E, dtype=torch.long, device=dev),
                       torch.ones(E, dtype=torch.long, device=dev)])
     edge = torch.arange(E, device=dev).repeat(2)
     key = torch.where(live, ends, torch.full_like(ends, N)) * (2 * E) + side * E + edge
-    inc = (side * E + edge)[torch.sort(key)[1]].to(torch.int32)   # side * E + edge
+    inc = (side * E + edge)[torch.sort(key)[1]].to(torch.int32)
     off = torch.zeros(N + 1, dtype=torch.int32, device=dev)
     off[1:] = torch.cumsum(torch.bincount(ends, weights=live.to(torch.float32), minlength=N),
                            0).to(torch.int32)
+    return off, inc
+
+
+def optimize(g: PoseGraph, n_iters: int = 20, cg_iters: int = 50, lam: float = 1e-6):
+    """Gauss-Newton with fixed damping; returns ((R, t, s), costs [n_iters]).
+    On CUDA tensors one cooperative launch of K11; it raises if the card
+    cannot hold the grid."""
+    if not g.R.is_cuda:
+        if g.R.device.type != "cpu":
+            raise ValueError(f"unsupported device {g.R.device}")
+        return optimize_plain(g, n_iters, cg_iters, lam)
+    return _optimize_cuda(g, n_iters, cg_iters, lam)
+
+
+def _optimize_cuda(g: PoseGraph, n_iters: int, cg_iters: int, lam: float):
+    g = PoseGraph(*(x.contiguous() for x in g))
+    dev, N, E = _check_graph(g)
+    w = (g.e_valid.to(torch.float32) * g.e_weight).contiguous()
+    off, inc = incidence(g, w)
     R, t, s = g.R.clone(), g.t.clone(), g.s.clone()
-    r = torch.empty(E, 7, dtype=torch.float32, device=dev)
-    J = torch.empty(E, 2, 7, 7, dtype=torch.float32, device=dev)
-    work = torch.empty(N * (49 + 7 * 6) + E * 7, dtype=torch.float32, device=dev)
+    work = torch.empty(scratch_floats(N, E), dtype=torch.float32, device=dev)
     costs = torch.empty(n_iters, dtype=torch.float32, device=dev)
     p = kernels.ptr
-    for it in range(n_iters):
-        _linearize_cuda(g, R, t, s, r, J)
-        kernels.launch("pose_graph", "pg_step", p(R), p(t), p(s), p(g.fixed), N, p(g.e_i),
-                       p(g.e_j), p(w), E, p(off), p(inc), p(r), p(J), int(cg_iters), float(lam),
-                       int(it == n_iters - 1), p(work), p(costs[it:]))
+    kernels.launch("pose_graph", "pg_optimize", p(R), p(t), p(s), p(g.fixed), N, p(g.e_i),
+                   p(g.e_j), p(g.mR), p(g.mt), p(g.ms), p(w), E, p(off), p(inc), int(n_iters),
+                   int(cg_iters), float(lam), p(costs), p(work), work.numel())
     return (R, t, s), costs

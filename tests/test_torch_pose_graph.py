@@ -3,6 +3,10 @@ spanning chain (`mapstate/covisibility.py`) and essential graph
 (`loop/loop_closing.build_essential_graph`) — kernel K11's plain versions —
 against the JAX package, on graphs and maps made from a seed with numpy.
 
+The optimizer runs on a noisy loop ring and on a graph in the essential
+graph's layout (unweighted tail edges at vertex 0, unused loop slots), and
+the incidence list the kernel sums from is held against a direct build.
+
 Tolerances and why: residuals and Jacobians within 1e-4 of each array's
 largest entry (the reference differentiates with jax.jacfwd, the port with
 one forward-mode direction per pass, through the same f32 formulas);
@@ -14,6 +18,7 @@ counts, parents and edge lists are integers and exact.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from corbslam_tpu.config import CapacityConfig as JCapacity
@@ -95,8 +100,42 @@ def loop_graph(rng, N=64):
                   e_valid)
 
 
-def test_optimize_on_a_loop_graph():
-    g = loop_graph(np.random.default_rng(1))
+def essential_graph(rng, N=48, covis_k=8, n_loop_slots=4):
+    """A graph in `build_essential_graph`'s layout (E = N + N covis_k +
+    n_loop_slots): the spanning chain (row 0 without a parent, its edge
+    unweighted and defaulting to vertex 0), each row's covisibility edges
+    to rows i + 2 .. i + covis_k + 1 (the tail past the last row unweighted,
+    defaulting to vertex 0), two of four loop slots closing the ring (the
+    rest unweighted at vertex 0); row 0 fixed. Vertices are the drifted
+    truth on a 4 m ring, measurements the truth with noise."""
+    th = 2 * np.pi * np.arange(N) / N
+    xi = np.zeros((N, 7), np.float32)
+    xi[:, 0], xi[:, 2], xi[:, 4] = 4 * np.cos(th), 4 * np.sin(th), th
+    gt = sim3.exp(torch.from_numpy(xi))
+    rows = np.arange(N)
+    cv_j = rows[:, None] + 2 + np.arange(covis_k)[None, :]
+    cv_ok = cv_j < N
+    lp_i, lp_j = np.zeros(n_loop_slots, np.int32), np.zeros(n_loop_slots, np.int32)
+    lp_i[:2], lp_j[:2] = (N - 1, N - 2), (0, 1)
+    ei = np.concatenate([np.maximum(rows - 1, 0), np.repeat(rows, covis_k), lp_i]).astype(np.int32)
+    ej = np.concatenate([rows, np.where(cv_ok, cv_j, 0).reshape(-1), lp_j]).astype(np.int32)
+    e_valid = np.concatenate([rows > 0, cv_ok.reshape(-1), np.arange(n_loop_slots) < 2])
+    E = len(ei)
+    noise = rng.normal(size=(E, 7)) * [0.02, 0.02, 0.02, 0.01, 0.01, 0.01, 0.0]
+    take = lambda S, idx: tuple(x[torch.from_numpy(idx).long()] for x in S)  # noqa: E731
+    meas = sim3.compose(sim3.exp(torch.from_numpy(noise.astype(np.float32))),
+                        sim3.compose(take(gt, ej), sim3.inverse(take(gt, ei))))
+    drift = rng.normal(size=(N, 7)) * [0.05, 0.05, 0.05, 0.02, 0.02, 0.02, 0.0]
+    V0 = sim3.compose(sim3.exp(torch.from_numpy(drift.astype(np.float32))), gt)
+    fixed = rows == 0
+    return jgraph(tuple(x.numpy() for x in V0), ei, ej, tuple(x.numpy() for x in meas), fixed,
+                  e_valid)
+
+
+@pytest.mark.parametrize("layout", ["loop", "essential"])
+def test_optimize_on_a_loop_graph(layout):
+    rng = np.random.default_rng(1)
+    g = loop_graph(rng) if layout == "loop" else essential_graph(rng)
     (R, t, s), costs = jpg.optimize(g, n_iters=20, cg_iters=40)
     (Rp, tp, sp), cp = pg.optimize(graph_to_port(g), n_iters=20, cg_iters=40)
     np.testing.assert_allclose(tp.numpy(), np.asarray(t), rtol=0, atol=1e-4)
@@ -104,6 +143,23 @@ def test_optimize_on_a_loop_graph():
     np.testing.assert_allclose(sp.numpy(), np.asarray(s), rtol=0, atol=1e-4)
     np.testing.assert_allclose(cp.numpy(), np.asarray(costs), rtol=1e-3)
     assert float(cp[-1]) < 0.1 * float(cp[0])
+
+
+def test_incidence_list_is_vertex_side_edge_order_of_the_weighted_edges():
+    """The incidence list K11 sums from (`pose_graph.incidence`), held
+    against a direct build: for each vertex its weighted edges' codes side
+    * E + edge, the i-side ones in edge order, then the j-side ones."""
+    g = graph_to_port(essential_graph(np.random.default_rng(4), N=20, n_loop_slots=4))
+    w = g.e_valid.to(torch.float32) * g.e_weight
+    w[7] = 0.0
+    off, inc = pg.incidence(g, w)
+    N, E = g.R.shape[0], g.e_i.shape[0]
+    ref = [[side * E + e for side, ends in enumerate((g.e_i, g.e_j)) for e in range(E)
+            if int(ends[e]) == v and float(w[e]) != 0.0] for v in range(N)]
+    assert off.tolist() == np.cumsum([0] + [len(r) for r in ref]).tolist()
+    assert inc[:int(off[-1])].tolist() == [c for r in ref for c in r]
+    assert sorted(inc.tolist()) == sorted(range(2 * E)) and inc.dtype == torch.int32
+    assert pg.scratch_floats(N, E) == E * 189 + N * 21 + 3 * 1024
 
 
 N_KF, F, M = 32, 192, 2048

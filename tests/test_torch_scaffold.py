@@ -403,3 +403,65 @@ def test_cuda_sources_carry_their_header_note(src):
     head = src.read_text().split("#include")[0]
     assert "Replaces corbslam_tpu/" in head
     assert "Bound on the H100" in head and "Design" in head
+
+
+@pytest.mark.parametrize("wrapper", ["pose_graph", "match", "band_search"])
+def test_k11_and_k5_make_one_launch_that_fits_their_c_entry(wrapper, monkeypatch):
+    """K11's `optimize` and K5's `match_select` / `band_search` make one
+    launch a call, whose argument list fits its C entry's ctypes signature
+    (and K11's scratch is `scratch_floats`); run here on CPU tensors with
+    the launch recorded instead of made."""
+    calls = []
+    monkeypatch.setattr(kernels, "launch", lambda counter, fn, *a: calls.append((counter, fn, a)))
+    monkeypatch.setattr(kernels, "ptr", lambda t: 0)
+    monkeypatch.setattr(kernels, "stream", lambda: 0)
+    monkeypatch.setattr(kernels, "check", lambda *a, **k: None)
+    monkeypatch.setattr(matcher, "_K5_WORK", {})
+    rng = np.random.default_rng(0)
+    Nq, Nt = 9, 13
+    d = torch.from_numpy(rng.integers(0, 256, (Nq, 32), dtype=np.uint8))
+    dt = torch.from_numpy(rng.integers(0, 256, (Nt, 32), dtype=np.uint8))
+    xy, uv = torch.rand(Nq, 2) * 50, torch.rand(Nt, 2) * 50
+    oq, ot = torch.zeros(Nq, dtype=torch.int32), torch.zeros(Nt, dtype=torch.int32)
+    if wrapper == "pose_graph":
+        N, E = 6, 10
+        g = pose_graph.PoseGraph(
+            torch.eye(3).repeat(N, 1, 1), torch.zeros(N, 3), torch.ones(N),
+            torch.arange(N) == 0, torch.arange(E, dtype=torch.int32) % N,
+            (torch.arange(E, dtype=torch.int32) + 1) % N, torch.eye(3).repeat(E, 1, 1),
+            torch.zeros(E, 3), torch.ones(E), torch.ones(E, dtype=torch.bool), torch.ones(E))
+        pose_graph._optimize_cuda(g, 20, 40, 1e-6)
+        assert calls[0][1] == "pg_optimize" and calls[0][2][-1] == pose_graph.scratch_floats(N, E)
+    elif wrapper == "match":
+        win = matcher.Window(uv, xy, oq, ot, torch.ones(8), 15.0, 1, 1)
+        matcher._match_select_cuda(d, dt, torch.ones(Nq, dtype=torch.bool),
+                                   torch.ones(Nt, dtype=torch.bool), 50, 0.9, True, win,
+                                   torch.zeros(Nq), torch.zeros(Nt))
+    else:
+        B = 3
+        matcher._band_search_cuda(d, torch.ones(B, Nq, dtype=torch.bool), xy, dt[None].repeat(
+            B, 1, 1), torch.ones(B, Nt, dtype=torch.bool), uv[None].repeat(B, 1, 1),
+            ot[None].repeat(B, 1), torch.eye(3).repeat(B, 1, 1), None, torch.ones(8), 50, 1.0,
+            True)
+    assert len(calls) == 1
+    counter, fn, args = calls[0]
+    assert counter in kernels.LAUNCHES
+    assert len(args) + 1 == len(kernels._SIGNATURES[fn])  # + the stream
+
+
+def test_k5_workspace_is_kept_per_stream_and_grown_filled(monkeypatch):
+    """K5's column keys and batch tickets: all COL_EMPTY and 0 when made,
+    kept from call to call on one stream, grown (and filled) when a call
+    needs more, separate for another stream."""
+    monkeypatch.setattr(matcher, "_K5_WORK", {})
+    assert matcher.COL_EMPTY == 512 << 32
+    cols, tick = matcher.k5_workspace("cpu", 2, 5, stream=7)
+    assert cols.numel() == 10 and cols.dtype == torch.int64 and tick.numel() == 2
+    assert bool((cols == matcher.COL_EMPTY).all()) and not bool(tick.any())
+    again, tick2 = matcher.k5_workspace("cpu", 1, 7, stream=7)
+    assert again is cols and tick2 is tick
+    grown, tick3 = matcher.k5_workspace("cpu", 3, 4, stream=7)
+    assert grown.numel() == 12 and tick3.numel() == 3
+    assert bool((grown == matcher.COL_EMPTY).all()) and not bool(tick3.any())
+    other, _ = matcher.k5_workspace("cpu", 1, 2, stream=8)
+    assert other is not grown and matcher.k5_workspace("cpu", 1, 2, stream=7)[0] is grown

@@ -5,12 +5,12 @@
 1. prints the environment and the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from corbslam_tpu_torch/csrc/ (nvcc) and
    prints nvcc's register, spill and stack-frame bytes per kernel (K6's,
-   K2's, K11's pose graph and K5's kernels must not spill, and K6's and
-   K11's have no stack frame);
+   K2's, K11's pose graph, K5's, K1's and K4's kernels must not spill, and
+   K6's, K11's, K1's and K4's have no stack frame);
 3. drives the front end — `build_frame_stereo` through `entry.entry()` — on
    3 warm-up and 20 timed stereo frames with all launch counters reset just
-   before, checks its four kernels were launched, the outputs are finite and
-   the feature / stereo counts are sane;
+   before, checks its four kernels were launched (K1 and K4 once a frame),
+   the outputs are finite and the feature / stereo counts are sane;
 4. drives the tracking path — `track_frame_stereo` through
    `entry.track_entry()`: the bench camera, KITTI_STEREO at full capacity and
    the bench's PlanarWorld rendered on the card — with all counters reset
@@ -46,9 +46,11 @@
    from run to run, or where two profiler sessions record nothing, the
    replay of a CUDA graph of up to 100 calls between CUDA events); the
    host-inclusive time of the wrappers (CUDA events around
-   eager calls) is printed beside them. The stereo kernel is also held
-   against its plain version where every feature passes, so that its median
-   cut is live;
+   eager calls) is printed beside them. K1 and K4 make one launch a call.
+   The stereo kernel is also held against its plain version where every
+   feature passes, so that its median cut is live, and on the edge cases of
+   its row buckets (`kernel_times.stereo_edge_cases`); K1-K4 also at
+   120x200 and at the orbits' 320x240;
 7. drives loop closing, the loop path's main path: `entry.loop_entry()`
    (the 320x240 loop-validation config, the shipped vocab32k, global BA
    off, the room `MultiPlaneWorld` rendered on the card) over the 71-frame
@@ -152,8 +154,8 @@ from corbslam_tpu_torch.config import CapacityConfig  # noqa: E402
 from corbslam_tpu_torch.entry import (  # noqa: E402
     BENCH_FRAMES, BENCH_WARM, BENCH_WINDOW, CAM, CFG, E2E_RADIUS, E2E_TRAIN_ITERS, E2E_WORDS,
     LOOP_FRAMES, MONO_FRAMES, RGBD_FRAMES, TrackState, add_keyframe, bench_config, center_error,
-    e2e_entry, entry, gt_pose, loop_entry, orbit_pose, run_bench_schedule, run_e2e, run_sensor,
-    seed_map, sensor_entry, stereo_pair, track_entry, track_step, tracker_entry)
+    e2e_entry, entry, gt_pose, loop_config, loop_entry, orbit_pose, run_bench_schedule, run_e2e,
+    run_sensor, seed_map, sensor_entry, stereo_pair, track_entry, track_step, tracker_entry)
 from corbslam_tpu_torch.frontend import frame as frame_mod  # noqa: E402
 from corbslam_tpu_torch.frontend import reloc, track_ops  # noqa: E402
 from corbslam_tpu_torch.frontend.tracking import StereoTracker  # noqa: E402
@@ -161,7 +163,7 @@ from corbslam_tpu_torch.frontend.tracking import TrackState as TrackerState  # n
 from corbslam_tpu_torch.geometry import camera, se3, sim3  # noqa: E402
 from corbslam_tpu_torch.io import trajectory  # noqa: E402
 from corbslam_tpu_torch.kernel_times import (  # noqa: E402
-    flagship_graph, recorded_launches, ring_graph)
+    flagship_graph, recorded_launches, ring_graph, stereo_edge_cases)
 from corbslam_tpu_torch.loop import gba, loop_closing  # noqa: E402
 from corbslam_tpu_torch.mapping import local_mapping, triangulation  # noqa: E402
 from corbslam_tpu_torch.mapstate import covisibility as covis  # noqa: E402
@@ -250,11 +252,11 @@ def ptxas_summary(log: str) -> dict:
 
 
 # The kernels redesigned for the card must not spill, and K6's (its 6x6
-# solve in registers) and K11's (its 7x7 blocks and dual numbers in
-# registers) have no stack frame at all.
+# solve in registers), K11's (its 7x7 blocks and dual numbers in
+# registers), K1's and K4's have no stack frame at all.
 NO_SPILL = ("pose_opt_kernel", "fast_cell_max_kernel", "fast_topk_kernel", "pg_optimize_kernel",
-            "match_select_kernel")
-NO_STACK = ("pose_opt_kernel", "pg_optimize_kernel")
+            "match_select_kernel", "pyramid_kernel", "stereo_match_kernel")
+NO_STACK = ("pose_opt_kernel", "pg_optimize_kernel", "pyramid_kernel", "stereo_match_kernel")
 
 
 def check_ptxas(ptxas: dict) -> None:
@@ -387,10 +389,13 @@ def check_kernels(imgs: torch.Tensor, prm, timed: bool = True) -> tuple[list, di
                                      antialias=False)
             F.conv2d(F.pad(prev, (3, 3, 3, 3), mode="reflect"), k2)
 
+    # K1 and K4 are one launch a call.
+    require(launches_of(lambda: pyramid.build_pyramid(imgs, prm), "pyramid") == 1,
+            "pyramid: more than one launch a call")
+
     # Resize: 6 flops per output pixel of levels >= 1; blur: 2 x 7 multiply-adds
-    # per pixel of every level. Bytes: the images in, all levels and blurred
-    # levels out; level 0 is written by the wrapper's copy, whose device time
-    # is part of the wrapper's.
+    # per pixel of every level. Bytes: the images in, all levels (level 0 the
+    # images' copy) and blurred levels out.
     pix = prm.total
     row("pyramid", err, lambda: pyramid.build_pyramid(imgs, prm),
         lambda: pyramid.build_pyramid_plain(imgs, prm), library_pyramid,
@@ -433,6 +438,8 @@ def check_kernels(imgs: torch.Tensor, prm, timed: bool = True) -> tuple[list, di
     fl, fr = f.select(0), f.select(1)
     bf = float(CAM.bf)
     m_k, u_err, d_err = check_stereo(fl, fr, prm.scales, bf)
+    require(launches_of(lambda: stereo.stereo_match(fl, fr, prm.scales, bf), "stereo_match") == 1,
+            "stereo_match: more than one launch a call")
     # Candidate pairs that pass the row/disparity/octave/validity mask need
     # 8 XOR + 8 popcount + 7 adds; every pair needs ~8 ops of mask test.
     disp = fl.xy[:, None, 0] - fr.xy[None, :, 0]
@@ -476,7 +483,7 @@ def check_stereo(fl, fr, scales, bf):
 
 
 def check_stereo_median(prm, n_noisy: int = 40) -> dict:
-    """K4 where every feature passes before the cut, so `stereo_finish` takes
+    """K4 where every feature passes before the cut, so K4's last CTA takes
     the median (the two middle values averaged for even N) and the 2.1 x
     median cut is live: every left feature has an exact right twin 7 px to
     the left, and the right patches of the first `n_noisy` carry heavy noise
@@ -509,8 +516,10 @@ def check_stereo_median(prm, n_noisy: int = 40) -> dict:
 def check_small_geometry(dev) -> dict:
     """The kernels at a small geometry whose level-0 budget exceeds its cell
     count (112 slots, 104 cells), so fast_topk's zero-padded slots and
-    partial tiles are held against the plain versions too; and the mono
-    entry point on the card against the plain path on the CPU."""
+    partial tiles are held against the plain versions too; at the e2e and
+    loop orbits' image size and levels (320x240, `entry.loop_config`) on a
+    textured pair; and the mono entry point on the card against the plain
+    path on the CPU."""
     from corbslam_tpu_torch.config import OrbConfig
 
     cfg = OrbConfig(n_features=256, n_levels=3)
@@ -518,9 +527,32 @@ def check_small_geometry(dev) -> dict:
     imgs = orb.as_images(list(pair), dev)
     _, info = check_kernels(imgs, orb.params(cfg, 120, 200, str(dev)), timed=False)
     require(info["padded_slots"] >= 2 * 8, f"small geometry padded only {info['padded_slots']} slots")
+    ocfg = loop_config().orb
+    orbit = orb.as_images(list(stereo_pair(seed=11, shift=9, h=240, w=320)), dev)
+    _, info["orbit_size"] = check_kernels(orbit, orb.params(ocfg, 240, 320, str(dev)), timed=False)
     mono = compare_frames(frame_mod.build_frame_mono(pair[0], CAM, cfg, device="cuda"),
                           frame_mod.build_frame_mono(pair[0], CAM, cfg, device="cpu"))
     return dict(info, mono_vs_cpu=mono)
+
+
+def stereo_edges(dev) -> dict:
+    """K4 against its plain version on `kernel_times.stereo_edge_cases` (the
+    inputs tests/test_torch_stereo.py holds the plain version to against the
+    reference): idx, dist and ok exact, u_right and depth within 1e-3."""
+    out = {}
+    for name, (left, right, scales) in stereo_edge_cases().items():
+        def feats(side):
+            n = side["xy"].shape[0]
+            t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+            zeros = torch.zeros(n, dtype=torch.float32, device=dev)
+            return Features(t(side["xy"]), zeros, zeros, t(side["octave"]), t(side["desc"]),
+                            t(side["valid"]), t(side["patch"]))
+
+        m_k, u_err, d_err = check_stereo(feats(left), feats(right),
+                                         torch.from_numpy(scales).to(dev), float(CAM.bf))
+        out[name] = dict(ok=int(m_k.ok.sum()), matched=int((m_k.dist < 512).sum()),
+                         uright_max_abs_err=u_err, depth_max_abs_err=d_err)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -587,6 +619,9 @@ def run_main_path(fwd, entry_imgs) -> dict:
     launches = {k: kernels.LAUNCHES[k] for k in FRONT_END_KERNELS}
     for name, n in launches.items():
         require(n > 0, f"kernel {name} was not launched on the front end")
+    for name in ("pyramid", "stereo_match"):  # one launch a frame each
+        require(launches[name] == 3 + len(pairs),
+                f"{name}: {launches[name]} launches over {3 + len(pairs)} frames")
     ev, eo = int(entry_fd.fvalid.sum()), int((entry_fd.uright >= 0).sum())
     require(ev >= 1800, f"entry input: {ev} valid features < 1800")
     require(eo >= 1500, f"entry input: {eo} stereo matches < 1500")
@@ -3075,6 +3110,8 @@ def main() -> int:
     prm = orb.params(CFG, imgs.shape[1], imgs.shape[2], str(dev))
     rows, kinfo = check_kernels(imgs, prm)
     kinfo["stereo_median"] = check_stereo_median(prm)
+    kinfo["stereo_edges"] = stereo_edges(dev)
+    print(f"K4 edge cases: {json.dumps(kinfo['stereo_edges'])}", flush=True)
     kinfo["small_geometry"] = check_small_geometry(dev)
     kinfo["edges"] = pose_fast_edges(dev)
     print(f"K6 / K2 edge cases: {json.dumps(kinfo['edges'])}", flush=True)

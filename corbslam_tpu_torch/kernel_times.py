@@ -1,6 +1,6 @@
-"""K2's and K6's, K5's and K11's, K7's and K8's calls and launches, timed on the card.
+"""K1's and K4's, K2's and K6's, K5's and K11's, K7's and K8's calls and launches, timed on the card.
 
-    python -m corbslam_tpu_torch.kernel_times [--out PATH] [--parts k6k2,k6sweep,k11k5,k7k8]
+    python -m corbslam_tpu_torch.kernel_times [--out PATH] [--parts k1k4,k6k2,k6sweep,k11k5,k7k8]
 
 Run from the root of a checkout (it drives the phases of `chip_smoke.py`
 there for its inputs): the tracking path (frame 12's K5 and K6 calls and
@@ -11,6 +11,14 @@ problem) and the e2e stereo lap (its first GBA chunk's problem); it keeps
 the tracker's and the 2.5-lap orbit's frame times (asynchronous global BA
 beside the tracker). `--parts` picks what to time (default all). Then:
 
+- K1 (`pyramid.build_pyramid`) and K4 (`stereo.stereo_match`) on the
+  entry pair (1241x376, 8 levels, both images; K4 on the pair's features)
+  as CUDA graphs of up to 100 calls replayed between CUDA events
+  (`chip_smoke.graph_ms`), each call's launches, a hash of K1's two
+  buffers and of K4's five outputs (to compare trees bit for bit), and the
+  tracker's device time and launches a frame (torch.profiler over 10
+  frames of the schedule after its warm part, as `profile_frame
+  --tracker`) with K1's and K4's share (k1k4);
 - K6 (`pose_opt.optimize_pose`): frame 12's two calls, and each alone, as
   a CUDA graph of up to 100 calls replayed between CUDA events
   (`chip_smoke.graph_ms`), and the two calls with CUDA events around
@@ -189,6 +197,157 @@ def ring_graph(N: int = 2048, covis_k: int = 8, n_loop_slots: int = 32, radius: 
         torch.from_numpy(e_ok).to(dev), torch.ones(E, device=dev))
 
 
+class _StereoSide:
+    """Features of one side of a stereo edge case, added one at a time."""
+
+    def __init__(self):
+        self.rows = []
+
+    def add(self, x, y, octave, desc, patch, valid=True) -> int:
+        self.rows.append((np.float32(x), np.float32(y), octave, desc, patch, valid))
+        return len(self.rows) - 1
+
+    def arrays(self) -> dict:
+        x, y, o, d, p, v = zip(*self.rows)
+        return dict(xy=np.stack([np.asarray(x, np.float32), np.asarray(y, np.float32)], -1),
+                    octave=np.asarray(o, np.int32), valid=np.asarray(v, bool),
+                    desc=np.stack(d).astype(np.uint8), patch=np.stack(p).astype(np.float32))
+
+
+def stereo_edge_cases(n_levels: int = 8, scale_factor: float = 1.2, seed: int = 5) -> dict:
+    """Stereo inputs at the edges of K4's row buckets and mask: {name:
+    (left, right, scales)}, each side a dict of numpy arrays (xy [n, 2] f32,
+    octave i32, valid bool, desc [n, 32] u8, patch [n, 32, 32] f32), scales
+    [L] f32 as the front end's (scale_factor ** l). In each case a feature
+    the mask must drop has a better descriptor than the one it must keep.
+    Every case but "m1" carries invalid padded rows at (0, 0) on both sides.
+
+    - row_tol: right features at exactly |dy| = 2 scale[o_r] (kept) and at
+      the next float beyond (dropped), at octaves 0, 2 and 7 near the top
+      of the image (the bucket range wraps below row 0) and at octave 0 mid
+      image, above and below;
+    - disparity: disparity exactly -1 and 192 (kept), one float beyond each
+      (dropped);
+    - octave: |o_l - o_r| 1 (kept) and 2 (dropped) at octaves 0 and 7;
+    - ties: equal distances in different rows, the lower index on the row
+      below (a scan in row order meets the higher index first);
+    - no_candidate: valid left features with no right feature on their
+      rows (index 0, distance 512, not ok);
+    - one_row: every valid right feature on one row;
+    - padded: left features at and near (0, 0) beside the padded rows;
+    - m1: a single right feature."""
+    rng = np.random.default_rng(seed)
+    scales = np.asarray([scale_factor ** l for l in range(n_levels)], np.float32)
+    up = lambda v: np.nextafter(np.float32(v), np.float32(np.inf))  # noqa: E731
+    down = lambda v: np.nextafter(np.float32(v), np.float32(-np.inf))  # noqa: E731
+
+    def desc():
+        return rng.integers(0, 256, 32, dtype=np.uint8)
+
+    def flip(d, n_bits):
+        out = np.unpackbits(d.copy())
+        out[rng.choice(256, n_bits, replace=False)] ^= 1
+        return np.packbits(out)
+
+    def patch():
+        return rng.uniform(0, 255, (32, 32)).astype(np.float32)
+
+    def twin(p):
+        return p + rng.normal(0, 2.0, p.shape).astype(np.float32)
+
+    def pad(side, n):
+        for _ in range(n):
+            side.add(0.0, 0.0, 0, np.zeros(32, np.uint8), np.zeros((32, 32), np.float32), False)
+
+    def pair(L, R, x, y, o, kept, dropped, n_bits=6):
+        """A left feature, a kept right candidate (distance n_bits) at
+        `kept` = (x, y, octave) and a dropped one (distance 0) at `dropped`."""
+        d, p = desc(), patch()
+        L.add(x, y, o, d, p)
+        R.add(*kept, flip(d, n_bits), twin(p))
+        if dropped is not None:
+            R.add(*dropped, d, twin(p))
+
+    cases = {}
+    L, R = _StereoSide(), _StereoSide()
+    pad(L, 2)
+    pad(R, 3)
+    for o, y in ((0, 8.0), (2, 8.0), (7, 8.0), (0, 200.0)):
+        tol = np.float32(2.0) * scales[o]
+        yr = np.float32(np.float64(y) + np.float64(tol))
+        assert np.abs(np.float32(y) - yr) == tol and np.abs(np.float32(y) - up(yr)) > tol
+        pair(L, R, 400.0 + 37 * o, y, o, (390.0 + 37 * o, yr, o), (391.0 + 37 * o, up(yr), o))
+    pair(L, R, 700.0, 200.0, 0, (690.0, 198.0, 0), (691.0, down(198.0), 0))
+    cases["row_tol"] = (L.arrays(), R.arrays(), scales)
+
+    L, R = _StereoSide(), _StereoSide()
+    pad(L, 1)
+    pad(R, 2)
+    pair(L, R, 300.0, 120.0, 1, (301.0, 120.0, 1), (up(301.0), 120.0, 1))
+    pair(L, R, 500.0, 140.0, 1, (308.0, 140.0, 1), (down(308.0), 140.0, 1))
+    pair(L, R, 600.0, 160.0, 3, (580.0, 160.5, 3), (601.5, 160.0, 3))
+    cases["disparity"] = (L.arrays(), R.arrays(), scales)
+
+    L, R = _StereoSide(), _StereoSide()
+    pad(L, 1)
+    pad(R, 1)
+    pair(L, R, 200.0, 50.0, 0, (190.0, 50.0, 1), (191.0, 50.0, 2))
+    pair(L, R, 400.0, 250.0, 7, (390.0, 250.0, 6), (391.0, 250.0, 5))
+    pair(L, R, 600.0, 300.0, 7, (590.0, 300.0, 7), None)
+    cases["octave"] = (L.arrays(), R.arrays(), scales)
+
+    L, R = _StereoSide(), _StereoSide()
+    pad(R, 2)
+    d, p = desc(), patch()
+    L.add(500.0, 100.0, 1, d, p)
+    tie = flip(d, 9)
+    R.add(492.0, 101.5, 1, tie, twin(p))  # lower index, the row below
+    for k in range(5):
+        R.add(300.0 + k, 60.0 + 20 * k, 0, desc(), patch())
+    R.add(493.0, 98.5, 1, tie.copy(), twin(p))  # higher index, the row above
+    pad(L, 2)
+    cases["ties"] = (L.arrays(), R.arrays(), scales)
+
+    L, R = _StereoSide(), _StereoSide()
+    pad(L, 1)
+    pad(R, 2)
+    for k in range(6):
+        R.add(200.0 + 50 * k, 300.0, k % 3, desc(), patch())
+    for k in range(4):
+        L.add(220.0 + 60 * k, 40.0 + 30 * k, k % 3, desc(), patch())
+    cases["no_candidate"] = (L.arrays(), R.arrays(), scales)
+
+    L, R = _StereoSide(), _StereoSide()
+    pad(L, 2)
+    pad(R, 2)
+    for k in range(40):
+        d, p = desc(), patch()
+        x = 100.0 + 25 * k
+        R.add(x - 4.0 - (k % 9), 210.0, k % 3, flip(d, k % 7), twin(p))
+        if k % 2 == 0:
+            L.add(x, 210.0 + (k % 5) * 0.75, k % 3, d, p)
+    cases["one_row"] = (L.arrays(), R.arrays(), scales)
+
+    L, R = _StereoSide(), _StereoSide()
+    pad(R, 2)
+    d, p = desc(), patch()
+    L.add(0.0, 0.0, 0, d, p)
+    L.add(0.5, 0.5, 0, desc(), patch())
+    pad(L, 2)
+    R.add(0.0, 0.5, 0, flip(d, 3), twin(p))
+    pad(R, 2)
+    pair(L, R, 900.0, 350.0, 4, (880.0, 351.0, 4), None)
+    cases["padded"] = (L.arrays(), R.arrays(), scales)
+
+    L, R = _StereoSide(), _StereoSide()
+    d, p = desc(), patch()
+    L.add(640.0, 180.0, 2, d, p)
+    L.add(100.0, 20.0, 2, desc(), patch())
+    R.add(628.0, 180.5, 2, flip(d, 4), twin(p))
+    cases["m1"] = (L.arrays(), R.arrays(), scales)
+    return cases
+
+
 def flagship_graph(m) -> pose_graph.PoseGraph:
     """The essential graph of map `m` (`build_essential_graph`, N = its
     keyframe capacity) with one synthetic loop edge between its first and
@@ -248,9 +407,11 @@ def time_k11(cs, graphs: dict, reps: int = 3) -> dict:
     return out
 
 
-def device_per_frame(step, n: int) -> dict:
+def device_per_frame(step, n: int, watch=()) -> dict:
     """torch.profiler over n step() calls: wall and device ms a frame, the
-    device's idle share, launches a frame (as `profile_frame` reports)."""
+    device's idle share, launches a frame (as `profile_frame` reports), and
+    the device ms and launches a frame of the kernels whose names hold one
+    of `watch`."""
     from time import perf_counter
 
     from torch.profiler import ProfilerActivity, profile
@@ -264,15 +425,63 @@ def device_per_frame(step, n: int) -> dict:
         torch.cuda.synchronize()
         wall = (perf_counter() - t0) * 1e3 / n
     count = 0
+    watched = {w: [0.0, 0] for w in watch}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             per[ev.name] += ev.device_time_total / 1e3 / n
             count += 1
+            for w in watch:
+                if w in ev.name:
+                    watched[w][0] += ev.device_time_total / 1e3 / n
+                    watched[w][1] += 1
     dev_ms = sum(per.values())
     top = sorted(per.items(), key=lambda kv: -kv[1])[:12]
     return dict(wall_ms_per_frame=wall, device_ms_per_frame=dev_ms,
                 device_idle_share=max(0.0, 1.0 - dev_ms / wall), launches_per_frame=count / n,
-                top_kernels_ms=[[k[:80], v] for k, v in top])
+                top_kernels_ms=[[k[:80], v] for k, v in top],
+                watched={w: dict(ms_per_frame=v[0], launches_per_frame=v[1] / n)
+                         for w, v in watched.items()})
+
+
+def digest(*tensors) -> str:
+    """sha256 of the tensors' bytes, in order (16 hex digits)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def time_k1_k4(cs) -> dict:
+    """K1 and K4 on the entry pair (replayed graphs, launches a call, output
+    hashes) and the tracker's device time a frame with K1's and K4's share."""
+    from . import profile_frame
+    from .ops import orb, stereo
+
+    _, entry_imgs = cs.entry("cuda")
+    imgs = orb.as_images(list(entry_imgs), torch.device("cuda"))
+    prm = orb.params(cs.CFG, imgs.shape[1], imgs.shape[2], "cuda")
+    pyr = pyramid.build_pyramid(imgs, prm)
+    f = orb.extract_batch(imgs, prm)
+    fl, fr = f.select(0), f.select(1)
+    bf = float(cs.CAM.bf)
+    build = lambda: pyramid.build_pyramid(imgs, prm)  # noqa: E731
+    match = lambda: stereo.stereo_match(fl, fr, prm.scales, bf)  # noqa: E731
+    m = match()
+    torch.cuda.synchronize()
+    out = dict(
+        k1=dict(graph_ms=cs.graph_ms(build), launches_per_call=cs.launches_of(build, "pyramid"),
+                levels_hash=digest(pyr.levels), blurred_hash=digest(pyr.blurred),
+                pixels=prm.total, images=imgs.shape[0]),
+        k4=dict(graph_ms=cs.graph_ms(match),
+                launches_per_call=cs.launches_of(match, "stereo_match"),
+                outputs_hash=digest(m.idx, m.dist, m.u_right, m.depth, m.ok),
+                left=int(fl.valid.sum()), right=int(fr.valid.sum()), ok=int(m.ok.sum())))
+    out["tracker_device"] = device_per_frame(
+        profile_frame.tracker_frames(10), 10,
+        watch=("pyramid", "resize_level", "blur_levels", "stereo"))
+    return out
 
 
 def time_k11_k5(cs, te, tp) -> dict:
@@ -410,8 +619,9 @@ def time_k8(cam, pb, n_iters: int, cg: int, huber: int, graph_ms, counter="ba_de
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join("chiprun_out", "kernel_times.json"))
-    ap.add_argument("--parts", default="k6k2,k6sweep,k11k5,k7k8",
-                    help="k6k2: K6 and K2 on the tracking path; k6sweep: K6 by observations "
+    ap.add_argument("--parts", default="k1k4,k6k2,k6sweep,k11k5,k7k8",
+                    help="k1k4: K1 and K4 on the entry pair and the tracker's device time; "
+                         "k6k2: K6 and K2 on the tracking path; k6sweep: K6 by observations "
                          "and iterations; k11k5: K5 on the tracking path, K11, the tracker's "
                          "device time and the loop closures; k7k8: K7, K8 and the tracker")
     args = ap.parse_args()
@@ -424,6 +634,10 @@ def main() -> None:
     out = dict(nvidia_smi=cs.nvidia_smi_line(), device=torch.cuda.get_device_name(0))
     kernels.lib()
     dev = torch.device("cuda")
+    if "k1k4" in parts:
+        out.update(time_k1_k4(cs))
+    if not parts & {"k6k2", "k6sweep", "k11k5", "k7k8"}:
+        return finish(out, args.out)
     te = cs.track_entry("cuda")
     tp = cs.run_tracking_path(te, dev)
     if "k6k2" in parts:

@@ -60,16 +60,14 @@ F32 = ctypes.c_float
 # C entry points: name -> argtypes (all return int = cudaError_t).
 _SIGNATURES = {
     # pyramid.cu
-    "resize_level": [VP] * 3 + [I32] * 10 + [VP],
-    "blur_levels": [VP] * 4 + [I32] * 4 + [VP],
+    "build_pyramid": [VP] * 7 + [I32] * 10 + [VP],
     # fast_cells.cu
     "fast_cell_max": [VP] * 4 + [I32] * 3 + [F32] + [I32] * 5 + [VP],
     "fast_topk": [VP] * 11 + [I32] * 6 + [VP],
     # orb_describe.cu
     "orb_describe": [VP] * 12 + [I32] * 4 + [VP],
     # stereo_match.cu
-    "stereo_best": [VP] * 11 + [I32, I32, F32, I32] + [VP] * 7,
-    "stereo_finish": [VP] * 4 + [I32, F32] + [VP] * 4,
+    "stereo_match": [VP] * 11 + [I32] * 3 + [F32, I32, F32] + [VP] * 7 + [VP],
     "rgbd_stereo": [VP, I32, I32] + [VP] * 3 + [I32, F32, F32] + [VP] * 3 + [VP],
     # match_masked.cu
     "match_select": [VP] * 10 + [F32] + [I32] * 7 + [F32, I32] + [VP] * 8 + [VP],

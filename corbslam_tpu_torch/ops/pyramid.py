@@ -8,8 +8,10 @@ images live in one flat f32 buffer [B, T] with a per-level pixel offset
 stereo image in one launch.
 
 `build_pyramid` is the wrapper of kernel K1 (`csrc/pyramid.cu`): a CUDA
-input launches one resize per level and one blur over all levels; a CPU input
-runs `build_pyramid_plain`.
+input makes one launch that writes every level (level 0 included) and every
+blurred level, a CTA per tile of the image computing the cone of pixels its
+share of every level needs (`cone_plan`); a CPU input runs
+`build_pyramid_plain`.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..interop import OrbParams
+from ..interop import OrbParams, taps_from_matrix
 
 BLUR_SIZE = 7
 BLUR_SIGMA = 2.0
@@ -122,7 +124,88 @@ def build_pyramid_plain(imgs: torch.Tensor, params: OrbParams) -> Pyramid:
     return Pyramid(levels, blurred, params.shapes, params.offsets)
 
 
-BLUR_TILE = 32  # output tile edge of the blur kernel (csrc/pyramid.cu)
+CONE_TILE = (64, 114)  # level-0 rows and columns a K1 CTA owns, about (1241x376: 6 x 11 tiles)
+CONE_THREADS = 512     # threads of a K1 CTA (csrc/pyramid.cu THREADS)
+CONE_HX = 3            # adjacent columns a K1 thread blurs across (csrc/pyramid.cu HX)
+_PLANS: dict = {}
+
+
+@lru_cache(maxsize=None)
+def cone_plan(shapes) -> tuple:
+    """K1's plan for levels of `shapes`: (plan [nty + ntx + 1, L, 8] int32,
+    nty, ntx, cap_a, cap_b, cap_t, cap_taps).
+
+    The image is cut into nty x ntx tiles (CONE_TILE); tile (ty, tx) owns
+    at level l rows [ty h_l // nty, (ty + 1) h_l // nty) and the columns
+    alike. Its CTA computes the owned rows and columns and the blur's 3-px
+    halo and, at every level above the deepest, also the source rows and
+    columns of the next level's taps over what that level computes
+    (clamped to the level). Row ty of the plan holds per level (first,
+    last, owned first, owned end) of those rows, where their taps start in
+    the CTA's shared tap table and the multiplier ceil(2^21 / d) that
+    divides by their count; row nty + tx the columns' (their taps after all
+    rows' taps) and the multipliers that divide by the owned width's groups
+    of CONE_HX columns and by the owned width; the last row the levels'
+    table (h, w, pixel offset, first row tap, first column tap) as
+    `interop.params_from_numpy` lays them out. cap_a / cap_b: the largest
+    rectangle (floats, rows of odd stride) of an even / odd level; cap_t: a
+    level's horizontal blur pass (owned rows + 6 x owned columns); each a
+    multiple of 4. cap_taps: a CTA's taps of levels 1.."""
+    L = len(shapes)
+    h0, w0 = shapes[0]
+    nty, ntx = -(-h0 // CONE_TILE[0]), -(-w0 // CONE_TILE[1])
+
+    def axis(sizes, n_t):
+        taps = [None] + [taps_from_matrix(_resize_matrix(sizes[l], sizes[l - 1]))[0]
+                         for l in range(1, L)]
+        out = np.zeros((n_t, L, 8), np.int32)
+        for t in range(n_t):
+            nxt = None
+            for l in reversed(range(L)):
+                n = sizes[l]
+                own = (t * n // n_t, (t + 1) * n // n_t)
+                lo, hi = own[0] - 3, own[1] - 1 + 3
+                if nxt is not None:
+                    lo, hi = min(lo, taps[l + 1][nxt[0], 0]), max(hi, taps[l + 1][nxt[1], 1])
+                lo, hi = max(lo, 0), min(hi, n - 1)
+                out[t, l, :4] = (lo, hi, *own)
+                nxt = (lo, hi)
+            span = out[t, :, 1] - out[t, :, 0] + 1
+            out[t, 1:, 4] = np.cumsum(span[1:]) - span[1:]
+        return out
+
+    rows = axis([h for h, _ in shapes], nty)
+    cols = axis([w for _, w in shapes], ntx)
+    span = lambda a: a[..., 1] - a[..., 0] + 1  # noqa: E731
+    wo = cols[..., 3] - cols[..., 2]
+    mult = lambda d: np.where(d > 0, -(-(1 << 21) // np.maximum(d, 1)), 0)  # noqa: E731
+    rows[..., 5] = mult(span(rows))
+    cols[..., 6], cols[..., 7] = mult(-(-wo // CONE_HX)), mult(wo)
+    up4 = lambda v: -(-int(v) // 4) * 4  # noqa: E731
+    rect = span(rows)[:, None, :] * (span(cols) | 1)[None, :, :]  # rows of odd stride
+    blur = ((rows[..., 3] - rows[..., 2] + 6)[:, None, :]
+            * (cols[..., 3] - cols[..., 2])[None, :, :])
+    if max(int(span(rows).max()), int(wo.max())) > CONE_THREADS:  # a thread a row / column
+        raise ValueError(f"pyramid: a cone spans more than {CONE_THREADS} rows or columns")
+    row_taps = int(span(rows)[:, 1:].sum(-1).max()) if L > 1 else 0
+    cols[:, 1:, 4] += row_taps
+    cap_taps = row_taps + (int(span(cols)[:, 1:].sum(-1).max()) if L > 1 else 0)
+    table = np.zeros((1, L, 8), np.int32)
+    off = n_taps = 0
+    for l, (h, w) in enumerate(shapes):
+        table[0, l, :5] = (h, w, off, n_taps, n_taps + h) if l else (h, w, off, 0, 0)
+        off += h * w
+        n_taps += (h + w) if l else 0
+    return (np.concatenate([rows, cols, table]), nty, ntx, up4(rect[..., 0::2].max()),
+            up4(rect[..., 1::2].max()) if L > 1 else 0, up4(blur.max()), cap_taps)
+
+
+def _plan_on(shapes, device) -> torch.Tensor:
+    """`cone_plan(shapes)`'s table on `device`, uploaded once."""
+    key = (shapes, torch.device(device))
+    if key not in _PLANS:
+        _PLANS[key] = torch.from_numpy(cone_plan(shapes)[0].reshape(-1)).to(device)
+    return _PLANS[key]
 
 
 def _build_pyramid_cuda(imgs: torch.Tensor, params: OrbParams) -> Pyramid:
@@ -132,22 +215,12 @@ def _build_pyramid_cuda(imgs: torch.Tensor, params: OrbParams) -> Pyramid:
     kernels.check(imgs, "imgs", torch.float32, (B, *params.shapes[0]))
     levels = torch.empty(B, params.total, dtype=torch.float32, device=dev)
     blurred = torch.empty_like(levels)
-    levels[:, :H * W].copy_(imgs.reshape(B, H * W))
+    _, nty, ntx, cap_a, cap_b, cap_t, cap_taps = cone_plan(params.shapes)
     P = kernels.ptr
-    for lvl in range(1, params.n_levels):
-        hs, ws = params.shapes[lvl - 1]
-        hd, wd = params.shapes[lvl]
-        row_off, col_off = params.tap_offsets[lvl]
-        kernels.launch(
-            "pyramid", "resize_level", P(levels), P(params.tap_idx), P(params.tap_w),
-            B, params.total, params.offsets[lvl - 1], hs, ws,
-            params.offsets[lvl], hd, wd, row_off, col_off,
-        )
-    t = BLUR_TILE
-    n_tiles = sum(-(-h // t) * -(-w // t) for h, w in params.shapes)
     kernels.launch(
-        "pyramid", "blur_levels", P(levels), P(blurred), P(params.level_table),
-        P(params.blur_taps), params.n_levels, B, params.total, n_tiles,
+        "pyramid", "build_pyramid", P(imgs), P(levels), P(blurred), P(params.tap_idx),
+        P(params.tap_w), P(params.blur_taps), P(_plan_on(params.shapes, dev)), params.n_levels,
+        B, params.total, H * W, nty, ntx, cap_a, cap_b, cap_t, cap_taps,
     )
     return Pyramid(levels, blurred, params.shapes, params.offsets)
 

@@ -10,8 +10,10 @@ its neighbours, and a cut at 2.1 x the median best SAD. As in the reference,
 the median is NaN (so the cut removes nothing) unless every left feature
 passed, and otherwise averages the two middle values.
 
-`stereo_match` is the wrapper of kernel K4 (`csrc/stereo_match.cu`): two
-launches on CUDA inputs, `stereo_match_plain` on CPU inputs.
+`stereo_match` is the wrapper of kernel K4 (`csrc/stereo_match.cu`): one
+launch on CUDA inputs (the candidates bucketed by row, the SAD slide a warp
+a feature, the median cut by the last CTA, whose ticket word lives in
+`k4_workspace`), `stereo_match_plain` on CPU inputs.
 
 `compute_stereo_from_rgbd` (Frame::ComputeStereoFromRGBD, Frame.cc:647) reads
 a registered depth map at the raw keypoint rounded half to even, and takes
@@ -88,7 +90,19 @@ def stereo_match_plain(fl, fr, scale_factors: torch.Tensor, bf: float,
     return StereoMatch(idx.to(torch.int32), dist, u_right, depth, ok)
 
 
-MAX_FINISH_N = 12288  # stereo_finish keeps N floats in 48 KB of shared memory
+MAX_FINISH_N = 12288  # left features K4's last CTA ranks in 48 KB of shared memory
+_K4_WORK: dict = {}
+
+
+def k4_workspace(device, stream: int = 0) -> torch.Tensor:
+    """K4's ticket word (1 int32, 0: the CTAs done in its low 16 bits, their
+    failed features above) for one stream, kept from call to call: the
+    launch's last CTA sets it back to 0."""
+    key = (torch.device(device), stream)
+    work = _K4_WORK.get(key)
+    if work is None:
+        work = _K4_WORK[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return work
 
 
 def _stereo_match_cuda(fl, fr, scale_factors, bf, max_disp, max_hamming) -> StereoMatch:
@@ -99,8 +113,8 @@ def _stereo_match_cuda(fl, fr, scale_factors, bf, max_disp, max_hamming) -> Ster
         raise ValueError("stereo_match expects 32x32 raw patches")
     if M < 1:
         raise ValueError("stereo_match needs at least one right feature")
-    if N > MAX_FINISH_N:
-        raise ValueError(f"stereo_match takes at most {MAX_FINISH_N} left features")
+    if not 1 <= N <= MAX_FINISH_N:
+        raise ValueError(f"stereo_match takes 1 to {MAX_FINISH_N} left features, got {N}")
     for side, f, n in (("left", fl, N), ("right", fr, M)):
         kernels.check(f.xy, f"{side}.xy", torch.float32, (n, 2), dev)
         kernels.check(f.octave, f"{side}.octave", torch.int32, (n,), dev)
@@ -110,21 +124,16 @@ def _stereo_match_cuda(fl, fr, scale_factors, bf, max_disp, max_hamming) -> Ster
     kernels.check(scale_factors, "scale_factors", torch.float32, None, dev)
     idx = torch.empty(N, dtype=torch.int32, device=dev)
     dist = torch.empty(N, dtype=torch.int32, device=dev)
-    u_pre, disp, best_sad, u_right, depth = (
-        torch.empty(N, dtype=torch.float32, device=dev) for _ in range(5))
-    ok_pre = torch.empty(N, dtype=torch.bool, device=dev)
+    best_sad, u_right, depth = (torch.empty(N, dtype=torch.float32, device=dev) for _ in range(3))
     ok = torch.empty(N, dtype=torch.bool, device=dev)
     p = kernels.ptr
     kernels.launch(
-        "stereo_match", "stereo_best",
+        "stereo_match", "stereo_match",
         p(fl.xy), p(fl.octave), p(fl.valid), p(fl.desc), p(fl.patch),
         p(fr.xy), p(fr.octave), p(fr.valid), p(fr.desc), p(fr.patch),
-        p(scale_factors), N, M, float(max_disp), int(max_hamming),
-        p(idx), p(dist), p(u_pre), p(disp), p(ok_pre), p(best_sad),
-    )
-    kernels.launch(
-        "stereo_match", "stereo_finish", p(u_pre), p(disp), p(ok_pre), p(best_sad),
-        N, float(bf), p(u_right), p(depth), p(ok),
+        p(scale_factors), N, M, scale_factors.numel(), float(max_disp), int(max_hamming),
+        float(bf), p(k4_workspace(dev, kernels.stream())), p(best_sad),
+        p(idx), p(dist), p(u_right), p(depth), p(ok),
     )
     return StereoMatch(idx, dist, u_right, depth, ok)
 

@@ -28,6 +28,7 @@ from corbslam_tpu.ops import fast as jfast
 from corbslam_tpu.ops import orb as jorb
 from corbslam_tpu.ops import patches as jpatches
 from corbslam_tpu.ops import pyramid as jpyramid
+from corbslam_tpu_torch import interop
 from corbslam_tpu_torch.config import OrbConfig
 from corbslam_tpu_torch.ops import brief, fast, orb, patches, pyramid
 
@@ -228,3 +229,80 @@ def test_detect_pyramid_plain_edges_exact(edge):
         k0 += budgets[lvl]
     if edge == "flat":
         assert not got.valid.any() and (got.resp == 0).all()
+
+
+def _reflect(i, n):
+    i = np.abs(i)
+    return np.where(i > n - 1, 2 * (n - 1) - i, i)
+
+
+def _cone_emulation(img: np.ndarray, shapes) -> tuple:
+    """K1's algorithm in numpy, CTA by CTA (`pyramid.cone_plan`): each
+    rectangle resized from the CTA's rectangle of the level before, its
+    owned pixels copied out and blurred from it. Asserts every tap and blur
+    tap lies inside the CTA's rectangle, every pixel is owned once and the
+    CTA's taps fit its shared tap table without overlap."""
+    plan, nty, ntx, cap_a, cap_b, cap_t, cap_taps = pyramid.cone_plan(shapes)
+    rows, cols = plan[:nty], plan[nty:nty + ntx]
+    L = len(shapes)
+    k = pyramid.gaussian_kernel_1d()
+    taps = [None] + [tuple(interop.taps_from_matrix(pyramid._resize_matrix(shapes[l][a],
+                                                                           shapes[l - 1][a]))
+                           for a in (0, 1)) for l in range(1, L)]
+    levels = [np.full(hw, np.nan, np.float32) for hw in shapes]
+    blurred = [np.full(hw, np.nan, np.float32) for hw in shapes]
+    for ty in range(nty):
+        for tx in range(ntx):
+            used = np.zeros(cap_taps, int)
+            for l in range(1, L):
+                for (lo, hi, *_, base) in (rows[ty, l, :5], cols[tx, l, :5]):
+                    used[base:base + hi - lo + 1] += 1
+            assert used.max() <= 1 and used.sum() == sum(
+                rows[ty, l, 1] - rows[ty, l, 0] + cols[tx, l, 1] - cols[tx, l, 0] + 2
+                for l in range(1, L))
+            prev = None
+            for l in range(L):
+                (r0, r1, o0, o1), (c0, c1, p0, p1) = rows[ty, l, :4], cols[tx, l, :4]
+                assert (r1 - r0 + 1) * ((c1 - c0 + 1) | 1) <= (cap_b if l % 2 else cap_a)
+                if l == 0:
+                    reg = img[r0:r1 + 1, c0:c1 + 1]
+                else:
+                    (ri, rw), (ci, cw) = taps[l]
+                    (pr0, pc0), preg = prev
+                    yi, xi = ri[r0:r1 + 1] - pr0, ci[c0:c1 + 1] - pc0
+                    assert yi.min() >= 0 and yi.max() < preg.shape[0]
+                    assert xi.min() >= 0 and xi.max() < preg.shape[1]
+                    wy, wx = rw[r0:r1 + 1], cw[c0:c1 + 1]
+                    t0 = wy[:, :1] * preg[yi[:, 0]][:, xi[:, 0]] + wy[:, 1:] * preg[yi[:, 1]][:, xi[:, 0]]
+                    t1 = wy[:, :1] * preg[yi[:, 0]][:, xi[:, 1]] + wy[:, 1:] * preg[yi[:, 1]][:, xi[:, 1]]
+                    reg = wx[None, :, 0] * t0 + wx[None, :, 1] * t1
+                assert np.isnan(levels[l][o0:o1, p0:p1]).all()
+                levels[l][o0:o1, p0:p1] = reg[o0 - r0:o1 - r0, p0 - c0:p1 - c0]
+                h, w = shapes[l]
+                ry, cx = _reflect(np.arange(o0 - 3, o1 + 3), h) - r0, _reflect(np.arange(p0 - 3, p1 + 3), w) - c0
+                assert ry.min() >= 0 and ry.max() < reg.shape[0]
+                assert (o1 - o0 + 6) * (p1 - p0) <= cap_t
+                assert cx.min() >= 0 and cx.max() < reg.shape[1]
+                sub = reg[ry][:, cx]
+                mid = sum(k[q] * sub[:, q:q + p1 - p0] for q in range(7))
+                blurred[l][o0:o1, p0:p1] = sum(k[q] * mid[q:q + o1 - o0] for q in range(7))
+                prev = ((r0, c0), reg)
+    return levels, blurred
+
+
+@pytest.mark.parametrize("h,w,n_levels", [(376, 1241, 8), (240, 320, 4), (120, 200, 3),
+                                          (70, 100, 3)])
+def test_k1_cone_plan_rebuilds_the_pyramid(h, w, n_levels):
+    """K1's tiling: every CTA's rectangles hold the taps and blur halo of
+    what it owns, the owned pixels partition every level, and the pyramid
+    built cone by cone is the plain version's within 1e-3 (numpy sums
+    without fused multiply-adds)."""
+    img = jsynthetic.random_texture(h, w, seed=5).astype(np.float32)
+    cfg = OrbConfig(n_features=256, n_levels=n_levels)
+    prm = orb.params(cfg, h, w, "cpu")
+    levels, blurred = _cone_emulation(img, prm.shapes)
+    ref = pyramid.build_pyramid_plain(T(img)[None], prm)
+    for lvl in range(n_levels):
+        assert not np.isnan(levels[lvl]).any() and not np.isnan(blurred[lvl]).any()
+        np.testing.assert_allclose(levels[lvl], ref.level(lvl).numpy(), rtol=0, atol=1e-3)
+        np.testing.assert_allclose(blurred[lvl], ref.blurred_level(lvl).numpy(), rtol=0, atol=1e-3)

@@ -465,3 +465,67 @@ def test_k5_workspace_is_kept_per_stream_and_grown_filled(monkeypatch):
     assert bool((grown == matcher.COL_EMPTY).all()) and not bool(tick3.any())
     other, _ = matcher.k5_workspace("cpu", 1, 2, stream=8)
     assert other is not grown and matcher.k5_workspace("cpu", 1, 2, stream=7)[0] is grown
+
+
+@pytest.mark.parametrize("wrapper", ["pyramid", "stereo"])
+def test_k1_and_k4_make_one_launch_that_fits_their_c_entry(wrapper, monkeypatch):
+    """K1's `build_pyramid` and K4's `stereo_match` make one launch a call
+    (no PyTorch copy beside K1's), whose argument list fits its C entry's
+    ctypes signature; K1 passes its cone plan's grid and buffer sizes, and
+    the plan's level table is the layout of `interop.params_from_numpy`.
+    Run here on CPU tensors with the launch recorded instead of made."""
+    from corbslam_tpu_torch.ops import stereo
+
+    calls = []
+    monkeypatch.setattr(kernels, "launch", lambda counter, fn, *a: calls.append((counter, fn, a)))
+    monkeypatch.setattr(kernels, "ptr", lambda t: 0)
+    monkeypatch.setattr(kernels, "stream", lambda: 0)
+    monkeypatch.setattr(kernels, "check", lambda *a, **k: None)
+    monkeypatch.setattr(pyramid, "_PLANS", {})
+    monkeypatch.setattr(stereo, "_K4_WORK", {})
+    prm = orb.params(config.OrbConfig(n_features=64, n_levels=3), 70, 100, "cpu")
+    if wrapper == "pyramid":
+        copies = []
+        monkeypatch.setattr(torch.Tensor, "copy_", lambda self, *a, **k: copies.append(1))
+        pyramid._build_pyramid_cuda(torch.zeros(2, 70, 100), prm)
+        assert not copies
+        plan, nty, ntx, cap_a, cap_b, cap_t, cap_taps = pyramid.cone_plan(prm.shapes)
+        assert calls[0][2][7:] == (3, 2, prm.total, 7000, nty, ntx, cap_a, cap_b, cap_t, cap_taps)
+        assert plan.shape == (nty + ntx + 1, 3, 8) and (nty, ntx) == (2, 1)
+        table = plan[-1, :, :5]
+        assert [tuple(t[:2]) for t in table] == list(prm.shapes)
+        assert tuple(table[:, 2]) == prm.offsets
+        assert [tuple(t[3:]) for t in table[1:]] == list(prm.tap_offsets[1:])
+    else:
+        rng = np.random.default_rng(0)
+        N, M = 9, 13
+
+        def feats(n):
+            return orb.Features(torch.rand(n, 2) * 50, torch.zeros(n), torch.zeros(n),
+                                torch.zeros(n, dtype=torch.int32),
+                                torch.from_numpy(rng.integers(0, 256, (n, 32), dtype=np.uint8)),
+                                torch.ones(n, dtype=torch.bool), torch.zeros(n, 32, 32))
+
+        m = stereo._stereo_match_cuda(feats(N), feats(M), prm.scales, 100.0, 192, 80)
+        assert m.idx.shape == (N,) and calls[0][2][11:14] == (N, M, 3)
+    assert len(calls) == 1
+    counter, fn, args = calls[0]
+    assert counter in kernels.LAUNCHES
+    assert len(args) + 1 == len(kernels._SIGNATURES[fn])  # + the stream
+
+
+def test_k4_workspace_is_kept_per_stream_and_zeroed():
+    """K4's ticket word: 0 when made, kept from call to call on one stream,
+    separate for another stream."""
+    from corbslam_tpu_torch.ops import stereo
+
+    saved = dict(stereo._K4_WORK)
+    stereo._K4_WORK.clear()
+    try:
+        t = stereo.k4_workspace("cpu", stream=7)
+        assert t.numel() == 1 and t.dtype == torch.int32 and not bool(t.any())
+        assert stereo.k4_workspace("cpu", stream=7) is t
+        assert stereo.k4_workspace("cpu", stream=8) is not t
+    finally:
+        stereo._K4_WORK.clear()
+        stereo._K4_WORK.update(saved)

@@ -6,7 +6,8 @@ Tolerances and why:
     check): exact — integer arithmetic, ties to the lower index.
   * stereo_match against the reference's match_stereo_features on identical
     Features: `ok` exact; u_right and depth within 1e-3 — the 121-term SAD
-    sums differ in order.
+    sums differ in order. At the edge cases also the best match's index and
+    distance exact.
 """
 
 from functools import partial
@@ -22,6 +23,7 @@ from corbslam_tpu.io import synthetic as jsynthetic
 from corbslam_tpu.ops import descriptors as JD
 from corbslam_tpu.ops import orb as jorb
 from corbslam_tpu.ops import stereo as jstereo
+from corbslam_tpu_torch.kernel_times import stereo_edge_cases
 from corbslam_tpu_torch.ops import descriptors as D
 from corbslam_tpu_torch.ops import stereo
 from corbslam_tpu_torch.ops.orb import Features
@@ -144,3 +146,66 @@ def test_stereo_median_cut_when_every_feature_passes(n):
     jr = jl._replace(xy=jnp.asarray(xy_r), patch=jnp.asarray(patch_r))
     ok = _check_stereo(jl, jr, np.asarray([1.0, 1.2], np.float32))
     assert 0 < (~ok).sum() <= 6  # the cut removed some, and only noisy ones
+
+
+EDGE_N, EDGE_M = 24, 48  # every edge case padded to one shape for the reference
+
+
+@partial(jax.jit, static_argnames=("bf",))
+def _jax_stereo_full(fl, fr, scales, bf):
+    """The reference's outputs, and its best match by the candidate mask of
+    match_stereo_features' first step (ops/stereo.py:53-61), which it does
+    not return."""
+    u_right, depth, ok = jstereo.match_stereo_features(fl, fr, scales, bf)
+    row_tol = 2.0 * scales[fr.octave]
+    disp = fl.xy[:, None, 0] - fr.xy[None, :, 0]
+    mask = (jnp.abs(fl.xy[:, None, 1] - fr.xy[None, :, 1]) <= row_tol[None, :])
+    mask &= (disp >= -1.0) & (disp <= 192.0)
+    mask &= jnp.abs(fl.octave[:, None] - fr.octave[None, :]) <= 1
+    mask &= fl.valid[:, None] & fr.valid[None, :]
+    idx, dist, _ = JD.best_match(JD.masked_hamming_matrix(fl.desc, fr.desc, extra_mask=mask), 80)
+    return idx, dist, u_right, depth, ok
+
+
+def _edge_features(side: dict, n: int):
+    """(JAX Features padded with invalid rows at (0, 0) to n, port Features)."""
+    k = side["xy"].shape[0]
+    zeros = np.zeros(k, np.float32)
+    port = Features(T(side["xy"]), T(zeros), T(zeros), T(side["octave"]), T(side["desc"]),
+                    T(side["valid"]), T(side["patch"]))
+    padded = {f: np.concatenate([v, np.zeros((n - k, *v.shape[1:]), v.dtype)])
+              for f, v in side.items()}
+    zn = jnp.zeros(n)
+    ref = jorb.Features(jnp.asarray(padded["xy"]), zn, zn, jnp.asarray(padded["octave"]),
+                        jnp.asarray(padded["desc"]), jnp.asarray(padded["valid"]),
+                        jnp.asarray(padded["patch"]))
+    return ref, port
+
+
+@pytest.mark.parametrize("case", sorted(stereo_edge_cases()))
+def test_stereo_match_at_its_edges(case):
+    """K4's plain version against the reference on the edge inputs that
+    chip_smoke.py holds K4 to on the card (`kernel_times.stereo_edge_cases`):
+    the row tolerance, disparity and octave bounds exact and one float
+    beyond, ties across rows, rows with no candidate, one right row, padded
+    rows at (0, 0) and M = 1. idx, dist and ok exact; u_right and depth
+    within 1e-3. The reference runs with both sides padded by invalid rows
+    (EDGE_N x EDGE_M; M = 1 alone is not a shape it takes): an invalid row
+    is never a candidate, and since some real feature fails in every case,
+    no median cut is live that a padded row could disable."""
+    left, right, scales = stereo_edge_cases()[case]
+    n = left["xy"].shape[0]
+    jl, pl = _edge_features(left, EDGE_N)
+    jr, pr = _edge_features(right, EDGE_M)
+    bf = 386.1448
+    idx_j, dist_j, ur_j, depth_j, ok_j = (np.asarray(v)[:n] for v in _jax_stereo_full(
+        jl, jr, jnp.asarray(scales), bf))
+    m = stereo.stereo_match(pl, pr, T(scales), bf)
+    assert not ok_j.all()
+    np.testing.assert_array_equal(m.idx.numpy(), idx_j)
+    np.testing.assert_array_equal(m.dist.numpy(), dist_j)
+    np.testing.assert_array_equal(m.ok.numpy(), ok_j)
+    np.testing.assert_allclose(m.u_right.numpy(), ur_j, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(m.depth.numpy(), depth_j, rtol=0, atol=1e-3)
+    if case != "no_candidate":
+        assert (dist_j < 512).any()

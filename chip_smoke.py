@@ -5,8 +5,9 @@
 1. prints the environment and the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from corbslam_tpu_torch/csrc/ (nvcc) and
    prints nvcc's register, spill and stack-frame bytes per kernel (K6's,
-   K2's, K11's pose graph, K5's, K1's and K4's kernels must not spill, and
-   K6's, K11's, K1's and K4's have no stack frame);
+   K2's, K11's pose graph, K5's, K1's, K4's, K3's and K10's Sim3 attempt
+   kernels must not spill, and K6's, K11's, K1's, K4's, K3's and the Sim3
+   attempt's have no stack frame);
 3. drives the front end — `build_frame_stereo` through `entry.entry()` — on
    3 warm-up and 20 timed stereo frames with all launch counters reset just
    before, checks its four kernels were launched (K1 and K4 once a frame),
@@ -46,7 +47,9 @@
    from run to run, or where two profiler sessions record nothing, the
    replay of a CUDA graph of up to 100 calls between CUDA events); the
    host-inclusive time of the wrappers (CUDA events around
-   eager calls) is printed beside them. K1 and K4 make one launch a call.
+   eager calls) is printed beside them. K1, K3 and K4 make one launch a
+   call; K3's patch, angle and descriptor buffers on the entry pair are
+   printed as hashes (to compare trees bit for bit).
    The stereo kernel is also held against its plain version where every
    feature passes, so that its median cut is live, and on the edge cases of
    its row buckets (`kernel_times.stereo_edge_cases`); K1-K4 also at
@@ -58,8 +61,9 @@
    hand and one more frame; checks every orbit frame OK, a loop closed
    between keyframes more than 20 rows apart and within 3 rows of the JAX
    yardstick's 48 <-> 7, the aligned ATE <= 2 x its 0.0693 m, finite
-   keyframe poses, the LOST frame relocalized, and K9-K11 launched; prints
-   the detections, attempts, sim3 log, relocalizations, the keyframe ATE
+   keyframe poses, the LOST frame relocalized, K9-K11 launched and one K10
+   launch a Sim3 attempt; prints the detections, attempts (beside JAX's
+   146), sim3 log, relocalizations, the keyframe ATE
    after the closure and each loop stage's and the closure's time. Then the
    flagship schedule again with a loop closer attached (the 256 MB
    [2048, 32768] database on the card): keyframes and points must equal the
@@ -84,7 +88,9 @@
 9. holds K9-K11 against their plain versions on the loop phase's first
    closure (its match set, essential graph and map, PnP and relocalize on
    the LOST frame) and at the flagship's sizes (2048 features against the
-   whole database, Sim3 and PnP on 2048 matches, the covisibility count of
+   whole database, a Sim3 attempt (RANSAC, refinement and their combine in
+   one launch, each stage alone too, two runs bit-equal) and PnP on 2048
+   matches, the covisibility count of
    the final map, its essential graph of 2048 vertices and 18464 edges with
    a synthetic loop edge), and times those full-width calls (K11's
    cooperative launch with CUDA events); K11 (two runs bit-equal) also at
@@ -163,7 +169,7 @@ from corbslam_tpu_torch.frontend.tracking import TrackState as TrackerState  # n
 from corbslam_tpu_torch.geometry import camera, se3, sim3  # noqa: E402
 from corbslam_tpu_torch.io import trajectory  # noqa: E402
 from corbslam_tpu_torch.kernel_times import (  # noqa: E402
-    flagship_graph, recorded_launches, ring_graph, stereo_edge_cases)
+    digest, flagship_graph, recorded_launches, ring_graph, sim3_full_width, stereo_edge_cases)
 from corbslam_tpu_torch.loop import gba, loop_closing  # noqa: E402
 from corbslam_tpu_torch.mapping import local_mapping, triangulation  # noqa: E402
 from corbslam_tpu_torch.mapstate import covisibility as covis  # noqa: E402
@@ -232,6 +238,20 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def kernel_name(mangled: str) -> str:
+    """The kernel's own name from a mangled one: the last `_kernel`
+    identifier of its length-prefixed nested name (`_ZN<len><namespace>
+    19sim3_attempt_kernelE...` -> sim3_attempt_kernel), else the name as it is."""
+    pos = 3 if mangled.startswith("_ZN") else 2 if mangled.startswith("_Z") else len(mangled)
+    names = []
+    while (m := re.match(r"\d+", mangled[pos:])):
+        start = pos + m.end()
+        names.append(mangled[start:start + int(m.group())])
+        pos = start + int(m.group())
+    names = [n for n in names if n.endswith("_kernel")]
+    return names[-1] if names else mangled
+
+
 def ptxas_summary(log: str) -> dict:
     """{kernel: (registers, spill bytes, stack frame bytes)} from nvcc's
     -Xptxas -v output."""
@@ -239,8 +259,7 @@ def ptxas_summary(log: str) -> dict:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = re.search(r"\d([a-z][a-z_]*_kernel)", m.group(1))
-            fn = name.group(1) if name else m.group(1)
+            fn = kernel_name(m.group(1))
             out.setdefault(fn, [0, 0, 0])  # a template's instances: their largest numbers
         elif fn and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                                     r"(\d+) bytes spill loads", line)):
@@ -253,10 +272,13 @@ def ptxas_summary(log: str) -> dict:
 
 # The kernels redesigned for the card must not spill, and K6's (its 6x6
 # solve in registers), K11's (its 7x7 blocks and dual numbers in
-# registers), K1's and K4's have no stack frame at all.
+# registers), K1's, K4's, K3's and K10's Sim3 attempt (its 7x7 solve in
+# shared memory) have no stack frame at all.
 NO_SPILL = ("pose_opt_kernel", "fast_cell_max_kernel", "fast_topk_kernel", "pg_optimize_kernel",
-            "match_select_kernel", "pyramid_kernel", "stereo_match_kernel")
-NO_STACK = ("pose_opt_kernel", "pg_optimize_kernel", "pyramid_kernel", "stereo_match_kernel")
+            "match_select_kernel", "pyramid_kernel", "stereo_match_kernel", "orb_describe_kernel",
+            "sim3_attempt_kernel")
+NO_STACK = ("pose_opt_kernel", "pg_optimize_kernel", "pyramid_kernel", "stereo_match_kernel",
+            "orb_describe_kernel", "sim3_attempt_kernel")
 
 
 def check_ptxas(ptxas: dict) -> None:
@@ -330,7 +352,7 @@ def describe_bytes(pyr, kp, angle, prm) -> int:
     """Bytes K3 must move, each pixel counted once: the union of level pixels
     the 32x32 raw patches cover and of blurred pixels the steered BRIEF pairs
     read (this run's keypoints and angle bins), plus the keypoint fields and
-    constant tables in and the patch, angle and descriptor out."""
+    the offset and level tables in and the patch, angle and descriptor out."""
     B, N = kp.cell_id.shape
     dev = pyr.levels.device
     raw = torch.zeros(B, prm.total, dtype=torch.bool, device=dev)
@@ -352,7 +374,7 @@ def describe_bytes(pyr, kp, angle, prm) -> int:
             sel = offs[brief.angle_bin(angle[b, k0:k0 + k])]  # [k, 256, 2, 2]
             mark(blur, b, lvl, y[:, None, None] + sel[..., 0], x[:, None, None] + sel[..., 1])
     n_px = int(raw.sum()) + int(blur.sum())
-    tables = prm.orient_weights.numel() * 4 + prm.brief_offsets.numel() + prm.level_table.numel() * 4
+    tables = prm.brief_offsets.numel() + prm.level_table.numel() * 4
     return 4 * n_px + tables + B * N * (16 + 4 * brief.RAW_PATCH ** 2 + 4 + 32)
 
 
@@ -420,6 +442,9 @@ def check_kernels(imgs: torch.Tensor, prm, timed: bool = True) -> tuple[list, di
     patch_k, angle_k, desc_k = brief.describe(pyr_k, kp_k, prm)
     patch_p, angle_p, desc_p = brief.describe_plain(pyr_k, kp_k, prm)
     torch.cuda.synchronize()
+    require(launches_of(lambda: brief.describe(pyr_k, kp_k, prm), "orb_describe") == 1,
+            "orb_describe: more than one launch a call")
+    k3_hashes = dict(patch=digest(patch_k), angle=digest(angle_k), desc=digest(desc_k))
     require(torch.equal(patch_k, patch_p), "orb_describe: raw patches differ")
     angle_err = (angle_k - angle_p).abs().max().item()
     same_bin = brief.angle_bin(angle_k) == brief.angle_bin(angle_p)
@@ -461,7 +486,7 @@ def check_kernels(imgs: torch.Tensor, prm, timed: bool = True) -> tuple[list, di
 
     time_rows(rows)
     return rows, dict(ok_count=int(m_k.ok.sum()), valid_count=int(kp_k.valid[0].sum()),
-                      padded_slots=int((kp_k.resp == 0).sum()))
+                      padded_slots=int((kp_k.resp == 0).sum()), k3_hashes=k3_hashes)
 
 
 def check_stereo(fl, fr, scales, bf):
@@ -1787,6 +1812,8 @@ def run_loop_phase() -> dict:
             f"loop: the frame marked LOST did not relocalize ({out['after_lost']})")
     for name in LOOP_COUNTERS:
         require(launches[name] > 0, f"kernel {name} was not launched by the loop phase")
+    require(launches["sim3"] == st.n_sim3_attempts,
+            f"loop: {launches['sim3']} Sim3 launches for {st.n_sim3_attempts} attempts")
     return out
 
 
@@ -1861,14 +1888,25 @@ def gate_flips(inl_kernel, inl_plain, errs_and_gates) -> tuple:
 
 
 def same_sim3(cam, mt, idx, fix_scale: bool = True) -> dict:
-    """K10's Sim3 RANSAC and refinement against the plain versions on one
-    match set and index draw: the chosen inlier counts equal, inlier flips
-    only within 1e-3 of the gate, R 1e-5, t 1e-4, refinement 1e-4."""
+    """K10's Sim3 attempt against the plain versions on one match set and
+    index draw: the RANSAC alone and the refinement alone (from the plain
+    RANSAC's model) on the kernel's two modes, then the whole attempt
+    (`solve_and_refine_sim3`, one launch, twice: bit-equal) against the
+    plain sequence. The chosen inlier counts equal, inlier flips only within
+    1e-3 of the gate, R 1e-5, t 1e-4, refinement and combine 1e-4."""
     a = sim3_solver.solve_sim3_ransac(cam, cam, *mt, idx=idx, min_inliers=20, fix_scale=fix_scale)
     b = sim3_solver.solve_sim3_ransac_plain(cam, cam, *mt, idx, 20, fix_scale)
     ra = sim3_solver.refine_sim3_iterative(cam, cam, *mt, b.R, b.t, b.s, fix_scale)
     rb = sim3_solver.refine_sim3_iterative_plain(cam, cam, *mt, b.R, b.t, b.s, fix_scale)
+    attempt = lambda: sim3_solver.solve_and_refine_sim3(  # noqa: E731
+        cam, cam, *mt, idx=idx, min_inliers=20, fix_scale=fix_scale)
+    require(launches_of(attempt, "sim3") == 1, "sim3: more than one launch an attempt")
+    ka, ka2 = attempt(), attempt()
+    kb = sim3_solver.solve_and_refine_sim3_plain(cam, cam, *mt, idx, 20, fix_scale)
     torch.cuda.synchronize()
+    flat = lambda x: [*x.ransac, *x.refined, x.R, x.t, x.s, x.n_inliers]  # noqa: E731
+    require(all(torch.equal(u, v) for u, v in zip(flat(ka), flat(ka2))),
+            "sim3: two attempts on one input differ")
     p1, p2, _, s2_1, s2_2 = mt
 
     def flips(inl_k, inl_p, R, t, s):
@@ -1876,17 +1914,34 @@ def same_sim3(cam, mt, idx, fix_scale: bool = True) -> dict:
         return gate_flips(inl_k, inl_p, ((e1, sim3_solver.CHI2_SIM3 * s2_1),
                                          (e2, sim3_solver.CHI2_SIM3 * s2_2)))
 
+    diff = lambda u, v: float((u - v).abs().max())  # noqa: E731
     f, f_off = flips(a.inliers, b.inliers, b.R, b.t, b.s)
     rf, rf_off = flips(ra[3], rb[3], *rb[:3])
+    af, af_off = flips(ka.ransac.inliers, kb.ransac.inliers, *kb.ransac[:3])
+    arf, arf_off = flips(ka.refined[3], kb.refined[3], *kb.refined[:3])
     out = dict(n_inliers=(int(a.n_inliers), int(b.n_inliers)), flips=f, flips_off_gate=f_off,
-               R=float((a.R - b.R).abs().max()), t=float((a.t - b.t).abs().max()),
+               R=diff(a.R, b.R), t=diff(a.t, b.t),
                refine_n=(int(ra[4]), int(rb[4])), refine_flips=rf, refine_flips_off_gate=rf_off,
-               refine_R=float((ra[0] - rb[0]).abs().max()),
-               refine_t=float((ra[1] - rb[1]).abs().max()))
+               refine_R=diff(ra[0], rb[0]), refine_t=diff(ra[1], rb[1]),
+               attempt_n=[(int(x), int(y)) for x, y in ((ka.ransac.n_inliers, kb.ransac.n_inliers),
+                                                        (ka.refined[4], kb.refined[4]),
+                                                        (ka.n_inliers, kb.n_inliers))],
+               attempt_flips_off_gate=(af_off, arf_off), attempt_flips=(af, arf),
+               attempt_ransac_R=diff(ka.ransac.R, kb.ransac.R),
+               attempt_ransac_t=diff(ka.ransac.t, kb.ransac.t),
+               attempt_refine_R=diff(ka.refined[0], kb.refined[0]),
+               attempt_refine_t=diff(ka.refined[1], kb.refined[1]),
+               combined_R=diff(ka.R, kb.R), combined_t=diff(ka.t, kb.t),
+               combined_s=diff(ka.s, kb.s))
     require(out["n_inliers"][0] == out["n_inliers"][1] and f_off == 0 and out["R"] <= 1e-5
             and out["t"] <= 1e-4 and out["refine_n"][0] == out["refine_n"][1] and rf_off == 0
             and out["refine_R"] <= 1e-4 and out["refine_t"] <= 1e-4,
             f"sim3: kernel and plain differ {out}")
+    require(all(x == y for x, y in out["attempt_n"]) and af_off == 0 and arf_off == 0
+            and out["attempt_ransac_R"] <= 1e-5 and out["attempt_ransac_t"] <= 1e-4
+            and max(out["attempt_refine_R"], out["combined_R"], out["combined_s"]) <= 1e-4
+            and max(out["attempt_refine_t"], out["combined_t"]) <= 1e-4,
+            f"sim3: the attempt and the plain sequence differ {out}")
     return out
 
 
@@ -2019,7 +2074,7 @@ def check_full_width(fl: dict) -> tuple:
     N, F, M = m.kf.capacity, m.kf.n_features, m.mp.capacity
     W, G, C = voc.n_words, voc.groups.shape[0], voc.child_idx.shape[1]
     live = torch.nonzero(m.kf.valid)[:, 0].tolist()
-    q, b = live[-1], live[-2]
+    q = live[-1]
     gen = torch.Generator(device="cuda").manual_seed(11)
     info, rows = {}, []
     # K9: one keyframe's BoW and its scores over the whole database.
@@ -2037,30 +2092,32 @@ def check_full_width(fl: dict) -> tuple:
                               vocab.histogram_plain(voc, vocab.assign_plain(voc, desc),
                                                     valid)[None], db), None, 5)))
     # K10 Sim3: keyframe b's points in its camera and under a known Sim3
-    # (1 cm noise, a quarter of the rows shuffled as outliers).
-    idx_b = m.kf.mp_idx[b]
-    bound_b = (idx_b >= 0) & m.kf.fvalid[b]
-    p2 = se3.transform(m.kf.Tcw[b], m.mp.pos[idx_b.clamp_min(0).long()]).contiguous()
-    S = sim3.exp(torch.tensor([0.3, -0.1, 0.5, 0.02, -0.05, 0.03, 0.0], device="cuda"))
-    noise = torch.randn(p2.shape, generator=gen, device="cuda") * 0.01
-    p1 = sim3.transform(S, p2) + noise
-    out_rows = torch.arange(F // 4, device="cuda")
-    p1[out_rows] = p1[out_rows.flip(0)]
-    s2 = (1.44 ** m.kf.octave[b].to(torch.float32)).contiguous()
-    mt = loop_closing.Sim3Matches(p1.contiguous(), p2, bound_b, s2, s2)
-    sidx = sim3_solver.sample_indices(bound_b, 256, 3, gen)
+    # (1 cm noise, a quarter of the rows shuffled as outliers): one attempt.
+    mt, sidx = sim3_full_width(m, gen)
     info["sim3"] = same_sim3(cam, mt, sidx)
-    nb = int(bound_b.sum())
-    sim3_bytes = F * (12 + 12 + 1 + 4 + 4) + 256 * 12 + 256 * 52 + 52 + F * 2 + 8
-    sim3_ops = 256 * (100 * 32 + 400) + 256 * nb * 70 + 2 * nb * 70 + 3 * nb * 500
-    rows.append(dict(name="sim3", max_abs_err=max(info["sim3"]["R"], info["sim3"]["t"]),
+    nb = int(mt.pair_ok.sum())
+    # Bytes: the matches in, the draw, the three models, their counts, the
+    # flag and both inlier masks out. Ops, counted from `csrc/ransac.cu` as
+    # the kernel runs them (each f32 add, multiply, divide, square root,
+    # min / max, abs and comparison one; work that the kernel repeats in
+    # several threads counted once): `horn3` 4342 a hypothesis (100 power
+    # iterations of 41, 242 around them, fixed scale); `observe` 24 a valid
+    # match, once; `sim3_inlier` 74 a valid match and model, for the 256
+    # hypotheses, the winner's mask and the refined model's; `add_match` 792
+    # a valid match and round, and 35 sums of 1024 columns a round, for 3
+    # rounds (the 7x7 solve and the retraction, a few hundred a round, left
+    # out).
+    sim3_bytes = F * (12 + 12 + 1 + 4 + 4) + 256 * 12 + 3 * 52 + 3 * 4 + 1 + F * 2
+    sim3_ops = (256 * 4342 + nb * 24 + (256 + 2) * nb * 74
+                + 3 * (nb * 792 + 35 * (1024 - 1)))
+    rows.append(dict(name="sim3", max_abs_err=max(info["sim3"]["combined_R"],
+                                                  info["sim3"]["combined_t"]),
                      bound=bound_ms(sim3_bytes, sim3_ops),
-                     fns=(lambda: sim3_solver.refine_sim3_iterative(
-                         cam, cam, *mt, *sim3_solver.solve_sim3_ransac(
-                             cam, cam, *mt, idx=sidx, fix_scale=True)[:3], True),
-                          lambda: sim3_solver.refine_sim3_iterative_plain(
-                              cam, cam, *mt, *sim3_solver.solve_sim3_ransac_plain(
-                                  cam, cam, *mt, sidx, 20, True)[:3], True), None, 5)))
+                     fns=(lambda: sim3_solver.solve_and_refine_sim3(
+                         cam, cam, *mt, idx=sidx, fix_scale=True),
+                          lambda: sim3_solver.solve_and_refine_sim3_plain(
+                              cam, cam, *mt, sidx, 20, True), None, 5),
+                     graph=True))  # one attempt, a replayed graph
     # K10 PnP: keyframe q's observations of its points.
     idx_q = m.kf.mp_idx[q]
     hit = (idx_q >= 0) & m.kf.fvalid[q]
@@ -3029,7 +3086,8 @@ def main() -> int:
     phase("tracker")
     lp = run_loop_phase()
     print(f"loop: {lp['states_ok']} of {lp['frames']} orbit frames OK; keyframes "
-          f"{lp['keyframes']}, detections {lp['detections']}, Sim3 attempts {lp['attempts']}, "
+          f"{lp['keyframes']}, detections {lp['detections']}, Sim3 attempts {lp['attempts']} (JAX "
+          f"{JAX_LOOP['attempts']}; one K10 launch each), "
           f"loops closed {lp['loops']} (first {lp['first_loop'][0]} <-> {lp['first_loop'][1]}, "
           f"JAX yardstick {JAX_LOOP['kf_q']} <-> {JAX_LOOP['kf_c']}); relocalizations "
           f"{lp['relocalizations']} (frames after the hand-LOST one {lp['after_lost']}); aligned "
@@ -3109,6 +3167,7 @@ def main() -> int:
     imgs = orb.as_images(list(entry_imgs), dev)
     prm = orb.params(CFG, imgs.shape[1], imgs.shape[2], str(dev))
     rows, kinfo = check_kernels(imgs, prm)
+    print(f"K3 on the entry pair: hashes {json.dumps(kinfo['k3_hashes'])}", flush=True)
     kinfo["stereo_median"] = check_stereo_median(prm)
     kinfo["stereo_edges"] = stereo_edges(dev)
     print(f"K4 edge cases: {json.dumps(kinfo['stereo_edges'])}", flush=True)

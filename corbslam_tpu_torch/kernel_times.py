@@ -1,6 +1,8 @@
-"""K1's and K4's, K2's and K6's, K5's and K11's, K7's and K8's calls and launches, timed on the card.
+"""K3's and K10's, K1's and K4's, K2's and K6's, K5's and K11's, K7's and K8's calls and
+launches, timed on the card.
 
-    python -m corbslam_tpu_torch.kernel_times [--out PATH] [--parts k1k4,k6k2,k6sweep,k11k5,k7k8]
+    python -m corbslam_tpu_torch.kernel_times [--out PATH]
+        [--parts k3k10,k1k4,k6k2,k6sweep,k11k5,k7k8]
 
 Run from the root of a checkout (it drives the phases of `chip_smoke.py`
 there for its inputs): the tracking path (frame 12's K5 and K6 calls and
@@ -11,6 +13,16 @@ problem) and the e2e stereo lap (its first GBA chunk's problem); it keeps
 the tracker's and the 2.5-lap orbit's frame times (asynchronous global BA
 beside the tracker). `--parts` picks what to time (default all). Then:
 
+- K3 (`brief.describe`) on the entry pair's pyramid and keypoints as a
+  replayed graph (`chip_smoke.graph_ms`), its launches a call and a hash of
+  its patch, angle and descriptor buffers; one Sim3 attempt of
+  `loop_closing.compute_sim3` (RANSAC, refinement and their combine;
+  `sim3_attempt`) at full width on `sim3_full_width`'s match set and draw
+  (`chip_smoke.check_full_width`'s) as a replayed graph, each of its
+  launches alone (`recorded_launches`) as a replayed graph, its device time
+  by kernel name (torch.profiler), its launches, and hashes of its outputs
+  there and on the loop orbit's first closure; the tracker's device time a
+  frame with K3's share, and the loop orbit's attempts and closure (k3k10);
 - K1 (`pyramid.build_pyramid`) and K4 (`stereo.stereo_match`) on the
   entry pair (1241x376, 8 levels, both images; K4 on the pair's features)
   as CUDA graphs of up to 100 calls replayed between CUDA events
@@ -68,6 +80,7 @@ import json
 import os
 import sys
 from collections import defaultdict
+from typing import Optional
 
 import numpy as np
 import torch
@@ -81,6 +94,7 @@ from .mapstate import covisibility as covis
 from .matching import matcher
 from .ops import fast, pyramid
 from .optim import ba_dense, pose_graph, pose_opt
+from .solvers import sim3_solver
 
 
 def recorded_launches(call) -> dict:
@@ -407,11 +421,12 @@ def time_k11(cs, graphs: dict, reps: int = 3) -> dict:
     return out
 
 
-def device_per_frame(step, n: int, watch=()) -> dict:
+def device_per_frame(step, n: int, watch=(), top: Optional[int] = 12) -> dict:
     """torch.profiler over n step() calls: wall and device ms a frame, the
-    device's idle share, launches a frame (as `profile_frame` reports), and
-    the device ms and launches a frame of the kernels whose names hold one
-    of `watch`."""
+    device's idle share, launches a frame (as `profile_frame` reports), the
+    `top` kernels by device ms a frame (all of them when None), and the
+    device ms and launches a frame of the kernels whose names hold one of
+    `watch`."""
     from time import perf_counter
 
     from torch.profiler import ProfilerActivity, profile
@@ -435,10 +450,10 @@ def device_per_frame(step, n: int, watch=()) -> dict:
                     watched[w][0] += ev.device_time_total / 1e3 / n
                     watched[w][1] += 1
     dev_ms = sum(per.values())
-    top = sorted(per.items(), key=lambda kv: -kv[1])[:12]
+    ranked = sorted(per.items(), key=lambda kv: -kv[1])[:top]
     return dict(wall_ms_per_frame=wall, device_ms_per_frame=dev_ms,
                 device_idle_share=max(0.0, 1.0 - dev_ms / wall), launches_per_frame=count / n,
-                top_kernels_ms=[[k[:80], v] for k, v in top],
+                top_kernels_ms=[[k[:80], v] for k, v in ranked],
                 watched={w: dict(ms_per_frame=v[0], launches_per_frame=v[1] / n)
                          for w, v in watched.items()})
 
@@ -481,6 +496,97 @@ def time_k1_k4(cs) -> dict:
     out["tracker_device"] = device_per_frame(
         profile_frame.tracker_frames(10), 10,
         watch=("pyramid", "resize_level", "blur_levels", "stereo"))
+    return out
+
+
+def sim3_full_width(m, gen: torch.Generator) -> tuple:
+    """`chip_smoke.check_full_width`'s Sim3 match set and draw on map m: the
+    second-newest live keyframe's points in its camera and under a known
+    Sim3 (1 cm noise from `gen`, a quarter of the rows shuffled as
+    outliers), and 256 draws of 3 from its bound rows: (Sim3Matches, idx)."""
+    dev = m.kf.Tcw.device
+    F = m.kf.n_features
+    b = torch.nonzero(m.kf.valid)[:, 0].tolist()[-2]
+    idx_b = m.kf.mp_idx[b]
+    bound_b = (idx_b >= 0) & m.kf.fvalid[b]
+    p2 = se3.transform(m.kf.Tcw[b], m.mp.pos[idx_b.clamp_min(0).long()]).contiguous()
+    S = sim3.exp(torch.tensor([0.3, -0.1, 0.5, 0.02, -0.05, 0.03, 0.0], device=dev))
+    noise = torch.randn(p2.shape, generator=gen, device=dev) * 0.01
+    p1 = sim3.transform(S, p2) + noise
+    out_rows = torch.arange(F // 4, device=dev)
+    p1[out_rows] = p1[out_rows.flip(0)]
+    s2 = (1.44 ** m.kf.octave[b].to(torch.float32)).contiguous()
+    mt = loop_closing.Sim3Matches(p1.contiguous(), p2, bound_b, s2, s2)
+    return mt, sim3_solver.sample_indices(bound_b, 256, 3, gen)
+
+
+def sim3_attempt(cam, mt, idx, fix_scale: bool = True, min_inliers: int = 20) -> tuple:
+    """One Sim3 attempt of `loop_closing.compute_sim3`
+    (`sim3_solver.solve_and_refine_sim3` on draw `idx`) as one flat tuple:
+    RANSAC R, t, s, inliers, n, ok; refined R, t, s, inliers, n; combined
+    R, t, s, n."""
+    a = sim3_solver.solve_and_refine_sim3(cam, cam, *mt, idx=idx, min_inliers=min_inliers,
+                                          fix_scale=fix_scale)
+    return (*a.ransac, *a.refined, a.R, a.t, a.s, a.n_inliers)
+
+
+def time_sim3(cs, cam, mt, idx) -> dict:
+    """One Sim3 attempt (`sim3_attempt`) on (mt, idx): replayed graph,
+    host-inclusive CUDA events, each launch alone, torch.profiler by kernel
+    name, launches and an output hash."""
+    attempt = lambda: sim3_attempt(cam, mt, idx)  # noqa: E731
+    out = attempt()
+    torch.cuda.synchronize()
+    return dict(graph_ms=cs.graph_ms(attempt), host_ms=cs.host_ms(attempt),
+                launches_per_attempt=cs.launches_of(attempt, "sim3"),
+                launch_graph_ms={k: cs.graph_ms(f) for k, f in recorded_launches(attempt).items()},
+                profiler=device_per_frame(attempt, 20, top=None), outputs_hash=digest(*out),
+                n_inliers=[int(out[4]), int(out[10]), int(out[14])],
+                matches=int(mt.pair_ok.sum()))
+
+
+def time_k3_k10(cs) -> dict:
+    """K3 on the entry pair (replayed graph, launches a call, output hashes),
+    one Sim3 attempt at full width and on the loop orbit's first closure,
+    the tracker's device time a frame with K3's share, the loop orbit."""
+    from . import profile_frame
+    from .ops import brief, orb
+
+    _, entry_imgs = cs.entry("cuda")
+    imgs = orb.as_images(list(entry_imgs), torch.device("cuda"))
+    prm = orb.params(cs.CFG, imgs.shape[1], imgs.shape[2], "cuda")
+    pyr = pyramid.build_pyramid(imgs, prm)
+    kp = fast.detect_pyramid(pyr, prm)
+    describe = lambda: brief.describe(pyr, kp, prm)  # noqa: E731
+    patch, angle, desc = describe()
+    torch.cuda.synchronize()
+    out = dict(k3=dict(graph_ms=cs.graph_ms(describe), host_ms=cs.host_ms(describe),
+                       launches_per_call=cs.launches_of(describe, "orb_describe"),
+                       patch_hash=digest(patch), angle_hash=digest(angle),
+                       desc_hash=digest(desc), slots=int(kp.cell_id.numel()),
+                       valid=int(kp.valid.sum())))
+    tp = cs.run_tracker_phase()
+    fl = cs.run_flagship_with_loop_closer(tp)
+    del tp
+    tracker = fl["tracker"]
+    mt, idx = sim3_full_width(tracker.map, torch.Generator(device="cuda").manual_seed(11))
+    out["sim3_full_width"] = time_sim3(cs, tracker.cam, mt, idx)
+    del fl, tracker
+    lp = cs.run_loop_phase()
+    kept, ltr = lp["kept"], lp["tracker"]
+    mt = loop_closing.sim3_matches(kept["m"], kept["kf_q"], kept["kf_c"], ltr.cfg)
+    idx = sim3_solver.sample_indices(mt.pair_ok, 256, 3,
+                                     torch.Generator(device="cuda").manual_seed(7))
+    out["sim3_loop_map"] = time_sim3(cs, ltr.cam, mt, idx)
+    out["loop_orbit"] = dict(attempts=lp["attempts"], sim3_launches=lp["launches"]["sim3"],
+                             first_loop=lp["first_loop"], loops=lp["loops"], ate_m=lp["ate_m"],
+                             close_ms=lp["close_ms"], frame_ms_p50=lp["frame_ms_p50"],
+                             frame_ms_p90=lp["frame_ms_p90"],
+                             loop_stage_ms_p50=float(np.percentile(lp["loop_stage_ms"], 50)),
+                             sim3_log=lp["sim3_log"])
+    del lp, kept, ltr
+    out["tracker_device"] = device_per_frame(profile_frame.tracker_frames(10), 10,
+                                             watch=("orb_describe",))
     return out
 
 
@@ -619,8 +725,10 @@ def time_k8(cam, pb, n_iters: int, cg: int, huber: int, graph_ms, counter="ba_de
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join("chiprun_out", "kernel_times.json"))
-    ap.add_argument("--parts", default="k1k4,k6k2,k6sweep,k11k5,k7k8",
-                    help="k1k4: K1 and K4 on the entry pair and the tracker's device time; "
+    ap.add_argument("--parts", default="k3k10,k1k4,k6k2,k6sweep,k11k5,k7k8",
+                    help="k3k10: K3 on the entry pair, a Sim3 attempt at full width and on "
+                         "the loop map, the tracker's device time and the loop orbit; "
+                         "k1k4: K1 and K4 on the entry pair and the tracker's device time; "
                          "k6k2: K6 and K2 on the tracking path; k6sweep: K6 by observations "
                          "and iterations; k11k5: K5 on the tracking path, K11, the tracker's "
                          "device time and the loop closures; k7k8: K7, K8 and the tracker")
@@ -634,6 +742,8 @@ def main() -> None:
     out = dict(nvidia_smi=cs.nvidia_smi_line(), device=torch.cuda.get_device_name(0))
     kernels.lib()
     dev = torch.device("cuda")
+    if "k3k10" in parts:
+        out.update(time_k3_k10(cs))
     if "k1k4" in parts:
         out.update(time_k1_k4(cs))
     if not parts & {"k6k2", "k6sweep", "k11k5", "k7k8"}:

@@ -37,7 +37,8 @@ NVCC_FLAGS = [
 # Launch counts per kernel wrapper, read by chip_smoke.py around the main path.
 # "covisibility" counts the K7 launches of the mapping stages
 # (`mapstate.covisibility`) apart from the tracking step's ("local_map");
-# K10's launches count as "sim3" (RANSAC and refinement) or "pnp"; K11's as
+# K10's launches count as "sim3" (a Sim3 attempt, or its RANSAC or refinement
+# alone) or "pnp"; K11's as
 # "pose_graph" or "covis_matrix" (the covisibility count); K4's RGB-D entry as
 # "rgbd_stereo"; K5's area-window mode (mono initialization) as "match_area"
 # and its epipolar-band mode (triangulation) as "match_band"; K12's as
@@ -65,7 +66,7 @@ _SIGNATURES = {
     "fast_cell_max": [VP] * 4 + [I32] * 3 + [F32] + [I32] * 5 + [VP],
     "fast_topk": [VP] * 11 + [I32] * 6 + [VP],
     # orb_describe.cu
-    "orb_describe": [VP] * 12 + [I32] * 4 + [VP],
+    "orb_describe": [VP] * 11 + [I32] * 4 + [VP],
     # stereo_match.cu
     "stereo_match": [VP] * 11 + [I32] * 3 + [F32, I32, F32] + [VP] * 7 + [VP],
     "rgbd_stereo": [VP, I32, I32] + [VP] * 3 + [I32, F32, F32] + [VP] * 3 + [VP],
@@ -93,9 +94,7 @@ _SIGNATURES = {
     "vocab_sparse": [VP, VP, I32, VP, I32, VP, VP] + [VP],
     "vocab_l1_scores": [VP, I32, VP, I32, I32, VP] + [VP],
     # ransac.cu
-    "sim3_hypotheses": [VP] * 5 + [I32, VP, I32, I32] + [F32] * 8 + [VP] * 4 + [VP],
-    "sim3_select": [VP] * 5 + [I32] + [VP] * 4 + [I32, I32] + [F32] * 8 + [VP] * 6 + [VP],
-    "sim3_refine": [VP] * 5 + [I32] + [VP] * 3 + [I32, I32] + [F32] * 8 + [VP] * 5 + [VP],
+    "sim3_attempt": [VP] * 5 + [I32, VP, I32] + [VP] * 3 + [I32] * 4 + [F32] * 8 + [VP] * 7 + [VP],
     "pnp_hypotheses": [VP] * 4 + [I32, VP, I32] + [F32] * 5 + [VP] * 3 + [VP],
     "pnp_select": [VP] * 4 + [I32] + [VP] * 3 + [I32, I32] + [F32] * 5 + [VP] * 4 + [VP],
     # pose_graph.cu
@@ -226,12 +225,15 @@ def ptr(t: torch.Tensor) -> int:
 
 
 def check(t: torch.Tensor, name: str, dtype, shape=None, device=None) -> None:
-    """Validate a kernel operand before its pointer is passed to C."""
-    if not t.is_cuda or (device is not None and t.device != device):
+    """Validate a kernel operand before its pointer is passed to C: on
+    `device` (any CUDA device when None), of `dtype` and `shape`, and
+    contiguous when on CUDA. A wrapper whose plain version checks its CPU
+    operands the same way passes their device."""
+    if (t.device != device) if device is not None else not t.is_cuda:
         raise ValueError(f"{name}: expected a tensor on {device or 'cuda'}, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if t.is_cuda and not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")

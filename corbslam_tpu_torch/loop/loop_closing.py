@@ -106,17 +106,10 @@ def compute_sim3(cam, m: ms.MapState, kf_q: int, kf_c: int, cfg: SlamConfig,
     p1, p2, pair_ok, s2_q, s2_c = sim3_matches(m, kf_q, kf_c, cfg)
     n_bow = pair_ok.sum(dtype=torch.int32)
     Tc = m.kf.Tcw[kf_c]
-    ransac = sim3_solver.solve_sim3_ransac(
+    att = sim3_solver.solve_and_refine_sim3(
         cam, cam, p1, p2, pair_ok, s2_q, s2_c, generator=generator, n_hyp=256,
-        min_inliers=cfg.loop.min_sim3_inliers, fix_scale=fix_scale, idx=sample)
-    R, t, s, _, n_ref = sim3_solver.refine_sim3_iterative(
-        cam, cam, p1, p2, pair_ok, s2_q, s2_c, ransac.R, ransac.t, ransac.s,
-        fix_scale=fix_scale, n_rounds=3)
-    use = (ransac.n_inliers >= 3) & (n_ref >= 3)
-    R = torch.where(use, R, ransac.R)
-    t = torch.where(use, t, ransac.t)
-    s = torch.where(use, s, ransac.s)
-    n_inliers = torch.where(use, torch.maximum(n_ref, ransac.n_inliers), ransac.n_inliers)
+        min_inliers=cfg.loop.min_sim3_inliers, fix_scale=fix_scale, idx=sample, n_rounds=3)
+    ransac, R, t, s, n_inliers = att.ransac, att.R, att.t, att.s, att.n_inliers
 
     rows, rows_ok = _widen_rows(m, kf_c, cfg)
     r = rows.long()
@@ -343,6 +336,7 @@ class LoopCloser:
         self.cfg = cfg
         self.voc = voc
         self.device = voc.words.device
+        sim3_solver.check_capacity(cfg.capacity.max_features, self.device)
         self.fix_scale = fix_scale
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.stats = LoopCloserStats()

@@ -12,7 +12,9 @@ the reference (tests/test_torch_scaffold.py checks it is identical).
 
 `describe` is the wrapper of kernel K3 (`csrc/orb_describe.cu`): patches,
 orientation and descriptor of every keypoint of every level and image in one
-launch on a CUDA input, `describe_plain` on a CPU input.
+launch on a CUDA input (a warp a keypoint slot; the moment weights of
+`_orientation_weights` are computed in the kernel), `describe_plain` on a
+CPU input.
 """
 
 from __future__ import annotations
@@ -155,8 +157,6 @@ def _describe_cuda(pyr: Pyramid, kp: Keypoints, params: OrbParams):
     params.require_device(dev)
     B = pyr.levels.shape[0]
     N = params.n_features
-    if params.orient_weights.shape != (RAW_PATCH * RAW_PATCH, 2):
-        raise ValueError("orient_weights must be [32*32, 2]")
     if tuple(params.brief_offsets.shape) != (N_ANGLE_BINS, N_BITS, 2, 2):
         raise ValueError("brief_offsets must be [16, 256, 2, 2]")
     kernels.check(pyr.levels, "levels", torch.float32, (B, params.total))
@@ -169,7 +169,7 @@ def _describe_cuda(pyr: Pyramid, kp: Keypoints, params: OrbParams):
     P = kernels.ptr
     kernels.launch(
         "orb_describe", "orb_describe", P(pyr.levels), P(pyr.blurred),
-        P(params.level_table), P(params.orient_weights), P(params.brief_offsets),
+        P(params.level_table), P(params.brief_offsets),
         P(kp.cell_id), P(kp.iy), P(kp.ix), P(kp.octave),
         P(patch), P(angle), P(desc), B, N, params.total, params.cfg.cell_size,
     )

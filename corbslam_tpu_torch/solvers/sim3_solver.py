@@ -9,9 +9,12 @@ an input: `idx` [H, 3], drawn from `valid` with a `torch.Generator` when the
 caller passes none (the reference's `jax.random.choice` cannot be
 reproduced, so the tests hand both packages the same index array).
 
-On CUDA tensors the hypotheses, the choice of the best (first maximum) and
-the refinement run on kernel K10 (`csrc/ransac.cu`); on CPU tensors the
-plain versions below.
+On CUDA tensors the hypotheses, the choice of the best (first maximum),
+the refinement and `compute_sim3`'s combine of the two run on kernel K10
+(`csrc/ransac.cu`), one launch an attempt (`solve_and_refine_sim3`), or the
+RANSAC or the refinement alone (`solve_sim3_ransac`,
+`refine_sim3_iterative`) on the same kernel; on CPU tensors the plain
+versions below.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from ..geometry import se3, sim3
 from ..optim.smallmat import chol_solve_factored, chol_unrolled
 
 CHI2_SIM3 = 9.21  # Sim3Solver::CheckInliers gate (x octave sigma^2)
+SIM3_RANSAC, SIM3_REFINE = 1, 2  # the kernel's mode bits
+SIM3_MAX_N = 4096  # the kernel keeps 8 floats of every match in one CTA's shared memory
 
 
 class Sim3RansacResult(NamedTuple):
@@ -35,6 +40,15 @@ class Sim3RansacResult(NamedTuple):
     inliers: torch.Tensor   # [N] bool
     n_inliers: torch.Tensor  # 0-dim i32
     ok: torch.Tensor         # 0-dim bool
+
+
+class Sim3Attempt(NamedTuple):
+    ransac: Sim3RansacResult
+    refined: tuple           # (R, t, s, inliers [N], n_inliers) of refine_sim3_iterative
+    R: torch.Tensor          # the combine: the refined model where both counts reach 3
+    t: torch.Tensor
+    s: torch.Tensor
+    n_inliers: torch.Tensor  # 0-dim i32
 
 
 def sample_indices(valid: torch.Tensor, n_hyp: int, k: int,
@@ -116,9 +130,24 @@ def _cams(cam1, cam2):
             float(cam2.fx), float(cam2.fy), float(cam2.cx), float(cam2.cy))
 
 
-def _check_matches(dev, N, **tensors):
-    for name, (t, dt, cols) in tensors.items():
-        kernels.check(t, name, dt, (N,) if cols is None else (N, cols), dev)
+def _check_matches(p1, p2, valid, s2_1, s2_2, idx=None) -> None:
+    """Device (p1's), dtype and shape of a Sim3 call's matches and draw."""
+    dev, N = p1.device, p1.shape[0]
+    for name, t, dt, shape in (("p1", p1, torch.float32, (N, 3)), ("p2", p2, torch.float32, (N, 3)),
+                               ("valid", valid, torch.bool, (N,)),
+                               ("s2_1", s2_1, torch.float32, (N,)),
+                               ("s2_2", s2_2, torch.float32, (N,))):
+        kernels.check(t, name, dt, shape, dev)
+    if idx is not None:
+        kernels.check(idx, "idx", torch.int32, (idx.shape[0], 3), dev)
+
+
+def check_capacity(n_matches: int, device) -> None:
+    """Raises when K10's Sim3 kernel cannot take `n_matches` matches on
+    `device` (the plain version takes any number): the loop closer calls it
+    at set-up with the keyframes' feature capacity."""
+    if torch.device(device).type == "cuda" and n_matches > SIM3_MAX_N:
+        raise ValueError(f"{n_matches} matches: K10's Sim3 kernel takes at most {SIM3_MAX_N}")
 
 
 def solve_sim3_ransac(cam1, cam2, p1, p2, valid, s2_1, s2_2,
@@ -135,25 +164,9 @@ def solve_sim3_ransac(cam1, cam2, p1, p2, valid, s2_1, s2_2,
             raise ValueError(f"unsupported device {p1.device}")
         return solve_sim3_ransac_plain(cam1, cam2, p1, p2, valid, s2_1, s2_2, idx, min_inliers,
                                        fix_scale)
-    dev, N, H = p1.device, p1.shape[0], idx.shape[0]
-    _check_matches(dev, N, p1=(p1, torch.float32, 3), p2=(p2, torch.float32, 3),
-                   valid=(valid, torch.bool, None), s2_1=(s2_1, torch.float32, None),
-                   s2_2=(s2_2, torch.float32, None))
-    kernels.check(idx, "idx", torch.int32, (H, 3), dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    hR, ht, hs = torch.empty(H, 3, 3, **f32), torch.empty(H, 3, **f32), torch.empty(H, **f32)
-    counts = torch.empty(H, dtype=torch.int32, device=dev)
-    p = kernels.ptr
-    args = (p(p1), p(p2), p(valid), p(s2_1), p(s2_2), N)
-    kernels.launch("sim3", "sim3_hypotheses", *args, p(idx), H, int(fix_scale),
-                   *_cams(cam1, cam2), p(hR), p(ht), p(hs), p(counts))
-    R, t, s = torch.empty(3, 3, **f32), torch.empty(3, **f32), torch.empty((), **f32)
-    inl = torch.empty(N, dtype=torch.bool, device=dev)
-    n_in = torch.empty((), dtype=torch.int32, device=dev)
-    ok = torch.empty((), dtype=torch.bool, device=dev)
-    kernels.launch("sim3", "sim3_select", *args, p(hR), p(ht), p(hs), p(counts), H,
-                   int(min_inliers), *_cams(cam1, cam2), p(R), p(t), p(s), p(inl), p(n_in), p(ok))
-    return Sim3RansacResult(R, t, s, inl, n_in, ok)
+    _check_matches(p1, p2, valid, s2_1, s2_2, idx)
+    return _sim3_cuda(SIM3_RANSAC, cam1, cam2, p1, p2, valid, s2_1, s2_2, idx=idx,
+                      min_inliers=min_inliers, fix_scale=fix_scale)[0]
 
 
 def _proj_diff(cam, q):
@@ -225,26 +238,110 @@ def refine_sim3_iterative(cam1, cam2, p1, p2, valid, s2_1, s2_2, R0, t0, s0,
     reprojection error in both cameras, every correspondence re-weighted
     each round (the role of Optimizer::OptimizeSim3); the refined model is
     kept only if it classifies at least as many inliers. Returns (R, t, s,
-    inliers [N], n_inliers). One CTA of K10 on CUDA tensors."""
+    inliers [N], n_inliers). One CTA of K10's `sim3_attempt` on CUDA tensors."""
     if not p1.is_cuda:
         if p1.device.type != "cpu":
             raise ValueError(f"unsupported device {p1.device}")
         return refine_sim3_iterative_plain(cam1, cam2, p1, p2, valid, s2_1, s2_2, R0, t0, s0,
                                            fix_scale, n_rounds)
+    _check_matches(p1, p2, valid, s2_1, s2_2)
+    return _sim3_cuda(SIM3_REFINE, cam1, cam2, p1, p2, valid, s2_1, s2_2, R0=R0, t0=t0, s0=s0,
+                      fix_scale=fix_scale, n_rounds=n_rounds)[1]
+
+
+def combine_sim3(ransac: Sim3RansacResult, refined: tuple) -> tuple:
+    """`compute_sim3`'s choice: the refined model (and the larger count)
+    where the RANSAC's and the refinement's counts both reach 3, else the
+    RANSAC's. Returns (R, t, s, n_inliers)."""
+    use = (ransac.n_inliers >= 3) & (refined[4] >= 3)
+    return (torch.where(use, refined[0], ransac.R), torch.where(use, refined[1], ransac.t),
+            torch.where(use, refined[2], ransac.s),
+            torch.where(use, torch.maximum(refined[4], ransac.n_inliers), ransac.n_inliers))
+
+
+def solve_and_refine_sim3_plain(cam1, cam2, p1, p2, valid, s2_1, s2_2, idx,
+                                min_inliers: int = 20, fix_scale: bool = False,
+                                n_rounds: int = 3) -> Sim3Attempt:
+    r = solve_sim3_ransac_plain(cam1, cam2, p1, p2, valid, s2_1, s2_2, idx, min_inliers,
+                                fix_scale)
+    f = refine_sim3_iterative_plain(cam1, cam2, p1, p2, valid, s2_1, s2_2, r.R, r.t, r.s,
+                                    fix_scale, n_rounds)
+    return Sim3Attempt(r, f, *combine_sim3(r, f))
+
+
+def solve_and_refine_sim3(cam1, cam2, p1, p2, valid, s2_1, s2_2,
+                          generator: Optional[torch.Generator] = None, n_hyp: int = 128,
+                          min_inliers: int = 20, fix_scale: bool = False,
+                          idx: Optional[torch.Tensor] = None, n_rounds: int = 3) -> Sim3Attempt:
+    """One Sim3 attempt of `loop_closing.compute_sim3`: the RANSAC
+    (`solve_sim3_ransac`, `idx` [n_hyp, 3] overriding the draw), the
+    refinement from its model (`refine_sim3_iterative`) and their combine
+    (`combine_sim3`). One launch of K10 on CUDA tensors, the plain versions
+    in sequence on CPU tensors."""
+    if not p1.is_cuda and p1.device.type != "cpu":
+        raise ValueError(f"unsupported device {p1.device}")
+    if idx is None:
+        idx = sample_indices(valid, n_hyp, 3, generator)
+    _check_matches(p1, p2, valid, s2_1, s2_2, idx)
+    if not p1.is_cuda:
+        return solve_and_refine_sim3_plain(cam1, cam2, p1, p2, valid, s2_1, s2_2, idx,
+                                           min_inliers, fix_scale, n_rounds)
+    ransac, refined, combined = _sim3_cuda(
+        SIM3_RANSAC | SIM3_REFINE, cam1, cam2, p1, p2, valid, s2_1, s2_2, idx=idx,
+        min_inliers=min_inliers, fix_scale=fix_scale, n_rounds=n_rounds)
+    return Sim3Attempt(ransac, refined, *combined)
+
+
+_SIM3_WORK: dict = {}
+
+
+def sim3_workspace(device, stream: int = 0) -> torch.Tensor:
+    """K10's two Sim3 words (int64: the best hypothesis key and the CTA
+    ticket) for one stream, 0 when made and kept from call to call: the
+    launch's last CTA sets them back to 0."""
+    key = (torch.device(device), stream)
+    work = _SIM3_WORK.get(key)
+    if work is None:
+        work = _SIM3_WORK[key] = torch.zeros(2, dtype=torch.int64, device=device)
+    return work
+
+
+def _sim3_cuda(mode: int, cam1, cam2, p1, p2, valid, s2_1, s2_2, idx=None, R0=None, t0=None,
+               s0=None, min_inliers: int = 20, fix_scale: bool = False, n_rounds: int = 3):
+    """One launch of K10's `sim3_attempt` in `mode`: ((R, t, s, inliers,
+    n_inliers, ok) of the RANSAC, (R, t, s, inliers, n_inliers) of the
+    refinement, (R, t, s, n_inliers) of their combine); only the parts that
+    the mode computes are written. The caller has checked the matches
+    and the draw (`_check_matches`)."""
     dev, N = p1.device, p1.shape[0]
-    _check_matches(dev, N, p1=(p1, torch.float32, 3), p2=(p2, torch.float32, 3),
-                   valid=(valid, torch.bool, None), s2_1=(s2_1, torch.float32, None),
-                   s2_2=(s2_2, torch.float32, None))
-    R0, t0, s0 = R0.contiguous(), t0.contiguous(), s0.contiguous()
-    kernels.check(R0, "R0", torch.float32, (3, 3), dev)
-    kernels.check(t0, "t0", torch.float32, (3,), dev)
-    kernels.check(s0, "s0", torch.float32, (), dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    R, t, s = torch.empty(3, 3, **f32), torch.empty(3, **f32), torch.empty((), **f32)
-    inl = torch.empty(N, dtype=torch.bool, device=dev)
-    n_in = torch.empty((), dtype=torch.int32, device=dev)
+    check_capacity(N, dev)
     p = kernels.ptr
-    kernels.launch("sim3", "sim3_refine", p(p1), p(p2), p(valid), p(s2_1), p(s2_2), N, p(R0),
-                   p(t0), p(s0), int(fix_scale), int(n_rounds), *_cams(cam1, cam2), p(R), p(t),
-                   p(s), p(inl), p(n_in))
-    return R, t, s, inl, n_in
+    H = 0
+    if mode & SIM3_RANSAC:
+        H = idx.shape[0]
+        if H < 1:
+            raise ValueError("idx: needs at least one hypothesis")
+        start = (p(idx), H, 0, 0, 0)
+    else:
+        R0, t0, s0 = R0.contiguous(), t0.contiguous(), s0.contiguous()
+        kernels.check(R0, "R0", torch.float32, (3, 3), dev)
+        kernels.check(t0, "t0", torch.float32, (3,), dev)
+        kernels.check(s0, "s0", torch.float32, (), dev)
+        start = (0, 0, p(R0), p(t0), p(s0))
+    f32 = dict(dtype=torch.float32, device=dev)
+    out_f = torch.empty(3, 13, **f32)
+    out_i = torch.empty(3, dtype=torch.int32, device=dev)
+    ok = torch.empty((), dtype=torch.bool, device=dev)
+    inl_r = torch.empty(N, dtype=torch.bool, device=dev)
+    inl_f = torch.empty(N, dtype=torch.bool, device=dev)
+    models = torch.empty(max(H, 1), 13, **f32)
+    kernels.launch("sim3", "sim3_attempt", p(p1), p(p2), p(valid), p(s2_1), p(s2_2), N, *start,
+                   mode, int(fix_scale), int(n_rounds), int(min_inliers), *_cams(cam1, cam2),
+                   p(sim3_workspace(dev, kernels.stream())), p(models), p(out_f), p(out_i),
+                   p(ok), p(inl_r), p(inl_f))
+
+    def model(i):
+        return out_f[i, :9].view(3, 3), out_f[i, 9:12], out_f[i, 12]
+
+    return (Sim3RansacResult(*model(0), inl_r, out_i[0], ok), (*model(1), inl_f, out_i[1]),
+            (*model(2), out_i[2]))

@@ -14,6 +14,7 @@ import dataclasses
 import re
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -30,6 +31,7 @@ from corbslam_tpu.ops import pyramid as jpyramid
 from corbslam_tpu_torch import config, entry, interop, kernels, system
 from corbslam_tpu_torch.frontend import frame, track_ops
 from corbslam_tpu_torch.geometry import camera
+from corbslam_tpu_torch.loop import loop_closing
 from corbslam_tpu_torch.io import synthetic
 from corbslam_tpu_torch.mapstate import covisibility as covis
 from corbslam_tpu_torch.mapstate import mapstate as ms
@@ -306,7 +308,8 @@ def test_chip_smoke_fails_without_cuda():
 @pytest.mark.parametrize("wrapper", ["pyramid", "fast", "describe", "stereo", "match", "pose",
                                      "local_map", "point_major", "ba_optimize", "top_covisible",
                                      "window_mask", "compact", "vocab_assign", "l1_scores",
-                                     "sim3_ransac", "sim3_refine", "pnp_ransac", "pose_graph",
+                                     "sim3_ransac", "sim3_refine", "sim3_attempt", "pnp_ransac",
+                                     "pose_graph",
                                      "covis_matrix", "rgbd_stereo", "two_view", "band_search",
                                      "triangulate", "kmajority", "km_idf", "assign_flat"])
 def test_wrappers_refuse_devices_other_than_cpu_and_cuda(wrapper):
@@ -354,11 +357,13 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda(wrapper):
             vocab.assign(voc, torch.empty(4, 32, dtype=torch.uint8, device="meta"))
         elif wrapper == "l1_scores":
             vocab.l1_scores(torch.empty(8, device="meta"), torch.empty(2, 8, device="meta"))
-        elif wrapper in ("sim3_ransac", "sim3_refine", "pnp_ransac"):
+        elif wrapper in ("sim3_ransac", "sim3_refine", "sim3_attempt", "pnp_ransac"):
             p3, v = torch.empty(8, 3, device="meta"), torch.empty(8, device="meta")
             idx = torch.empty(4, 6, dtype=torch.int32, device="meta")
             if wrapper == "sim3_ransac":
                 sim3_solver.solve_sim3_ransac(None, None, p3, p3, v, v, v, idx=idx)
+            elif wrapper == "sim3_attempt":
+                sim3_solver.solve_and_refine_sim3(None, None, p3, p3, v, v, v, idx=idx)
             elif wrapper == "sim3_refine":
                 sim3_solver.refine_sim3_iterative(None, None, p3, p3, v, v, v, None, None, None)
             else:
@@ -529,3 +534,104 @@ def test_k4_workspace_is_kept_per_stream_and_zeroed():
     finally:
         stereo._K4_WORK.clear()
         stereo._K4_WORK.update(saved)
+
+
+CAM_ = camera.Intrinsics.create(320.0, 320.0, 160.0, 120.0, bf=160.0, width=320, height=240)
+
+
+def _sim3_operands(N=8, H=4):
+    rng = np.random.default_rng(0)
+    return dict(p1=torch.from_numpy(rng.normal(size=(N, 3)).astype(np.float32)),
+                p2=torch.from_numpy(rng.normal(size=(N, 3)).astype(np.float32)),
+                valid=torch.ones(N, dtype=torch.bool), s2_1=torch.ones(N), s2_2=torch.ones(N),
+                idx=torch.from_numpy(rng.integers(0, N, (H, 3)).astype(np.int32)))
+
+
+@pytest.mark.parametrize("bad", ["p2:on_meta", "valid:on_meta", "idx:on_meta", "p1:f64",
+                                 "valid:u8", "s2_1:f16", "s2_2:f64", "idx:i64", "idx:wide"])
+def test_sim3_attempt_refuses_mixed_devices_and_wrong_dtypes(bad):
+    """`solve_and_refine_sim3` checks every operand against p1's device and
+    its own dtype and shape before it dispatches, on any device."""
+    ops = _sim3_operands()
+    name, fault = bad.split(":")
+    t = ops[name]
+    ops[name] = {"on_meta": lambda: t.to("meta"), "f64": lambda: t.double(),
+                 "u8": lambda: t.to(torch.uint8), "f16": lambda: t.half(),
+                 "i64": lambda: t.long(), "wide": lambda: t.repeat(1, 2)}[fault]()
+    with pytest.raises(ValueError, match="expected"):
+        sim3_solver.solve_and_refine_sim3(None, None, ops["p1"], ops["p2"], ops["valid"],
+                                          ops["s2_1"], ops["s2_2"], idx=ops["idx"])
+
+
+def test_sim3_kernel_capacity_is_checked_when_the_loop_closer_is_set_up():
+    """K10's Sim3 kernel takes at most `SIM3_MAX_N` matches (the plain
+    version any number): a CUDA loop closer whose keyframes hold more
+    features is refused when it is built, before it touches the device."""
+    n = sim3_solver.SIM3_MAX_N
+    sim3_solver.check_capacity(n, "cuda")
+    sim3_solver.check_capacity(n + 1, "cpu")
+    with pytest.raises(ValueError, match="at most"):
+        sim3_solver.check_capacity(n + 1, "cuda")
+    cfg = config.SlamConfig(capacity=config.CapacityConfig(max_features=n + 1))
+    voc = vocab.Vocabulary(types.SimpleNamespace(device=torch.device("cuda")), None)
+    with pytest.raises(ValueError, match="at most"):
+        loop_closing.LoopCloser(CAM_, cfg, voc)
+
+
+@pytest.mark.parametrize("mode", ["ransac", "refine", "attempt", "describe"])
+def test_k10_sim3_and_k3_make_one_launch_that_fits_their_c_entry(mode, monkeypatch):
+    """K10's Sim3 RANSAC, refinement and whole attempt are one launch of
+    `sim3_attempt` in modes 1, 2 and 3 (the attempt's grid covers ceil(H / 2)
+    hypotheses, its outputs are views of one model buffer), and K3's
+    `describe` one launch of `orb_describe`, each argument list fitting its
+    C entry's ctypes signature; run here on CPU tensors with the launch
+    recorded instead of made."""
+    calls = []
+    monkeypatch.setattr(kernels, "launch", lambda counter, fn, *a: calls.append((counter, fn, a)))
+    monkeypatch.setattr(kernels, "ptr", lambda t: 0)
+    monkeypatch.setattr(kernels, "stream", lambda: 0)
+    monkeypatch.setattr(kernels, "check", lambda *a, **k: None)
+    monkeypatch.setattr(sim3_solver, "_SIM3_WORK", {})
+    ops = _sim3_operands(N=8, H=5)
+    m = (ops["p1"], ops["p2"], ops["valid"], ops["s2_1"], ops["s2_2"])
+    if mode == "describe":
+        prm = orb.params(config.OrbConfig(n_features=64, n_levels=2), 64, 96, "cpu")
+        meta = torch.zeros(2, prm.total)
+        i32 = [torch.zeros(2, 64, dtype=torch.int32) for _ in range(4)]
+        kp = fast.Keypoints(torch.zeros(2, 64, 2), torch.zeros(2, 64),
+                            torch.zeros(2, 64, dtype=torch.bool), *i32)
+        brief._describe_cuda(pyramid.Pyramid(meta, meta, prm.shapes, prm.offsets), kp, prm)
+        assert calls[0][1] == "orb_describe"
+    elif mode == "ransac":
+        r = sim3_solver._sim3_cuda(sim3_solver.SIM3_RANSAC, CAM_, CAM_, *m, idx=ops["idx"])[0]
+        assert calls[0][2][6:8] == (0, 5) and calls[0][2][11] == 1
+        assert r.R.shape == (3, 3) and r.inliers.shape == (8,) and r.n_inliers.dim() == 0
+    elif mode == "refine":
+        R0, t0, s0 = torch.eye(3), torch.zeros(3), torch.ones(())
+        f = sim3_solver._sim3_cuda(sim3_solver.SIM3_REFINE, CAM_, CAM_, *m, R0=R0, t0=t0,
+                                   s0=s0)[1]
+        assert calls[0][2][7] == 0 and calls[0][2][11] == 2 and f[0].shape == (3, 3)
+    else:
+        monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+        a = sim3_solver.solve_and_refine_sim3(CAM_, CAM_, *m, idx=ops["idx"])
+        assert calls[0][2][11] == 3 and a.R.shape == (3, 3) and a.refined[3].shape == (8,)
+        assert a.R.data_ptr() == a.ransac.R.data_ptr() + 26 * 4
+    assert len(calls) == 1
+    counter, fn, args = calls[0]
+    assert counter in kernels.LAUNCHES
+    assert len(args) + 1 == len(kernels._SIGNATURES[fn])  # + the stream
+
+
+def test_k10_sim3_workspace_is_kept_per_stream_and_zeroed():
+    """K10's Sim3 words (best key, ticket): 0 when made, kept from call to
+    call on one stream, separate for another stream."""
+    saved = dict(sim3_solver._SIM3_WORK)
+    sim3_solver._SIM3_WORK.clear()
+    try:
+        w = sim3_solver.sim3_workspace("cpu", stream=7)
+        assert w.numel() == 2 and w.dtype == torch.int64 and not bool(w.any())
+        assert sim3_solver.sim3_workspace("cpu", stream=7) is w
+        assert sim3_solver.sim3_workspace("cpu", stream=8) is not w
+    finally:
+        sim3_solver._SIM3_WORK.clear()
+        sim3_solver._SIM3_WORK.update(saved)

@@ -11,7 +11,8 @@ to the port as `idx`): the chosen hypothesis and the inlier count are exact,
 R within 1e-5 and t within 1e-4 m, and an inlier flag may differ only where
 the error lies within 1e-3 (relative) of the 9.21 sigma^2 (Sim3) or 5.991
 sigma^2 (PnP) gate. The refinement within 1e-4 (three damped Gauss-Newton
-steps over ~300 reductions of f32 terms).
+steps over ~300 reductions of f32 terms), and so the whole attempt
+(RANSAC, refinement and `compute_sim3`'s combine of the two).
 """
 
 import jax
@@ -229,3 +230,42 @@ def test_pnp_ransac_with_the_references_draw():
     scale = np.maximum(np.linalg.norm(np.asarray(tj), axis=1), 1.0)[:, None]
     assert (np.abs(tt.numpy() - np.asarray(tj)) <= 1e-3 * scale).all()
     assert (np.abs(R.numpy() - np.asarray(Rj)).max(axis=2) <= 1e-3 * scale).all()
+
+
+@pytest.mark.parametrize("fix_scale", [True, False])
+def test_sim3_attempt_equals_the_references_sequence(fix_scale):
+    """`solve_and_refine_sim3` (the plain path on the CPU) against JAX's
+    solve_sim3_ransac -> refine_sim3_iterative -> compute_sim3's combine,
+    on the reference's draw."""
+    rng = np.random.default_rng(7)
+    p1, p2, valid, s2 = matches(rng)
+    key = jax.random.PRNGKey(11)
+    J = [jnp.asarray(x) for x in (p1, p2, valid, s2, s2)]
+    ref = jsolver.solve_sim3_ransac(JCAM, JCAM, *J, key, n_hyp=256, min_inliers=20,
+                                    fix_scale=fix_scale)
+    Rj, tj, sj, inl_j, nj = jsolver.refine_sim3_iterative(JCAM, JCAM, *J, ref.R, ref.t, ref.s,
+                                                          fix_scale=fix_scale, n_rounds=3)
+    use = (ref.n_inliers >= 3) & (nj >= 3)
+    comb = (jnp.where(use, Rj, ref.R), jnp.where(use, tj, ref.t), jnp.where(use, sj, ref.s),
+            jnp.where(use, jnp.maximum(nj, ref.n_inliers), ref.n_inliers))
+    probs = jnp.asarray(valid, jnp.float32)
+    idx = jax.random.choice(key, p1.shape[0], shape=(256, 3), p=probs / jnp.maximum(probs.sum(), 1))
+    out = sim3_solver.solve_and_refine_sim3(CAM, CAM, t_(p1), t_(p2), t_(valid), t_(s2), t_(s2),
+                                            min_inliers=20, fix_scale=fix_scale,
+                                            idx=t_(np.asarray(idx, np.int32)))
+    assert int(out.ransac.n_inliers) == int(ref.n_inliers) and bool(out.ransac.ok) == bool(ref.ok)
+    close(out.ransac.R, ref.R, 1e-5)
+    close(out.ransac.t, ref.t, 1e-4)
+    close(out.ransac.s, ref.s, 1e-5)
+    e1, e2, _ = jsolver._sim3_chi2(JCAM, JCAM, J[0], J[1], ref.R, ref.t, ref.s)
+    assert near_gate(np.maximum(np.asarray(e1), np.asarray(e2)), 9.21 * s2,
+                     out.ransac.inliers.numpy() != np.asarray(ref.inliers))
+    for x, y in zip(out.refined[:3], (Rj, tj, sj)):
+        close(x, y, 1e-4)
+    assert int(out.refined[4]) == int(nj)
+    e1, e2, _ = jsolver._sim3_chi2(JCAM, JCAM, J[0], J[1], Rj, tj, sj)
+    assert near_gate(np.maximum(np.asarray(e1), np.asarray(e2)), 9.21 * s2,
+                     out.refined[3].numpy() != np.asarray(inl_j))
+    for x, y in zip((out.R, out.t, out.s), comb[:3]):
+        close(x, y, 1e-4)
+    assert int(out.n_inliers) == int(comb[3])

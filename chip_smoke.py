@@ -5,9 +5,9 @@
 1. prints the environment and the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from corbslam_tpu_torch/csrc/ (nvcc) and
    prints nvcc's register, spill and stack-frame bytes per kernel (K6's,
-   K2's, K11's pose graph, K5's, K1's, K4's, K3's and K10's Sim3 attempt
-   kernels must not spill, and K6's, K11's, K1's, K4's, K3's and the Sim3
-   attempt's have no stack frame);
+   K2's, K11's pose graph, K5's, K1's, K4's, K3's, K10's Sim3 attempt and
+   PnP RANSAC and K12's kernels must not spill, and K6's, K11's, K1's,
+   K4's, K3's, the Sim3 attempt's, PnP's and K12's have no stack frame);
 3. drives the front end — `build_frame_stereo` through `entry.entry()` — on
    3 warm-up and 20 timed stereo frames with all launch counters reset just
    before, checks its four kernels were launched (K1 and K4 once a frame),
@@ -61,10 +61,11 @@
    hand and one more frame; checks every orbit frame OK, a loop closed
    between keyframes more than 20 rows apart and within 3 rows of the JAX
    yardstick's 48 <-> 7, the aligned ATE <= 2 x its 0.0693 m, finite
-   keyframe poses, the LOST frame relocalized, K9-K11 launched and one K10
-   launch a Sim3 attempt; prints the detections, attempts (beside JAX's
-   146), sim3 log, relocalizations, the keyframe ATE
-   after the closure and each loop stage's and the closure's time. Then the
+   keyframe poses, the LOST frame relocalized, K9-K11 launched, one K10
+   launch a Sim3 attempt and one a relocalization candidate (its PnP
+   RANSAC); prints the detections, attempts (beside JAX's 146), sim3 log,
+   relocalizations and candidates tried, the keyframe ATE after the
+   closure and each loop stage's and the closure's time. Then the
    flagship schedule again with a loop closer attached (the 256 MB
    [2048, 32768] database on the card): keyframes and points must equal the
    run without it, and the ATE (within 1e-4 m) that of a run whose
@@ -76,12 +77,17 @@
    counters reset just before each: mono over 30 frames (bootstrap at
    frame 5 +- 1 as the JAX yardstick, every later frame OK, 5 +- 1
    keyframes, similarity-aligned ATE <= 2 x 0.323 m, a finite map, K5's
-   area and band modes, K12, K13 and K8 launched; the bootstrap's time, each
+   area and band modes, K12 (one launch an attempt), K13 and K8 launched;
+   the bootstrap's time, each
    create_new_points call's time, frame p50 / p90 and the points printed)
    and RGB-D over 40 frames (every frame OK, 2 keyframes, points within 1 %
    of 2906, ATE <= 2 x 0.00426 m, `rgbd_stereo` launched); then holds K12
-   (the mono bootstrap's own matches, H branch, and a seeded non-planar
-   scene, F branch), K5's band mode (the keyframe against its 8 neighbour
+   (the mono bootstrap's own matches, H branch, the same with every row of
+   its draw degenerate so that the scores tie, and a seeded non-planar
+   scene, F branch; one launch an attempt, two runs bit-equal, its outputs'
+   hash printed; at its edges: N = 1, N at its capacity of 4096 and one
+   past it refused, N = 1000, no valid match, two degenerate rows, an
+   all-degenerate draw), K5's band mode (the keyframe against its 8 neighbour
    slots, 8 x 2048 x 2048) and K13 on a clone of the map at the first
    create_new_points call, `rgbd_stereo` and K5's area mode (2048 x 2048)
    against their plain versions, and times them;
@@ -90,7 +96,10 @@
    the LOST frame) and at the flagship's sizes (2048 features against the
    whole database, a Sim3 attempt (RANSAC, refinement and their combine in
    one launch, each stage alone too, two runs bit-equal) and PnP on 2048
-   matches, the covisibility count of
+   matches (one launch a RANSAC, two runs bit-equal, its outputs' hash
+   printed; also at its edges: N = 1, N at its capacity of 8192 and one
+   past it refused, N = 1000, no valid match, two degenerate rows, an
+   all-degenerate draw whose counts tie), the covisibility count of
    the final map, its essential graph of 2048 vertices and 18464 edges with
    a synthetic loop edge), and times those full-width calls (K11's
    cooperative launch with CUDA events); K11 (two runs bit-equal) also at
@@ -169,7 +178,9 @@ from corbslam_tpu_torch.frontend.tracking import TrackState as TrackerState  # n
 from corbslam_tpu_torch.geometry import camera, se3, sim3  # noqa: E402
 from corbslam_tpu_torch.io import trajectory  # noqa: E402
 from corbslam_tpu_torch.kernel_times import (  # noqa: E402
-    digest, flagship_graph, recorded_launches, ring_graph, sim3_full_width, stereo_edge_cases)
+    degenerate_rows, digest, flagship_graph, pnp_edge_inputs, pnp_full_width, pnp_scene,
+    recorded_buffers, recorded_launches, ring_graph, sim3_full_width, stereo_edge_cases,
+    two_view_edge_inputs)
 from corbslam_tpu_torch.loop import gba, loop_closing  # noqa: E402
 from corbslam_tpu_torch.mapping import local_mapping, triangulation  # noqa: E402
 from corbslam_tpu_torch.mapstate import covisibility as covis  # noqa: E402
@@ -185,6 +196,7 @@ from corbslam_tpu_torch.solvers import initializer, pnp, sim3_solver  # noqa: E4
 # tensor cores; every kernel here runs on the CUDA cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12  # the H100 SXM's float64 rate outside the tensor cores (NVIDIA's data sheet)
 
 # Where each kernel's TPU-shaped reference lives (the JAX functions it replaces).
 REPLACES = {
@@ -272,13 +284,14 @@ def ptxas_summary(log: str) -> dict:
 
 # The kernels redesigned for the card must not spill, and K6's (its 6x6
 # solve in registers), K11's (its 7x7 blocks and dual numbers in
-# registers), K1's, K4's, K3's and K10's Sim3 attempt (its 7x7 solve in
-# shared memory) have no stack frame at all.
+# registers), K1's, K4's, K3's, K10's Sim3 attempt (its 7x7 solve in
+# shared memory) and PnP RANSAC (its f64 DLT in registers and shared
+# memory) and K12's (its warp LU in shared memory) have no stack frame at all.
 NO_SPILL = ("pose_opt_kernel", "fast_cell_max_kernel", "fast_topk_kernel", "pg_optimize_kernel",
             "match_select_kernel", "pyramid_kernel", "stereo_match_kernel", "orb_describe_kernel",
-            "sim3_attempt_kernel")
+            "sim3_attempt_kernel", "pnp_ransac_kernel", "two_view_kernel")
 NO_STACK = ("pose_opt_kernel", "pg_optimize_kernel", "pyramid_kernel", "stereo_match_kernel",
-            "orb_describe_kernel", "sim3_attempt_kernel")
+            "orb_describe_kernel", "sim3_attempt_kernel", "pnp_ransac_kernel", "two_view_kernel")
 
 
 def check_ptxas(ptxas: dict) -> None:
@@ -333,9 +346,12 @@ def device_ms(fn, reps: int = 20, warmup: int = 3):
     return None
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, n_f64_ops: float = 0.0):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    card's memory rate and the operations over its peak rate for their type
+    (f32, and f64 where the kernel computes in double)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = (n_ops / F32_OPS_PER_S + n_f64_ops / F64_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1761,24 +1777,35 @@ def run_loop_phase() -> dict:
         torch.cuda.synchronize()
         stage_ms.append(a.elapsed_time(b))
 
+    # Each relocalization candidate tried runs one PnP RANSAC.
+    candidate, tried = reloc.try_relocalize_against, []
+
+    def counted_candidate(*args, **kw):
+        tried.append(args[2])
+        return candidate(*args, **kw)
+
     lc.close_loop, tracker._stage_loop_closing = close_and_keep, timed_stage
+    reloc.try_relocalize_against = counted_candidate
     frame_ms = []
     kernels.reset_launches()
     t0 = time.perf_counter()
-    for i in range(n):
-        t1 = time.perf_counter()
-        tracker.process_stereo(*imgs[i], 0.1 * i)
+    try:
+        for i in range(n):
+            t1 = time.perf_counter()
+            tracker.process_stereo(*imgs[i], 0.1 * i)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t1) * 1e3)
+        tracker.flush()
+        states = [s.name for s in tracker.frame_states]
+        traj = list(tracker.trajectory)
+        kf_ate_orbit = keyframe_ate(tracker.map)
+        tracker.state = TrackerState.LOST  # by hand: the next frame relocalizes
+        for i in (n, n + 1):
+            tracker.process_stereo(*imgs[i], 0.1 * i)
+        tracker.flush()
         torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t1) * 1e3)
-    tracker.flush()
-    states = [s.name for s in tracker.frame_states]
-    traj = list(tracker.trajectory)
-    kf_ate_orbit = keyframe_ate(tracker.map)
-    tracker.state = TrackerState.LOST  # by hand: the next frame relocalizes
-    for i in (n, n + 1):
-        tracker.process_stereo(*imgs[i], 0.1 * i)
-    tracker.flush()
-    torch.cuda.synchronize()
+    finally:
+        reloc.try_relocalize_against = candidate
     wall_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     del lc.close_loop, tracker._stage_loop_closing
@@ -1788,7 +1815,7 @@ def run_loop_phase() -> dict:
         keyframes=tracker.stats.n_keyframes, detections=st.n_detections,
         attempts=st.n_sim3_attempts, loops=st.n_loops_closed, last_loop=st.last_loop,
         first_loop=(kept.get("kf_q"), kept.get("kf_c")), sim3_log=list(st.sim3_log),
-        relocalizations=tracker.stats.n_relocalizations,
+        relocalizations=tracker.stats.n_relocalizations, reloc_candidates=tried,
         after_lost=[s.name for s in tracker.frame_states[n:]], ate_m=orbit_ate(traj),
         keyframe_ate_m=kf_ate_orbit, keyframe_ate_final_m=keyframe_ate(tracker.map),
         keyframe_ate_around_closure_m=(kept.get("keyframe_ate_before_m"),
@@ -1814,6 +1841,8 @@ def run_loop_phase() -> dict:
         require(launches[name] > 0, f"kernel {name} was not launched by the loop phase")
     require(launches["sim3"] == st.n_sim3_attempts,
             f"loop: {launches['sim3']} Sim3 launches for {st.n_sim3_attempts} attempts")
+    require(launches["pnp"] == len(tried),
+            f"loop: {launches['pnp']} PnP launches for {len(tried)} relocalization candidates")
     return out
 
 
@@ -1945,24 +1974,55 @@ def same_sim3(cam, mt, idx, fix_scale: bool = True) -> dict:
     return out
 
 
-def same_pnp(cam, X, uv, valid, sigma2, idx) -> dict:
+def nan_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest |a - b|, NaN where only one of them is NaN, 0 where both are."""
+    both = torch.isnan(a) & torch.isnan(b)
+    return float(torch.where(both, torch.zeros_like(a), (a - b).abs()).max())
+
+
+def same_pnp(cam, X, uv, valid, sigma2, idx, name: str) -> dict:
     """K10's PnP RANSAC against the plain version on one match set and draw:
-    the chosen inlier counts equal, inlier flips only within 1e-3 of the
-    gate, R within 1e-4 and t within 1e-4 of its norm. A six-point DLT is
-    ill-conditioned: at the flagship's 19 m translation a float64 DLT of the
-    chosen sample lies 2.2e-3 / 3.4e-3 m from the plain / kernel f32 poses
-    (PERF.md)."""
-    a = pnp.solve_pnp_ransac(cam, X, uv, valid, sigma2, idx=idx)
+    one launch, two runs bit-equal, the chosen inlier counts and ok equal,
+    inlier flips only within 1e-3 of the gate, R within 1e-4 and t within
+    1e-4 of its norm; the outputs' hash (to compare trees). A six-point DLT
+    is ill-conditioned: at the flagship's 19 m translation a float64 DLT of
+    the chosen sample lies 2.2e-3 / 3.4e-3 m from the plain / kernel f32
+    poses (PERF.md). Where the winner has fewer than 6 inliers (the edges'
+    degenerate draws: no match supports it) its pose is the null vector of
+    a rank-deficient system, set by rounding alone, and is not compared."""
+    call = lambda: pnp.solve_pnp_ransac(cam, X, uv, valid, sigma2, idx=idx)  # noqa: E731
+    require(launches_of(call, "pnp") == 1, f"pnp ({name}): more than one launch a RANSAC")
+    a, a2 = call(), call()
     b = pnp.solve_pnp_ransac_plain(cam, X, uv, valid, sigma2, idx)
     torch.cuda.synchronize()
+    require(all(torch.equal(u, v) for u, v in zip(a, a2)), f"pnp ({name}): two runs differ")
     e = ((camera.project(cam, se3.transform(b.Tcw, X)) - uv) ** 2).sum(-1)
     f, f_off = gate_flips(a.inliers, b.inliers, ((e, 5.991 * sigma2),))
-    out = dict(n_inliers=(int(a.n_inliers), int(b.n_inliers)), flips=f, flips_off_gate=f_off,
-               R=float((a.Tcw[:3, :3] - b.Tcw[:3, :3]).abs().max()),
-               t=float((a.Tcw[:3, 3] - b.Tcw[:3, 3]).abs().max()),
-               t_norm=float(b.Tcw[:3, 3].norm()))
-    require(out["n_inliers"][0] == out["n_inliers"][1] and f_off == 0 and out["R"] <= 1e-4
-            and out["t"] <= 1e-4 * max(1.0, out["t_norm"]), f"pnp: kernel and plain differ {out}")
+    out = dict(n_inliers=(int(a.n_inliers), int(b.n_inliers)), ok=(bool(a.ok), bool(b.ok)),
+               flips=f, flips_off_gate=f_off, R=nan_diff(a.Tcw[:3, :3], b.Tcw[:3, :3]),
+               t=nan_diff(a.Tcw[:3, 3], b.Tcw[:3, 3]), t_norm=float(b.Tcw[:3, 3].norm()),
+               N=int(X.shape[0]), valid=int(valid.sum()), hash=digest(*a))
+    posed = out["n_inliers"][1] >= 6
+    require(out["n_inliers"][0] == out["n_inliers"][1] and out["ok"][0] == out["ok"][1]
+            and f_off == 0 and (not posed or (out["R"] <= 1e-4
+                                              and out["t"] <= 1e-4 * max(1.0, out["t_norm"]))),
+            f"pnp ({name}): kernel and plain differ {out}")
+    return out
+
+
+def pnp_edges(dev) -> dict:
+    """K10's PnP RANSAC at its edges (`kernel_times.pnp_edge_inputs`: N = 1,
+    N at the kernel's capacity, N = 1000, no valid match, two degenerate
+    rows, an all-degenerate draw whose counts tie), each by `same_pnp`; one
+    match past the capacity is refused."""
+    out = {k: same_pnp(CAM, *v, name=k) for k, v in pnp_edge_inputs(CAM, dev).items()}
+    X, uv, valid, s2 = pnp_scene(CAM, pnp.PNP_MAX_N + 1, dev=dev)
+    try:
+        pnp.solve_pnp_ransac(CAM, X, uv, valid, s2)
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused, f"pnp: {pnp.PNP_MAX_N + 1} matches were not refused")
     return out
 
 
@@ -1984,7 +2044,8 @@ def same_vocab(voc, db, desc, valid) -> dict:
 
 def same_graph(g, n_iters=20, cg_iters=40, t_rel: bool = False) -> dict:
     """K11's linearization (1e-4 relative) and optimize against the plain
-    versions (two kernel runs bit-equal): R and s within 1e-4, the cost
+    versions (two kernel runs bit-equal, and two plain runs: the reference
+    is held to one result): R and s within 1e-4, the cost
     within 1e-3 (relative), t within
     1e-4 m, or with `t_rel` within 1e-4 of the graph's extent (the largest
     |t|). The relative form is for graphs tens of metres across: there
@@ -1996,9 +2057,12 @@ def same_graph(g, n_iters=20, cg_iters=40, t_rel: bool = False) -> dict:
     (R, t, s), c = pose_graph.optimize(g, n_iters, cg_iters)
     (Rb, tb, sb), cb = pose_graph.optimize(g, n_iters, cg_iters)
     (R2, t2, s2), c2 = pose_graph.optimize_plain(g, n_iters, cg_iters)
+    (R2b, t2b, s2b), c2b = pose_graph.optimize_plain(g, n_iters, cg_iters)
     torch.cuda.synchronize()
     for name, a, b in (("R", R, Rb), ("t", t, tb), ("s", s, sb), ("costs", c, cb)):
         require(torch.equal(a, b), f"pose_graph: two runs on one input differ in {name}")
+    for name, a, b in (("R", R2, R2b), ("t", t2, t2b), ("s", s2, s2b), ("costs", c2, c2b)):
+        require(torch.equal(a, b), f"pose_graph: two plain runs on one input differ in {name}")
     rel = lambda a, b: float((a - b).abs().max() / max(float(b.abs().max()), 1.0))  # noqa: E731
     out = dict(lin=[rel(r, r2), rel(Ji, Ji2), rel(Jj, Jj2)], t=float((t - t2).abs().max()),
                R=float((R - R2).abs().max()), s=float((s - s2).abs().max()),
@@ -2055,7 +2119,7 @@ def check_loop_kernels(lp: dict) -> dict:
     require(bool(ok.any()), "relocalization: no candidate for the LOST frame")
     _, hit, X, sigma2 = reloc.reloc_matches(mf, int(rows[0]), fr, cfg)
     info["pnp"] = same_pnp(cam, X, fr.xy.contiguous(), hit, sigma2,
-                           sim3_solver.sample_indices(hit, 256, 6, gen))
+                           sim3_solver.sample_indices(hit, 256, 6, gen), "LOST frame")
     res = reloc.relocalize(cam, mf, lc_.db, lc_.voc, fr, cfg, generator=gen)
     require(res is not None and bool(res.ok), "relocalize failed on the LOST frame")
     T_gt = orbit_pose(lp["frames"]) @ se3.inverse(orbit_pose(0))  # in the map's frame
@@ -2118,19 +2182,27 @@ def check_full_width(fl: dict) -> tuple:
                           lambda: sim3_solver.solve_and_refine_sim3_plain(
                               cam, cam, *mt, sidx, 20, True), None, 5),
                      graph=True))  # one attempt, a replayed graph
-    # K10 PnP: keyframe q's observations of its points.
-    idx_q = m.kf.mp_idx[q]
-    hit = (idx_q >= 0) & m.kf.fvalid[q]
-    X = m.mp.pos[idx_q.clamp_min(0).long()].contiguous()
-    uv = m.kf.xy[q].contiguous()
-    sg2 = (1.44 ** m.kf.octave[q].to(torch.float32)).contiguous()
-    pidx = sim3_solver.sample_indices(hit, 256, 6, gen)
-    info["pnp"] = same_pnp(cam, X, uv, hit, sg2, pidx)
+    # K10 PnP: keyframe q's observations of its points (`pnp_full_width`).
+    X, uv, hit, sg2, pidx = pnp_full_width(m, gen)
+    info["pnp"] = same_pnp(cam, X, uv, hit, sg2, pidx, "full width")
     nh = int(hit.sum())
-    pnp_bytes = F * (12 + 8 + 1 + 4) + 256 * 24 + 256 * 48 + 64 + F + 8
-    pnp_ops = 256 * 4000 + 256 * nh * 30 + nh * 30
+    # Bytes: the matches and the draw in, the pose, mask, count and flag
+    # out. Ops, counted from `csrc/ransac.cu` as the kernel runs them (each
+    # add, multiply, divide, square root, min / max, abs and comparison one,
+    # an fma two; work repeated on several lanes counted once): `dlt6_warp`
+    # 8427 float64 ops a hypothesis (the normalization 103, the design rows
+    # 60, the normal matrix's 144 entries of 12 fmas 3456, the trace and
+    # regularization 26, the Cholesky 662, 8 inverse iterations of two
+    # triangular solves, a norm and 12 divisions 2608, the denormalization,
+    # det and scale ~90, 8 polar steps of three Cramer solves 1416), at the
+    # card's float64 rate; in float32 the 6 sample rows' normalized pixels,
+    # a valid match's gate once and its inlier test (37) for the 256
+    # hypotheses and the winner's mask.
+    pnp_bytes = F * (12 + 8 + 1 + 4) + 256 * 6 * 4 + 64 + F + 4 + 1
+    pnp_f64 = 256 * 8427
+    pnp_f32 = 256 * 24 + nh + (256 + 1) * nh * 37
     rows.append(dict(name="pnp", max_abs_err=max(info["pnp"]["R"], info["pnp"]["t"]),
-                     bound=bound_ms(pnp_bytes, pnp_ops),
+                     bound=bound_ms(pnp_bytes, pnp_f32, pnp_f64),
                      fns=(lambda: pnp.solve_pnp_ransac(cam, X, uv, hit, sg2, idx=pidx),
                           lambda: pnp.solve_pnp_ransac_plain(cam, X, uv, hit, sg2, pidx), None,
                           5)))
@@ -2276,6 +2348,8 @@ def run_sensor_phase(sensor: str) -> dict:
         require(out["ate_m"] <= 2 * JAX_MONO["ate_m"],
                 f"mono: similarity ATE {out['ate_m']:.4f} m > 2 x JAX's {JAX_MONO['ate_m']} m")
         require("tri_map" in kept, "mono: create_new_points never ran")
+        require(launches["two_view"] == out["attempts"],
+                f"mono: {launches['two_view']} K12 launches in {out['attempts']} attempts")
         for name in MONO_KERNELS + ("pyramid", "fast_cells", "orb_describe", "match_masked",
                                     "pose_opt", "local_map", "covisibility"):
             require(launches[name] > 0, f"kernel {name} was not launched by the mono phase")
@@ -2317,30 +2391,135 @@ def plane_scene(planar: bool, n: int = 2048, seed: int = 5):
     return [torch.from_numpy(a).cuda() for a in (xy1, xy2, ok)]
 
 
-def same_two_view(xy1, xy2, valid, sample, name: str) -> tuple:
-    """K12 against its plain version: ok and the model exact; the good count
-    and mask within 1 % (points within rounding of a gate), R within 1e-4,
-    the unit t within 1e-3 (the refit's f32 null vector), good points within
-    1e-2 relative."""
-    k = initializer.initialize_two_view(CAM, xy1, xy2, valid, sample=sample)
-    p = initializer.initialize_two_view_plain(CAM, xy1, xy2, valid, sample)
+def two_view_scratch(xy1, xy2, valid, sample) -> tuple:
+    """One K12 attempt's hypothesis models [2, H, 18] and scores [2, H] and
+    its out_i (ok, used_H, n_good, best candidate, the chosen model's
+    inliers, the best F and H hypotheses), from its recorded buffers."""
+    H = sample.shape[0]
+    bufs = recorded_buffers(lambda: initializer.initialize_two_view(CAM, xy1, xy2, valid,
+                                                                    sample=sample))
+    pick = lambda shape: [b for b in bufs if tuple(b.shape) == shape][0]  # noqa: E731
+    return pick((2, H, 18)), pick((2, H)), pick((7,))
+
+
+def same_two_view(xy1, xy2, valid, sample, name: str, hold: str = "all") -> tuple:
+    """K12 against its plain version: one launch, two runs bit-equal, each
+    model's best hypothesis the first maximum of the kernel's own scores
+    (torch.argmax, as the earlier kernel's scan); ok and the model exact;
+    the good count and mask within 1 % (points within rounding of a gate),
+    R within 1e-4, the unit t within 1e-3 (the refit's f32 null vector),
+    good points within 1e-2 relative; the outputs' hash (to compare trees)
+    and the plain version's own spread (R, t, points) under one ulp of its
+    input (xy1 or xy2 nudged up by one ulp) and on the CPU. Where fewer
+    than 8 points triangulate well (no bootstrap), the refit is the null
+    vector of a rank-deficient system, set by rounding alone, and its pose
+    is not compared. `hold` "edge" (the seeded scenes that test shapes)
+    holds the unit t within 3e-3: the F refit's unit t moves by up to
+    1.6e-3 in the plain version's own spreads measured (PERF.md), and the
+    kernel lies 1.65e-3 from it on the N = 1000 edge. "first" (a draw
+    whose every row holds one match: every hypothesis is such a null
+    vector, so the scores, the best, the refit and what follows are set by
+    rounding) holds the first-maximum rule and ok and the model as the
+    plain version's, not the counts or the pose (the earlier kernel's
+    outputs on such draws are compared by `kernel_times --parts k10k12`)."""
+    call = lambda: initializer.initialize_two_view(CAM, xy1, xy2, valid,  # noqa: E731
+                                                     sample=sample)
+    require(launches_of(call, "two_view") == 1, f"two_view ({name}): more than one launch")
+    _, scores, out_i = two_view_scratch(xy1, xy2, valid, sample)
+    first = [int(torch.argmax(scores[m])) for m in range(2)]
+    best = [int(out_i[5]), int(out_i[6])]
+    require(best == first, f"two_view ({name}): best hypotheses {best}, first maxima {first}")
+    tied = [int((scores[m] == scores[m, first[m]]).sum()) for m in range(2)]
+    k, k2 = call(), call()
+    plain = lambda a, b: initializer.initialize_two_view_plain(CAM, a, b, valid, sample)  # noqa: E731
+    p = plain(xy1, xy2)
+    up = lambda x: torch.nextafter(x, torch.full_like(x, float("inf")))  # noqa: E731
+    nudged = (plain(up(xy1), xy2), plain(xy1, up(xy2)))
+    on_cpu = initializer.initialize_two_view_plain(CAM, xy1.cpu(), xy2.cpu(), valid.cpu(),
+                                                   sample.cpu())
+    on_cpu = type(p)(*(x.to(xy1.device) for x in on_cpu))
     torch.cuda.synchronize()
+    require(all(torch.equal(u, v) for u, v in zip(k, k2)), f"two_view ({name}): two runs differ")
+
+    def points_rel(a, b):
+        both = a.good & b.good
+        if not bool(both.any()):
+            return 0.0
+        d = torch.linalg.norm(a.X - b.X, dim=1)[both] / torch.linalg.norm(b.X, dim=1)[both]
+        return float(d.max())
+
     nb = int(p.n_good)
-    both = k.good & p.good
-    dX = torch.linalg.norm(k.X - p.X, dim=1)[both]
     e = dict(ok=bool(k.ok), used_H=bool(k.used_H), n_good_kernel=int(k.n_good), n_good_plain=nb,
-             good_flips=int((k.good != p.good).sum()), R=float((k.R - p.R).abs().max()),
-             t=float((k.t - p.t).abs().max()),
-             X_rel=float((dX / torch.linalg.norm(p.X, dim=1)[both]).max()) if nb else 0.0,
+             good_flips=int((k.good != p.good).sum()), R=nan_diff(k.R, p.R), t=nan_diff(k.t, p.t),
+             X_rel=points_rel(k, p),
+             plain_ulp=dict(R=max(nan_diff(q.R, p.R) for q in nudged),
+                            t=max(nan_diff(q.t, p.t) for q in nudged),
+                            X_rel=max(points_rel(q, p) for q in nudged)),
+             plain_cpu=dict(R=nan_diff(on_cpu.R, p.R), t=nan_diff(on_cpu.t, p.t),
+                            X_rel=points_rel(on_cpu, p)),
              score_h=(float(k.score_h), float(p.score_h)), score_f=(float(k.score_f),
-                                                                   float(p.score_f)))
+                                                                   float(p.score_f)),
+             N=int(xy1.shape[0]), valid=int(valid.sum()), hash=digest(*k), best=best,
+             tied_at_best=tied)
     require(bool(k.ok) == bool(p.ok) and bool(k.used_H) == bool(p.used_H),
             f"two_view ({name}): ok / model differ: {e}")
+    if hold == "first":
+        return k, e
     require(abs(e["n_good_kernel"] - nb) <= nb // 100 and e["good_flips"] <= nb // 100,
             f"two_view ({name}): good counts differ: {e}")
-    require(e["R"] <= 1e-4 and e["t"] <= 1e-3 and e["X_rel"] <= 1e-2,
+    t_tol = 3e-3 if hold == "edge" else 1e-3
+    require(nb < 8 or (e["R"] <= 1e-4 and e["t"] <= t_tol and e["X_rel"] <= 1e-2),
             f"two_view ({name}): pose or points differ: {e}")
     return k, e
+
+
+def two_view_edges(dev) -> dict:
+    """K12 at its edges (`kernel_times.two_view_edge_inputs`: N = 1, N at the
+    kernel's capacity, N = 1000, no valid match, two degenerate rows, an
+    all-degenerate draw whose scores tie), each by `same_two_view` (holds
+    "edge", the all-degenerate draw "first"); one match past the capacity
+    is refused."""
+    out = {k: same_two_view(*v, name=k, hold="first" if k == "all_degenerate" else "edge")[1]
+           for k, v in two_view_edge_inputs(sys.modules[__name__], dev).items()}
+    xy1, xy2, valid = plane_scene(True, n=initializer.TV_MAX_N + 1)
+    try:
+        initializer.initialize_two_view(CAM, xy1, xy2, valid)
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused, f"two_view: {initializer.TV_MAX_N + 1} matches were not refused")
+    return out
+
+
+def two_view_cost(xy1, xy2, valid, sample, k) -> tuple:
+    """(bytes, f32 ops) of one K12 attempt as the kernel runs it, on the
+    data of result k (each add, multiply, divide, square root, min / max,
+    abs and comparison one, an fma two; work repeated in several CTAs or
+    lanes counted once): the normalization 17 a valid match; a hypothesis's
+    solve (design rows, the normal matrix, the LU, 12 solves and the norms,
+    F's SVD and both models' denormalization: 4620 F, 5630 H); a score term
+    (65) for each valid match and hypothesis of each model; the refit: each
+    model's score over the valid matches and the normal-matrix rows of its
+    best hypothesis's inliers (103 F, 198 H), the solve again, the rescore;
+    CheckRT's triangulation and cheirality (95) for each candidate of the
+    chosen model and its inlier, its gates (57) for the best candidate's
+    good points (other candidates' passing points left out), and the
+    points of every match. Bytes: the matches, flags and draw in; the
+    points, flags, pose, counts and scores out. The chosen model's inlier
+    count is the kernel's (out_i[4])."""
+    N, H, nv = xy1.shape[0], sample.shape[0], int(valid.sum())
+    models, _, out_i = two_view_scratch(xy1, xy2, valid, sample)
+    bF, bH = int(out_i[5]), int(out_i[6])
+    nF = int(initializer._score_F(models[0, bF, :9].view(3, 3), xy1, xy2, valid, 1.0)[1].sum())
+    nH = int(initializer._score_H(models[1, bH, :9].view(3, 3), models[1, bH, 9:].view(3, 3),
+                                  xy1, xy2, valid, 1.0)[1].sum())
+    n_inl = int(out_i[4])
+    nc = 8 if bool(k.used_H) else 4
+    ops = (nv * 17 + H * (4620 + 5630) + 2 * H * nv * 65
+           + 2 * nv * 65 + nF * 103 + nH * 198 + 4620 + 5630 + 2 * nv * 65
+           + nc * n_inl * 95 + int(k.n_good) * 57 + N * 95)
+    n_bytes = N * (8 + 8 + 1) + H * 8 * 4 + N * (12 + 1) + 36 + 12 + 4 * 4 + 8
+    return n_bytes, ops
 
 
 def check_sensor_kernels(mp_: dict, rg: dict) -> tuple:
@@ -2364,17 +2543,12 @@ def check_sensor_kernels(mp_: dict, rg: dict) -> tuple:
     _, info["two_view_F"] = same_two_view(fx1, fx2, fvalid, fsample, "non-planar scene")
     require(not info["two_view_F"]["used_H"] and info["two_view_F"]["ok"],
             f"two_view: the non-planar scene did not take F: {info['two_view_F']}")
-    n_v, n_inl = int(valid.sum()), int(k.good.sum())
-    H = sample.shape[0]
-    # Per hypothesis: the normal matrices (8 F rows, 16 H rows, 2 x 81 each),
-    # the LU and 12 solves of each model, F's SVD and the denormalization;
-    # a ~45-flop score of every valid match for each; the refit's normal
-    # matrices and rescore; the chosen model's candidates (8) checked over
-    # the inliers (~110 flops each). Bytes: the matches, flags and sample in;
-    # the points, mask and pose out.
-    tv_ops = (H * (24 * 162 + 2 * (486 + 12 * 182) + 800) + 2 * H * n_v * 45
-              + n_v * 3 * 162 + 2 * n_v * 45 + 8 * n_inl * 110)
-    tv_bytes = xy1.shape[0] * (8 + 8 + 1) + H * 8 * 4 + xy1.shape[0] * (12 + 1) + 48
+    # K12 on the bootstrap's matches with every row of the draw degenerate
+    # (one match in all eight slots): scores tie, so the first maximum
+    # decides (the kernel's 64-bit key against torch.argmax).
+    _, info["two_view_tie"] = same_two_view(xy1, xy2, valid, degenerate_rows(sample, valid),
+                                            "all-degenerate draw", hold="first")
+    tv_bytes, tv_ops = two_view_cost(xy1, xy2, valid, sample, k)
     rows.append(dict(name="two_view", max_abs_err=max(info["two_view_H"]["R"],
                                                       info["two_view_H"]["t"]),
                      bound=bound_ms(tv_bytes, tv_ops),
@@ -3191,12 +3365,16 @@ def main() -> int:
     frows, finfo = check_full_width(fl)
     time_rows(frows)
     print(f"full-width kernel checks: {json.dumps(finfo)}", flush=True)
+    finfo["pnp_edges"] = pnp_edges(dev)
+    print(f"K10 PnP edge cases: {json.dumps(finfo['pnp_edges'])}", flush=True)
     finfo["pose_graph_edges"] = pose_graph_edges(dev)
     print(f"K11 edge cases: {json.dumps(finfo['pose_graph_edges'])}", flush=True)
     phase("kernels_k9_k11")
     srows, sinfo = check_sensor_kernels(mono, rgbd)
     time_rows(srows)
     print(f"sensor kernel checks: {json.dumps(sinfo)}", flush=True)
+    sinfo["two_view_edges"] = two_view_edges(dev)
+    print(f"K12 edge cases: {json.dumps(sinfo['two_view_edges'])}", flush=True)
     phase("kernels_k12_k13")
     erows, einfo = check_e2e_kernels(e2e["stereo"])
     print(f"e2e kernel checks (K14 training, K8 at the first GBA chunk): {json.dumps(einfo)}",

@@ -47,8 +47,6 @@
 
 namespace {
 
-constexpr int HYP_THREADS = 256;
-constexpr int SEL_THREADS = 1024;
 constexpr float CHI2_SIM3 = 9.21f;
 
 struct Cam {
@@ -60,24 +58,6 @@ __device__ __forceinline__ void project(const Cam& c, float x, float y, float z,
     const float inv_z = 1.f / (fabsf(z) < 1e-9f ? 1e-9f : z);
     u = c.fx * x * inv_z + c.cx;
     v = c.fy * y * inv_z + c.cy;
-}
-
-template <class T> __device__ T block_reduce_sum(T v, T* sh) {
-    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    if (lane == 0) sh[wid] = v;
-    __syncthreads();
-    if (wid == 0) {
-        T u = lane < nw ? sh[lane] : T(0);
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) u += __shfl_down_sync(0xffffffffu, u, o);
-        if (lane == 0) sh[32] = u;
-    }
-    __syncthreads();
-    const T r = sh[32];
-    __syncthreads();
-    return r;
 }
 
 // R_from_quat of v (w, x, y, z), normalized first.
@@ -152,58 +132,6 @@ __device__ void horn3(const float (*P1)[3], const float (*P2)[3], bool fix_scale
     for (int i = 0; i < 3; ++i) t[i] = c1[i] - s * (R[3 * i] * c2[0] + R[3 * i + 1] * c2[1] + R[3 * i + 2] * c2[2]);
 }
 
-// First maximum of counts[0..H) (jnp.argmax), every thread gets it.
-__device__ int first_argmax(const int* counts, int H, unsigned long long* sh) {
-    unsigned long long best = 0;  // key = count << 32 | (2^32 - 1 - h): max = first max
-    for (int h = threadIdx.x; h < H; h += blockDim.x) {
-        const unsigned long long k = ((unsigned long long)(unsigned)counts[h] << 32) |
-                                     (0xffffffffu - (unsigned)h);
-        best = k > best ? k : best;
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-        const unsigned long long other = __shfl_down_sync(0xffffffffu, best, o);
-        best = other > best ? other : best;
-    }
-    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
-    if (lane == 0) sh[wid] = best;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        unsigned long long b = sh[0];
-        for (int w = 1; w < nw; ++w) b = sh[w] > b ? sh[w] : b;
-        sh[32] = b;
-    }
-    __syncthreads();
-    const int h = (int)(0xffffffffu - (unsigned)(sh[32] & 0xffffffffu));
-    __syncthreads();
-    return h;
-}
-
-// smallmat.chol_unrolled / chol_solve_factored for an n x n system (n <= 12).
-template <class Real>
-__device__ void chol_n(const Real* A, Real* L, int n) {
-    for (int i = 0; i < n; ++i)
-        for (int j = 0; j <= i; ++j) {
-            Real s = A[n * i + j];
-            for (int k = 0; k < j; ++k) s -= L[n * i + k] * L[n * j + k];
-            L[n * i + j] = (i == j) ? sqrt(fmax(s, (Real)1e-12)) : s / L[n * j + j];
-        }
-}
-
-template <class Real>
-__device__ void chol_solve_n(const Real* L, const Real* b, Real* x, int n) {
-    Real y[12];
-    for (int i = 0; i < n; ++i) {
-        Real s = b[i];
-        for (int k = 0; k < i; ++k) s -= L[n * i + k] * y[k];
-        y[i] = s / L[n * i + i];
-    }
-    for (int i = n - 1; i >= 0; --i) {
-        Real s = y[i];
-        for (int k = i + 1; k < n; ++k) s -= L[n * k + i] * x[k];
-        x[i] = s / L[n * i + i];
-    }
-}
-
 // camera.solve3x3 (Cramer) of G x = b.
 template <class Real>
 __device__ void solve3x3(const Real* g, const Real* b, Real* x) {
@@ -221,153 +149,6 @@ __device__ void solve3x3(const Real* g, const Real* b, Real* x) {
     x[0] = (c00 * b[0] + c10 * b[1] + c20 * b[2]) * inv_det;
     x[1] = (c01 * b[0] + c11 * b[1] + c21 * b[2]) * inv_det;
     x[2] = (c02 * b[0] + c12 * b[1] + c22 * b[2]) * inv_det;
-}
-
-// pnp._dlt_pose on K = 6 correspondences: (R, t), computed in double as
-// the plain version computes it (a near-degenerate 12x12 normal matrix
-// carries f32 rounding into the pose).
-__device__ void dlt6(const float (*Xf)[3], const float (*uvf)[2], float* Rf, float* tf) {
-    typedef double Real;
-    constexpr int K = 6;
-    Real X[K][3], uv[K][2];
-    for (int k = 0; k < K; ++k) {
-        for (int i = 0; i < 3; ++i) X[k][i] = Xf[k][i];
-        uv[k][0] = uvf[k][0];
-        uv[k][1] = uvf[k][1];
-    }
-    Real c[3] = {0, 0, 0};
-    for (int i = 0; i < 3; ++i) {
-        for (int k = 0; k < K; ++k) c[i] += X[k][i];
-        c[i] = c[i] / (Real)K;
-    }
-    Real Xn[K][3], ss = 0;
-    for (int k = 0; k < K; ++k) {
-        Real r = 0;
-        for (int i = 0; i < 3; ++i) {
-            Xn[k][i] = X[k][i] - c[i];
-            r += Xn[k][i] * Xn[k][i];
-        }
-        ss += r;
-    }
-    const Real sigma = fmax(sqrt(ss / (Real)K / (Real)3), (Real)1e-6);
-    for (int k = 0; k < K; ++k)
-        for (int i = 0; i < 3; ++i) Xn[k][i] = Xn[k][i] / sigma;
-    Real AtA[144];
-    for (int q = 0; q < 144; ++q) AtA[q] = 0;
-    for (int r = 0; r < 2 * K; ++r) {
-        const int k = r % K;
-        const Real Xh[4] = {Xn[k][0], Xn[k][1], Xn[k][2], 1};
-        const Real m = r < K ? uv[k][0] : uv[k][1];
-        Real row[12];
-        for (int q = 0; q < 4; ++q) {
-            row[q] = r < K ? Xh[q] : 0;
-            row[4 + q] = r < K ? 0 : Xh[q];
-            row[8 + q] = -m * Xh[q];
-        }
-        for (int i = 0; i < 12; ++i)
-            for (int j = 0; j < 12; ++j) AtA[12 * i + j] += row[i] * row[j];
-    }
-    Real tr = 0;
-    for (int i = 0; i < 12; ++i) tr += AtA[13 * i];
-    const Real eps = (Real)1e-7 * tr + (Real)1e-12;
-    for (int i = 0; i < 12; ++i) AtA[13 * i] += eps;
-    Real L[144], p[12], pn[12];
-    chol_n(AtA, L, 12);
-    for (int i = 0; i < 12; ++i) p[i] = (Real)1 / sqrt((Real)12);
-    for (int it = 0; it < 8; ++it) {
-        chol_solve_n(L, p, pn, 12);
-        Real nr = 0;
-        for (int i = 0; i < 12; ++i) nr += pn[i] * pn[i];
-        nr = fmax(sqrt(nr), (Real)1e-20);
-        for (int i = 0; i < 12; ++i) p[i] = pn[i] / nr;
-    }
-    // P = Pn @ [[I / sigma, -c / sigma], [0, 0, 0, 1]].
-    Real P[12];
-    for (int i = 0; i < 3; ++i) {
-        for (int j = 0; j < 3; ++j) P[4 * i + j] = p[4 * i + j] / sigma;
-        P[4 * i + 3] = p[4 * i] * (-c[0] / sigma) + p[4 * i + 1] * (-c[1] / sigma) +
-                       p[4 * i + 2] * (-c[2] / sigma) + p[4 * i + 3];
-    }
-    const Real detM = P[0] * (P[5] * P[10] - P[6] * P[9]) - P[1] * (P[4] * P[10] - P[6] * P[8]) +
-                      P[2] * (P[4] * P[9] - P[5] * P[8]);
-    const Real sign = detM < 0 ? -1 : 1;
-    const Real scale = cbrt(fmax(fabs(detM), (Real)1e-20));
-    Real M[9], t[3];
-    for (int i = 0; i < 3; ++i) {
-        for (int j = 0; j < 3; ++j) M[3 * i + j] = (P[4 * i + j] * sign) / scale;
-        t[i] = (P[4 * i + 3] * sign) / scale;
-    }
-    for (int it = 0; it < 8; ++it) {
-        Real inv[9], col[3];
-        for (int cidx = 0; cidx < 3; ++cidx) {
-            const Real e[3] = {(Real)(cidx == 0), (Real)(cidx == 1), (Real)(cidx == 2)};
-            solve3x3(M, e, col);
-            for (int i = 0; i < 3; ++i) inv[3 * i + cidx] = col[i];
-        }
-        for (int i = 0; i < 3; ++i)
-            for (int j = 0; j < 3; ++j) M[3 * i + j] = (Real)0.5 * (M[3 * i + j] + inv[3 * j + i]);
-    }
-    for (int q = 0; q < 9; ++q) Rf[q] = (float)M[q];
-    for (int i = 0; i < 3; ++i) tf[i] = (float)t[i];
-}
-
-__device__ bool pnp_inlier(const float* R, const float* t, const float* X, const float* uv,
-                           const bool* valid, const float* sigma2, int n, const Cam& c,
-                           float chi2) {
-    const float x = X[3 * n], y = X[3 * n + 1], z = X[3 * n + 2];
-    const float px = (R[0] * x + R[1] * y + R[2] * z) + t[0];
-    const float py = (R[3] * x + R[4] * y + R[5] * z) + t[1];
-    const float pz = (R[6] * x + R[7] * y + R[8] * z) + t[2];
-    float u, v;
-    project(c, px, py, pz, u, v);
-    const float du = u - uv[2 * n], dv = v - uv[2 * n + 1];
-    return (du * du + dv * dv) < chi2 * sigma2[n] && pz > 0.f && valid[n];
-}
-
-__global__ void pnp_hyp_kernel(const float* X, const float* uv, const bool* valid,
-                               const float* sigma2, int N, const int* idx, Cam c, float chi2,
-                               float* hR, float* ht, int* counts) {
-    __shared__ float model[12];
-    __shared__ int sh[33];
-    const int h = blockIdx.x;
-    if (threadIdx.x == 0) {
-        float Xk[6][3], un[6][2];
-        for (int k = 0; k < 6; ++k) {
-            const int n = idx[6 * h + k];
-            for (int i = 0; i < 3; ++i) Xk[k][i] = X[3 * n + i];
-            un[k][0] = (uv[2 * n] - c.cx) / c.fx;
-            un[k][1] = (uv[2 * n + 1] - c.cy) / c.fy;
-        }
-        dlt6(Xk, un, model, model + 9);
-    }
-    __syncthreads();
-    int cnt = 0;
-    for (int n = threadIdx.x; n < N; n += blockDim.x)
-        cnt += pnp_inlier(model, model + 9, X, uv, valid, sigma2, n, c, chi2);
-    cnt = block_reduce_sum(cnt, sh);
-    if (threadIdx.x == 0) counts[h] = cnt;
-    if (threadIdx.x < 9) hR[9 * h + threadIdx.x] = model[threadIdx.x];
-    if (threadIdx.x < 3) ht[3 * h + threadIdx.x] = model[9 + threadIdx.x];
-}
-
-__global__ void pnp_select_kernel(const float* X, const float* uv, const bool* valid,
-                                  const float* sigma2, int N, const float* hR, const float* ht,
-                                  const int* counts, int H, int min_inliers, Cam c, float chi2,
-                                  float* T, bool* inl, int* n_in, bool* ok) {
-    __shared__ unsigned long long sh[33];
-    const int b = first_argmax(counts, H, sh);
-    const float* Rb = hR + 9 * b;
-    const float* tb = ht + 3 * b;
-    for (int n = threadIdx.x; n < N; n += blockDim.x)
-        inl[n] = pnp_inlier(Rb, tb, X, uv, valid, sigma2, n, c, chi2);
-    if (threadIdx.x < 16) {
-        const int i = threadIdx.x / 4, j = threadIdx.x % 4;
-        T[threadIdx.x] = i == 3 ? (j == 3 ? 1.f : 0.f) : (j < 3 ? Rb[3 * i + j] : tb[i]);
-    }
-    if (threadIdx.x == 0) {
-        *n_in = counts[b];
-        *ok = counts[b] >= min_inliers;
-    }
 }
 
 // Projection differential A (2x3) at q, z clamped at 1e-3.
@@ -789,6 +570,320 @@ __global__ void __launch_bounds__(SIM3_THREADS, 1) sim3_attempt_kernel(Sim3Args 
     }
 }
 
+// --- PnP RANSAC, one launch ---------------------------------------------
+
+constexpr int PNP_THREADS = 256;
+constexpr int PNP_HPC = 2;                               // hypotheses a CTA, a warp each
+constexpr int PNP_STAGERS = PNP_THREADS - 32 * PNP_HPC;  // the other warps stage the matches
+constexpr int PNP_MAX_N = 8192;                          // 6 staged floats a match: 192 KB
+constexpr int STAMPS = 8;                                // workspace words 8..23 (KERNEL_STAMPS)
+
+struct PnpArgs {
+    const float* X;
+    const float* uv;
+    const bool* valid;
+    const float* sigma2;
+    int N;
+    const int* idx;  // [H, 6] the draw
+    int H;
+    int min_inliers;
+    Cam c;
+    float chi2;
+    unsigned long long* work;  // [best key, CTA ticket]: 0 on entry and on exit
+    float* models;             // [H, 12] each hypothesis's R (row-major) and t
+    float* T;
+    bool* inl;
+    int* n_in;
+    bool* ok;
+};
+
+// Solves the upper-triangular L^T x = y after L y = b (smallmat's
+// chol_solve_factored), L row-major in shared memory: the same operations
+// in the same order as one thread.
+__device__ __forceinline__ void chol_solve12(const double* L, const double (&b)[12],
+                                             double (&x)[12]) {
+    double y[12];
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+        double s = b[i];
+#pragma unroll
+        for (int k = 0; k < i; ++k) s -= L[12 * i + k] * y[k];
+        y[i] = s / L[13 * i];
+    }
+#pragma unroll
+    for (int i = 11; i >= 0; --i) {
+        double s = y[i];
+#pragma unroll
+        for (int k = i + 1; k < 12; ++k) s -= L[12 * k + i] * x[k];
+        x[i] = s / L[13 * i];
+    }
+}
+
+// pnp._dlt_pose on the K = 6 matches of `smp` (X, normalized uv: f32) in
+// double on one warp: every lane runs the Hartley normalization, the
+// inverse iterations and the polar steps (the same operations in the same
+// order as one thread), lane i < 12 sums row i of the normal matrix and
+// computes row i of its Cholesky factor, column by column (kept in `L`,
+// 12 x 12 in shared memory; `xn` holds the normalized matches). Every lane
+// returns the model.
+__device__ void dlt6_warp(const float (*smp)[5], double (*xn)[5], double* L, int lane,
+                          float* Rf, float* tf) {
+    typedef double Real;
+    constexpr int K = 6;
+    Real c[3] = {0, 0, 0};
+    Real sigma;
+    {
+        Real X[K][3];
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+#pragma unroll
+            for (int i = 0; i < 3; ++i) X[k][i] = smp[k][i];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+#pragma unroll
+            for (int k = 0; k < K; ++k) c[i] += X[k][i];
+            c[i] = c[i] / (Real)K;
+        }
+        Real ss = 0;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            Real r = 0;
+#pragma unroll
+            for (int i = 0; i < 3; ++i) {
+                X[k][i] = X[k][i] - c[i];
+                r += X[k][i] * X[k][i];
+            }
+            ss += r;
+        }
+        sigma = fmax(sqrt(ss / (Real)K / (Real)3), (Real)1e-6);
+        if (lane == 0) {
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+#pragma unroll
+                for (int i = 0; i < 3; ++i) xn[k][i] = X[k][i] / sigma;
+                xn[k][3] = smp[k][3];
+                xn[k][4] = smp[k][4];
+            }
+        }
+        __syncwarp();
+    }
+    // Row i of the normal matrix A^T A (12 rows of A in order), its trace
+    // summed over the rows in order, the regularization.
+    const int i = min(lane, 11);
+    Real A[12];
+#pragma unroll
+    for (int q = 0; q < 12; ++q) A[q] = 0;
+#pragma unroll
+    for (int r = 0; r < 2 * K; ++r) {
+        const int k = r % K;
+        const Real Xh[4] = {xn[k][0], xn[k][1], xn[k][2], 1};
+        const Real m = r < K ? xn[k][3] : xn[k][4];
+        Real row[12];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            row[q] = r < K ? Xh[q] : 0;
+            row[4 + q] = r < K ? 0 : Xh[q];
+            row[8 + q] = -m * Xh[q];
+        }
+        Real ri = row[0];
+#pragma unroll
+        for (int q = 1; q < 12; ++q) ri = i == q ? row[q] : ri;
+#pragma unroll
+        for (int j = 0; j < 12; ++j) A[j] += ri * row[j];
+    }
+    Real d = A[0];
+#pragma unroll
+    for (int q = 1; q < 12; ++q) d = i == q ? A[q] : d;
+    Real tr = 0;
+#pragma unroll
+    for (int q = 0; q < 12; ++q) tr += __shfl_sync(FULL, d, q);
+    const Real eps = (Real)1e-7 * tr + (Real)1e-12;
+#pragma unroll
+    for (int q = 0; q < 12; ++q)
+        if (q == i) A[q] += eps;
+    // chol_n, column j by lanes i >= j: the diagonal first, then the others
+    // divide by it.
+    Real Lr[12];
+#pragma unroll
+    for (int j = 0; j < 12; ++j) {
+        Real s = A[j];
+#pragma unroll
+        for (int k = 0; k < j; ++k) s -= Lr[k] * L[12 * j + k];
+        if (lane == j) L[13 * j] = sqrt(fmax(s, (Real)1e-12));
+        __syncwarp();
+        Lr[j] = lane == j ? L[13 * j] : s / L[13 * j];
+        if (lane > j && lane < 12) L[12 * lane + j] = Lr[j];
+        __syncwarp();
+    }
+    Real p[12], pn[12];
+#pragma unroll
+    for (int q = 0; q < 12; ++q) p[q] = (Real)1 / sqrt((Real)12);
+#pragma unroll 1
+    for (int it = 0; it < 8; ++it) {
+        chol_solve12(L, p, pn);
+        Real nr = 0;
+#pragma unroll
+        for (int q = 0; q < 12; ++q) nr += pn[q] * pn[q];
+        nr = fmax(sqrt(nr), (Real)1e-20);
+#pragma unroll
+        for (int q = 0; q < 12; ++q) p[q] = pn[q] / nr;
+    }
+    // P = Pn @ [[I / sigma, -c / sigma], [0, 0, 0, 1]].
+    Real P[12];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) P[4 * r + j] = p[4 * r + j] / sigma;
+        P[4 * r + 3] = p[4 * r] * (-c[0] / sigma) + p[4 * r + 1] * (-c[1] / sigma) +
+                       p[4 * r + 2] * (-c[2] / sigma) + p[4 * r + 3];
+    }
+    const Real detM = P[0] * (P[5] * P[10] - P[6] * P[9]) - P[1] * (P[4] * P[10] - P[6] * P[8]) +
+                      P[2] * (P[4] * P[9] - P[5] * P[8]);
+    const Real sign = detM < 0 ? -1 : 1;
+    const Real scale = cbrt(fmax(fabs(detM), (Real)1e-20));
+    Real M[9], t[3];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) M[3 * r + j] = (P[4 * r + j] * sign) / scale;
+        t[r] = (P[4 * r + 3] * sign) / scale;
+    }
+#pragma unroll 1
+    for (int it = 0; it < 8; ++it) {
+        Real inv[9], col[3];
+#pragma unroll
+        for (int cidx = 0; cidx < 3; ++cidx) {
+            const Real e[3] = {(Real)(cidx == 0), (Real)(cidx == 1), (Real)(cidx == 2)};
+            solve3x3(M, e, col);
+#pragma unroll
+            for (int r = 0; r < 3; ++r) inv[3 * r + cidx] = col[r];
+        }
+#pragma unroll
+        for (int r = 0; r < 3; ++r)
+#pragma unroll
+            for (int j = 0; j < 3; ++j) M[3 * r + j] = (Real)0.5 * (M[3 * r + j] + inv[3 * j + r]);
+    }
+#pragma unroll
+    for (int q = 0; q < 9; ++q) Rf[q] = (float)M[q];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) tf[r] = (float)t[r];
+}
+
+// The inlier test of match n (staged: x, y, z, u, v and the gate chi2
+// sigma^2, -inf where the match is not valid) under model (R, t).
+__device__ __forceinline__ bool pnp_inlier(const float* M, const float* st, int N, int n,
+                                           const Cam& c) {
+    const float* R = M;
+    const float* t = M + 9;
+    const float x = st[n], y = st[N + n], z = st[2 * N + n];
+    const float px = (R[0] * x + R[1] * y + R[2] * z) + t[0];
+    const float py = (R[3] * x + R[4] * y + R[5] * z) + t[1];
+    const float pz = (R[6] * x + R[7] * y + R[8] * z) + t[2];
+    float u, v;
+    project(c, px, py, pz, u, v);
+    const float du = u - st[3 * N + n], dv = v - st[4 * N + n];
+    return (du * du + dv * dv) < st[5 * N + n] && pz > 0.f;
+}
+
+__global__ void __launch_bounds__(PNP_THREADS, 1) pnp_ransac_kernel(PnpArgs a) {
+    extern __shared__ float st[];  // [6][N]: x, y, z, u, v, gate
+    __shared__ double s_L[PNP_HPC][144];
+    __shared__ double s_xn[PNP_HPC][6][5];
+    __shared__ float s_smp[PNP_HPC][6][5];
+    __shared__ float s_model[PNP_HPC][12];
+    __shared__ int s_cnt[PNP_HPC], s_best_h, s_best_n;
+    __shared__ bool s_last;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int N = a.N;
+    const int h0 = blockIdx.x * PNP_HPC, nh = min(PNP_HPC, a.H - h0);
+    unsigned long long* stamps = a.work + STAMPS;
+    if (blockIdx.x == 0 && tid == 0) stamp(stamps, 0);
+    if (tid < PNP_HPC) s_cnt[tid] = 0;
+    if (warp < nh) {
+        // Hypothesis h0 + warp: its 6 matches, the model on this warp.
+        const int h = h0 + warp;
+        if (lane < 6) {
+            const int n = a.idx[6 * h + lane];
+#pragma unroll
+            for (int i = 0; i < 3; ++i) s_smp[warp][lane][i] = a.X[3 * n + i];
+            s_smp[warp][lane][3] = (a.uv[2 * n] - a.c.cx) / a.c.fx;
+            s_smp[warp][lane][4] = (a.uv[2 * n + 1] - a.c.cy) / a.c.fy;
+        }
+        __syncwarp();
+        float R[9], t[3];
+        dlt6_warp(s_smp[warp], s_xn[warp], s_L[warp], lane, R, t);
+        if (lane == 0) {
+#pragma unroll
+            for (int q = 0; q < 9; ++q) s_model[warp][q] = R[q];
+#pragma unroll
+            for (int q = 0; q < 3; ++q) s_model[warp][9 + q] = t[q];
+            stamp(stamps, 1);
+        }
+    } else if (warp >= PNP_HPC) {
+        // Meanwhile the other warps stage every match once.
+        for (int n = tid - 32 * PNP_HPC; n < N; n += PNP_STAGERS) {
+#pragma unroll
+            for (int i = 0; i < 3; ++i) st[i * N + n] = a.X[3 * n + i];
+            st[3 * N + n] = a.uv[2 * n];
+            st[4 * N + n] = a.uv[2 * n + 1];
+            st[5 * N + n] = a.valid[n] ? a.chi2 * a.sigma2[n] : -INFINITY;
+        }
+        if (tid == 32 * PNP_HPC) stamp(stamps, 2);
+    }
+    __syncthreads();
+    // Every thread tests its strided matches against the CTA's models; the
+    // counts are exact integer sums.
+    int cnt[PNP_HPC] = {};
+    for (int n = tid; n < N; n += PNP_THREADS)
+#pragma unroll
+        for (int i = 0; i < PNP_HPC; ++i)
+            if (i < nh) cnt[i] += pnp_inlier(s_model[i], st, N, n, a.c);
+#pragma unroll
+    for (int i = 0; i < PNP_HPC; ++i) {
+        const int v = __reduce_add_sync(FULL, cnt[i]);
+        if (lane == 0 && v) atomicAdd(&s_cnt[i], v);
+    }
+    __syncthreads();
+    // The first maximum by a 64-bit key (count << 32 | ~h); the last CTA by
+    // an atomic ticket takes the winner.
+    if (tid < nh) {
+        const int h = h0 + tid;
+#pragma unroll
+        for (int q = 0; q < 12; ++q) a.models[12 * h + q] = s_model[tid][q];
+        atomicMax(&a.work[0], ((unsigned long long)(unsigned)s_cnt[tid] << 32) |
+                                  (0xffffffffu - (unsigned)h));
+        __threadfence();
+    }
+    if (tid == 0) stamp(stamps, 3);
+    __syncthreads();
+    if (tid == 0) s_last = atomicAdd(&a.work[1], 1ull) == gridDim.x - 1;
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+    if (tid == 0) {
+        stamp(stamps, 4);
+        const unsigned long long best = atomicExch(&a.work[0], 0ull);
+        atomicExch(&a.work[1], 0ull);
+        s_best_h = (int)(0xffffffffu - (unsigned)(best & 0xffffffffu));
+        s_best_n = (int)(best >> 32);
+    }
+    __syncthreads();
+    if (tid < 12) s_model[0][tid] = __ldcg(a.models + 12 * s_best_h + tid);
+    __syncthreads();
+    for (int n = tid; n < N; n += PNP_THREADS) a.inl[n] = pnp_inlier(s_model[0], st, N, n, a.c);
+    if (tid < 16) {
+        const int r = tid / 4, j = tid % 4;
+        a.T[tid] = r == 3 ? (j == 3 ? 1.f : 0.f)
+                          : (j < 3 ? s_model[0][3 * r + j] : s_model[0][9 + r]);
+    }
+    if (tid == 0) {
+        *a.n_in = s_best_n;
+        *a.ok = s_best_n >= a.min_inliers;
+    }
+    __syncthreads();
+    if (tid == 0) stamp(stamps, 5);
+}
+
 }  // namespace
 
 // One Sim3 attempt on N <= 4096 matches: with SIM3_RANSAC (mode bit 1) the
@@ -824,21 +919,28 @@ C_ENTRY int sim3_attempt(const float* p1, const float* p2, const bool* valid, co
     return (int)cudaGetLastError();
 }
 
-C_ENTRY int pnp_hypotheses(const float* X, const float* uv, const bool* valid,
-                           const float* sigma2, int N, const int* idx, int H, float fx, float fy,
-                           float cx, float cy, float chi2, float* hR, float* ht, int* counts,
-                           cudaStream_t stream) {
-    pnp_hyp_kernel<<<H, HYP_THREADS, 0, stream>>>(X, uv, valid, sigma2, N, idx,
-                                                  Cam{fx, fy, cx, cy}, chi2, hR, ht, counts);
-    return (int)cudaGetLastError();
-}
-
-C_ENTRY int pnp_select(const float* X, const float* uv, const bool* valid, const float* sigma2,
-                       int N, const float* hR, const float* ht, const int* counts, int H,
-                       int min_inliers, float fx, float fy, float cx, float cy, float chi2,
-                       float* T, bool* inl, int* n_in, bool* ok, cudaStream_t stream) {
-    pnp_select_kernel<<<1, SEL_THREADS, 0, stream>>>(X, uv, valid, sigma2, N, hR, ht, counts, H,
-                                                     min_inliers, Cam{fx, fy, cx, cy}, chi2, T,
-                                                     inl, n_in, ok);
+// PnP RANSAC on N <= 8192 matches in one launch: the H hypotheses of draw
+// idx [H, 6] (2 a CTA), the first maximum of their inlier counts, its pose
+// T [4, 4], inliers [N], count and ok (count >= min_inliers). `work` holds
+// 2 zero words between calls on a stream (24 with KERNEL_STAMPS), `models`
+// [H, 12] is scratch.
+C_ENTRY int pnp_ransac(const float* X, const float* uv, const bool* valid, const float* sigma2,
+                       int N, const int* idx, int H, int min_inliers, float fx, float fy,
+                       float cx, float cy, float chi2, unsigned long long* work,
+                       float* models, float* T, bool* inl, int* n_in, bool* ok,
+                       cudaStream_t stream) {
+    if (N < 0 || N > PNP_MAX_N || H < 1) return (int)cudaErrorInvalidValue;
+    const int smem = (int)sizeof(float) * 6 * N;
+    static int attr = 0;
+    if (smem > attr) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            pnp_ransac_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return (int)err;
+        attr = smem;
+    }
+    const PnpArgs a{X, uv, valid, sigma2, N, idx, H, min_inliers, Cam{fx, fy, cx, cy}, chi2,
+                    work, models, T, inl, n_in, ok};
+    const int grid = (H + PNP_HPC - 1) / PNP_HPC;
+    pnp_ransac_kernel<<<grid, PNP_THREADS, smem, stream>>>(a);
     return (int)cudaGetLastError();
 }

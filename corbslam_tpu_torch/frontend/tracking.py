@@ -68,7 +68,7 @@ from ..mapping import local_mapping, triangulation
 from ..mapstate import mapstate as ms
 from ..matching import matcher
 from ..optim import ba_dense
-from ..solvers import initializer
+from ..solvers import initializer, pnp
 from . import frame as frame_mod
 from . import track_ops
 
@@ -107,6 +107,10 @@ class StereoTracker:
         self.loop_closer = loop_closer  # loop.loop_closing.LoopCloser or None
         if loop_closer is not None and loop_closer.device.type != dev.type:
             raise ValueError(f"loop closer on {loop_closer.device}, tracker on {dev}")
+        # Relocalization's PnP (K10) and the mono bootstrap (K12) take every
+        # feature of a frame in one CTA's shared memory.
+        pnp.check_capacity(cfg.orb.n_features, dev)
+        initializer.check_capacity(cfg.orb.n_features, dev)
         # The RANSAC draws of relocalization and of the mono two-view
         # bootstrap (the reference splits both from PRNGKey(client + 17)).
         self._gen = torch.Generator(device=dev).manual_seed(client + 17)

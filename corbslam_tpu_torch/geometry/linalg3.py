@@ -105,7 +105,9 @@ def smallest_eigvec_sym(M: torch.Tensor, n_iters: int = 12) -> torch.Tensor:
     tr = torch.diagonal(M, dim1=-2, dim2=-1).sum(dim=-1)
     eps = (1e-9 * tr + 1e-30)[..., None, None]
     A = M + eps * torch.eye(D, dtype=M.dtype, device=M.device)
-    LU, piv = torch.linalg.lu_factor(A)
+    # An exactly singular A (a degenerate sample) factors with a zero pivot,
+    # as LAPACK's and XLA's LU do, instead of raising (CUDA's check).
+    LU, piv, _ = torch.linalg.lu_factor_ex(A)
     v = torch.ones(M.shape[:-1], dtype=M.dtype, device=M.device)
     for _ in range(n_iters):
         v = torch.linalg.lu_solve(LU, piv, v[..., None])[..., 0]

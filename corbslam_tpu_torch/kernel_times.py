@@ -1,8 +1,8 @@
-"""K3's and K10's, K1's and K4's, K2's and K6's, K5's and K11's, K7's and K8's calls and
-launches, timed on the card.
+"""K10's and K12's, K3's and K10's, K1's and K4's, K2's and K6's, K5's and K11's, K7's
+and K8's calls and launches, timed on the card.
 
     python -m corbslam_tpu_torch.kernel_times [--out PATH]
-        [--parts k3k10,k1k4,k6k2,k6sweep,k11k5,k7k8]
+        [--parts k10k12,k3k10,k1k4,k6k2,k6sweep,k11k5,k7k8]
 
 Run from the root of a checkout (it drives the phases of `chip_smoke.py`
 there for its inputs): the tracking path (frame 12's K5 and K6 calls and
@@ -13,6 +13,22 @@ problem) and the e2e stereo lap (its first GBA chunk's problem); it keeps
 the tracker's and the 2.5-lap orbit's frame times (asynchronous global BA
 beside the tracker). `--parts` picks what to time (default all). Then:
 
+- K10's PnP RANSAC (`pnp.solve_pnp_ransac`) on `chip_smoke.check_full_width`'s
+  set (`pnp_full_width`: the flagship's newest keyframe, F 2048, 256 draws
+  of 6) and on the loop orbit's frame marked LOST against its first
+  relocalization candidate (`pnp_lost_frame`), and K12
+  (`initializer.initialize_two_view`) on the mono bootstrap's successful
+  attempt (H), on it with every row of the draw degenerate (tied scores)
+  and on `plane_scene(False)` (F) (`two_view_inputs`): for each, the whole
+  call and each of its launches alone as replayed graphs, each launch that
+  takes the match count again with N = 0 (its model solves without the
+  per-match work, `NO_MATCHES`), torch.profiler by kernel name, launches a
+  call, and hashes of the outputs and of the hypotheses' models (K12's
+  models and scores on the bootstrap also to `--out`'s stem + _k12.npz);
+  the output hashes at both kernels' edges (`pnp_edge_inputs`,
+  `two_view_edge_inputs`);
+  ptxas' registers, spill and stack of their kernels; then a rebuild with
+  -DKERNEL_STAMPS and each call's `%globaltimer` split (`stamped`) (k10k12);
 - K3 (`brief.describe`) on the entry pair's pyramid and keypoints as a
   replayed graph (`chip_smoke.graph_ms`), its launches a call and a hash of
   its patch, angle and descriptor buffers; one Sim3 attempt of
@@ -67,10 +83,7 @@ beside the tracker). `--parts` picks what to time (default all). Then:
 Prints one JSON object (with the card's `nvidia-smi` name and power limit)
 and writes it to `--out`. `recorded_launches` is also how `chip_smoke.py`
 times K7 launch by launch, and `ring_graph` / `flagship_graph` are the
-graphs it holds K11 to. To time a parent commit in the same call, copy this
-file into an unpacked parent tree and run it there too: it needs of that
-tree only the phases of its `chip_smoke.py` and the wrappers' public
-functions. Needs a CUDA device.
+graphs it holds K11 to. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -94,14 +107,16 @@ from .mapstate import covisibility as covis
 from .matching import matcher
 from .ops import fast, pyramid
 from .optim import ba_dense, pose_graph, pose_opt
-from .solvers import sim3_solver
+from .solvers import initializer, pnp, sim3_solver
 
 
-def recorded_launches(call) -> dict:
+def recorded_launches(call, edit: Optional[dict] = None) -> dict:
     """Every kernel launch of one `call()` (through `kernels.launch`), each
     as a closure that repeats that launch alone: {entry name: closure}. The
     tensors whose pointers the call passed stay referenced by the closures,
-    so a repeat reads and writes the buffers of the recorded call."""
+    so a repeat reads and writes the buffers of the recorded call. With
+    `edit` ({entry: (argument position, value)}) only the launches of those
+    entries, each with that argument replaced."""
     launch, ptr = kernels.launch, kernels.ptr
     rec, keep = [], []
 
@@ -120,6 +135,12 @@ def recorded_launches(call) -> dict:
         kernels.launch, kernels.ptr = launch, ptr
     out = {}
     for counter, fn, args in rec:
+        if edit is not None:
+            if fn not in edit:
+                continue
+            args = list(args)
+            args[edit[fn][0]] = edit[fn][1]
+            args = tuple(args)
         name = fn if fn not in out else f"{fn}_{len(out)}"
         out[name] = lambda counter=counter, fn=fn, args=args, keep=keep: launch(counter, fn, *args)
     return out
@@ -590,6 +611,271 @@ def time_k3_k10(cs) -> dict:
     return out
 
 
+def pnp_full_width(m, gen: torch.Generator) -> tuple:
+    """`chip_smoke.check_full_width`'s PnP set on map m: the newest live
+    keyframe's observations of its bound points and a 256-row draw of 6 from
+    `gen` (which has made `sim3_full_width`'s draw before it): (X, uv,
+    valid, sigma2, idx)."""
+    q = torch.nonzero(m.kf.valid)[:, 0].tolist()[-1]
+    idx_q = m.kf.mp_idx[q]
+    hit = (idx_q >= 0) & m.kf.fvalid[q]
+    X = m.mp.pos[idx_q.clamp_min(0).long()].contiguous()
+    sg2 = (1.44 ** m.kf.octave[q].to(torch.float32)).contiguous()
+    return X, m.kf.xy[q].contiguous(), hit, sg2, sim3_solver.sample_indices(hit, 256, 6, gen)
+
+
+def pnp_lost_frame(lp: dict, gen: torch.Generator) -> tuple:
+    """`chip_smoke.check_loop_kernels`' PnP set: the loop orbit's frame
+    marked LOST against its first relocalization candidate (K5's matches to
+    the candidate's bound points) and a 256-row draw of 6 from `gen` (after
+    the first closure's Sim3 draw of 3): (X, uv, valid, sigma2, idx)."""
+    from .frontend import reloc
+    from .place import database, vocab
+
+    tracker, kept = lp["tracker"], lp["kept"]
+    cam, cfg, lc_ = tracker.cam, tracker.cfg, tracker.loop_closer
+    mt = loop_closing.sim3_matches(kept["m"], kept["kf_q"], kept["kf_c"], cfg)
+    sim3_solver.sample_indices(mt.pair_ok, 256, 3, gen)
+    fr = frame_mod.build_frame_stereo(*lp["imgs"][lp["frames"]], cam, cfg.orb, device="cuda")
+    bow = vocab.transform(lc_.voc, fr.desc, fr.fvalid)
+    rows, _ = database.detect_relocalization_candidates(lc_.db, tracker.map, bow, k=5)
+    _, hit, X, sigma2 = reloc.reloc_matches(tracker.map, int(rows[0]), fr, cfg)
+    return X, fr.xy.contiguous(), hit, sigma2, sim3_solver.sample_indices(hit, 256, 6, gen)
+
+
+def degenerate_rows(idx: torch.Tensor, valid: torch.Tensor, rows=None) -> torch.Tensor:
+    """`idx` with each of `rows` (every row when None) holding one valid
+    match in all its slots: the r-th valid match in row r, cyclically (any
+    match when none is valid)."""
+    idx = idx.clone()
+    pool = torch.nonzero(valid)[:, 0]
+    if pool.numel() == 0:
+        pool = torch.arange(valid.shape[0], device=valid.device)
+    r = (torch.arange(idx.shape[0], device=idx.device) if rows is None
+         else torch.tensor(rows, device=idx.device))
+    idx[r] = pool[r % pool.numel()].to(idx.dtype)[:, None].expand(-1, idx.shape[1])
+    return idx
+
+
+def pnp_scene(cam, n: int, seed: int = 5, dev="cuda") -> tuple:
+    """A seeded PnP match set of n points at `cam`: X 4-40 m in front of
+    the camera, their projections under a known pose with 0.5 px noise, the
+    first quarter's pixels reversed (outliers), 95 % valid, octave sigma^2:
+    (X, uv, valid, sigma2)."""
+    rng = np.random.default_rng(seed)
+    X = np.stack([rng.uniform(-10, 10, n), rng.uniform(-3, 3, n), rng.uniform(4, 40, n)],
+                 -1).astype(np.float32)
+    T = se3.exp(torch.tensor([0.1, -0.05, 0.3, 0.02, 0.05, -0.01])).numpy()
+    p = X @ T[:3, :3].T + T[:3, 3]
+    uv = np.stack([cam.fx * p[:, 0] / p[:, 2] + cam.cx, cam.fy * p[:, 1] / p[:, 2] + cam.cy], -1)
+    uv = (uv + rng.normal(0, 0.5, (n, 2))).astype(np.float32)
+    uv[: n // 4] = uv[: n // 4][::-1]
+    valid = rng.random(n) < 0.95
+    s2 = (1.44 ** rng.integers(0, 4, n)).astype(np.float32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (X, uv, valid, s2))
+
+
+def pnp_edge_inputs(cam, dev="cuda") -> dict:
+    """K10 PnP's edge cases, {name: (X, uv, valid, sigma2, idx)}: N = 1,
+    N = 8192 (the kernel's capacity), N = 1000 (not a multiple of a CTA's
+    width), no valid match, a draw with two degenerate rows (one match in
+    all six slots) and an all-degenerate draw (counts tied)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for name, n in (("N1", 1), ("capacity", 8192), ("N1000", 1000)):
+        X, uv, valid, s2 = pnp_scene(cam, n, dev=dev)
+        if n == 1:
+            valid[:] = True
+        out[name] = (X, uv, valid, s2, sim3_solver.sample_indices(valid, 256, 6, gen))
+    X, uv, valid, s2 = pnp_scene(cam, 2048, seed=6, dev=dev)
+    none = torch.zeros_like(valid)
+    out["none_valid"] = (X, uv, none, s2, sim3_solver.sample_indices(none, 256, 6, gen))
+    idx = sim3_solver.sample_indices(valid, 256, 6, gen)
+    out["degenerate_rows"] = (X, uv, valid, s2, degenerate_rows(idx, valid, (5, 131)))
+    out["all_degenerate"] = (X, uv, valid, s2, degenerate_rows(idx, valid))
+    return out
+
+
+def two_view_edge_inputs(cs, dev="cuda") -> dict:
+    """K12's edge cases, {name: (xy1, xy2, valid, sample)} from
+    `chip_smoke.plane_scene`: N = 1, N = 4096 (the kernel's capacity),
+    N = 1000 (not a multiple of a CTA's width), no valid match, a draw with
+    two degenerate rows (one match in all eight slots) and an
+    all-degenerate draw (scores tied)."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    out = {}
+    for name, n, planar in (("N1", 1, True), ("capacity", 4096, True), ("N1000", 1000, False)):
+        xy1, xy2, valid = cs.plane_scene(planar, n=n)
+        if n == 1:
+            valid[:] = True
+        out[name] = (xy1, xy2, valid, sim3_solver.sample_indices(valid, 256, 8, gen))
+    xy1, xy2, valid = cs.plane_scene(True)
+    none = torch.zeros_like(valid)
+    out["none_valid"] = (xy1, xy2, none, sim3_solver.sample_indices(none, 256, 8, gen))
+    sample = sim3_solver.sample_indices(valid, 256, 8, gen)
+    out["degenerate_rows"] = (xy1, xy2, valid, degenerate_rows(sample, valid, (9, 170)))
+    out["all_degenerate"] = (xy1, xy2, valid, degenerate_rows(sample, valid))
+    return out
+
+
+def two_view_inputs(cs, mono: dict, gen: torch.Generator) -> dict:
+    """`chip_smoke.check_sensor_kernels`' K12 inputs: the mono bootstrap's
+    successful attempt (H) and `plane_scene(False)` (F), each with a
+    256-row draw of 8 from `gen`, and the bootstrap's matches with every row
+    of its draw degenerate (one match in all eight slots: tied scores):
+    {name: (xy1, xy2, valid, sample)}."""
+    xy1, xy2, valid = mono["kept"]["two_view"][-1]
+    out = dict(bootstrap_H=(xy1, xy2, valid, initializer.sample_indices(valid, 256, 8, gen)))
+    fx1, fx2, fvalid = cs.plane_scene(False)
+    out["plane_scene_F"] = (fx1, fx2, fvalid, initializer.sample_indices(fvalid, 256, 8, gen))
+    out["bootstrap_tie"] = (xy1, xy2, valid, degenerate_rows(out["bootstrap_H"][3], valid))
+    return out
+
+
+def recorded_buffers(call) -> list:
+    """The tensors whose pointers one `call()` passed to its kernel
+    launches, in the order it passed them (scratch buffers included)."""
+    ptr, keep = kernels.ptr, []
+
+    def hold(t):
+        keep.append(t)
+        return ptr(t)
+
+    kernels.ptr = hold
+    try:
+        call()
+    finally:
+        kernels.ptr = ptr
+    torch.cuda.synchronize()
+    return keep
+
+
+# K10's PnP C entry with N = 0, for its launch without the per-match work
+# (`recorded_launches`' edit). K12's is left out: with N = 0 its
+# degenerate systems take other paths.
+NO_MATCHES = {"pnp_ransac": (4, 0)}
+# The phases that each kernel's `%globaltimer` stamps close (workspace
+# words 8.., a build with -DKERNEL_STAMPS), from the first CTA's start.
+STAMPS = {"pnp": ("dlt", "staged", "counted", "ticket", "end"),
+          "two_view": ("normalized", "hypotheses", "scored", "ticket", "refit_sums",
+                       "refit_solved", "rescored", "candidates", "checked", "end")}
+
+
+def stamped(calls: dict, reps: int = 5) -> dict:
+    """Rebuilds the kernels with -DKERNEL_STAMPS and runs each of `calls`
+    ({name: (call, workspace name)}) `reps` times: the median microseconds
+    from the first CTA's start to each stamp of its kernel; the build
+    without stamps is loaded again after."""
+    flags = list(kernels.NVCC_FLAGS)
+    kernels.NVCC_FLAGS.append("-DKERNEL_STAMPS")
+    kernels._lib = None
+    out = {}
+    try:
+        kernels.lib()
+        for name, (call, ws) in calls.items():
+            dev = torch.device("cuda", torch.cuda.current_device())
+            work = kernels.workspace(ws, dev, kernels.stream(), kernels.STAMPED_WORDS)
+            rows = []
+            for _ in range(reps):
+                work[8:].zero_()
+                call()
+                torch.cuda.synchronize()
+                st = work[8:].cpu().tolist()
+                rows.append([(v - st[0]) / 1e3 for v in st[1:len(STAMPS[ws]) + 1]])
+            out[name] = {k: float(np.median([r[j] for r in rows]))
+                         for j, k in enumerate(STAMPS[ws])}
+    finally:
+        kernels.NVCC_FLAGS[:] = flags
+        kernels._lib = None
+        kernels.lib()
+    return out
+
+
+def time_k10_call(cs, call, counter: str, outputs, models) -> dict:
+    """One K10 PnP or K12 call: replayed graph, host-inclusive CUDA events,
+    each launch alone and without its per-match work (`NO_MATCHES`),
+    torch.profiler by kernel name, launches and output hashes (`outputs`
+    and `models` map a result, and the call's recorded buffers, to tensors)."""
+    out = call()
+    torch.cuda.synchronize()
+    bufs = recorded_buffers(call)
+    return dict(graph_ms=cs.graph_ms(call), host_ms=cs.host_ms(call),
+                launches_per_call=cs.launches_of(call, counter),
+                launch_graph_ms={k: cs.graph_ms(f) for k, f in recorded_launches(call).items()},
+                without_matches_graph_ms={k: cs.graph_ms(f) for k, f in
+                                          recorded_launches(call, NO_MATCHES).items()},
+                profiler=device_per_frame(call, 20, top=None),
+                outputs_hash=digest(*outputs(out)), models_hash=[digest(b) for b in models(bufs)])
+
+
+def time_k10_k12(cs, dump: Optional[str] = None) -> dict:
+    """K10's PnP RANSAC on `chip_smoke.check_full_width`'s set and on the
+    loop orbit's LOST frame, K12 on the mono bootstrap's successful attempt
+    (H) and `plane_scene(False)` (F), each by `time_k10_call`; ptxas of
+    their kernels; the mono bootstrap's attempts; their `%globaltimer`
+    stamps (`stamped`). `dump` (an .npz
+    path) keeps K12's hypothesis models and scores on the bootstrap's
+    attempt, to compare trees value by value."""
+    out = dict(ptxas={k: v for k, v in cs.ptxas_summary(kernels.BUILD_INFO.get("log", "")).items()
+                      if k.startswith(("pnp", "two_view"))})
+
+    calls = {}
+
+    def time_pnp(name, cam, X, uv, valid, sigma2, idx):
+        call = lambda: pnp.solve_pnp_ransac(cam, X, uv, valid, sigma2, idx=idx)  # noqa: E731
+        # The scratch [H, 12] models (R row-major, t) among the recorded buffers.
+        r = time_k10_call(cs, call, "pnp", lambda o: tuple(o),
+                          lambda b: [x for x in b if tuple(x.shape) == (idx.shape[0], 12)])
+        o = call()
+        r.update(n_inliers=int(o.n_inliers), ok=bool(o.ok), matches=int(valid.sum()),
+                 N=int(X.shape[0]))
+        calls[name] = (call, "pnp")
+        out[name] = r
+
+    tp = cs.run_tracker_phase()
+    fl = cs.run_flagship_with_loop_closer(tp)
+    del tp
+    tracker = fl["tracker"]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    sim3_full_width(tracker.map, gen)
+    time_pnp("pnp_full_width", tracker.cam, *pnp_full_width(tracker.map, gen))
+    del fl, tracker
+    lp = cs.run_loop_phase()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    time_pnp("pnp_lost_frame", lp["tracker"].cam, *pnp_lost_frame(lp, gen))
+    out["loop_orbit"] = dict(pnp_launches=lp["launches"]["pnp"],
+                             relocalizations=lp["relocalizations"], first_loop=lp["first_loop"])
+    del lp
+    mono = cs.run_sensor_phase("mono")
+    out["mono"] = dict(init_frame=mono["init_frame"], attempts=mono["attempts"],
+                       two_view_launches=mono["launches"]["two_view"], init_ms=mono["init_ms"],
+                       keyframes=mono["keyframes"])
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for name, (xy1, xy2, valid, sample) in two_view_inputs(cs, mono, gen).items():
+        call = lambda xy1=xy1, xy2=xy2, valid=valid, sample=sample: (  # noqa: E731
+            initializer.initialize_two_view(cs.CAM, xy1, xy2, valid, sample=sample))
+        out[f"two_view_{name}"] = time_k10_call(
+            cs, call, "two_view", lambda o: tuple(o),
+            lambda b: [x for x in b if tuple(x.shape) in ((2, 256, 18), (2, 256))])
+        o = call()
+        out[f"two_view_{name}"].update(ok=bool(o.ok), used_H=bool(o.used_H),
+                                       n_good=int(o.n_good), matches=int(valid.sum()),
+                                       N=int(xy1.shape[0]))
+        calls[f"two_view_{name}"] = (call, "two_view")
+        if dump and name == "bootstrap_H":
+            b = recorded_buffers(call)
+            np.savez(dump, **{f"b{i}": x.cpu().numpy() for i, x in enumerate(b)
+                              if tuple(x.shape) in ((2, 256, 18), (2, 256))})
+    # The edge cases, kernel alone: output hashes (to compare trees).
+    edges = pnp_edge_inputs(cs.CAM)
+    out["pnp_edges"] = {k: digest(*pnp.solve_pnp_ransac(cs.CAM, X, uv, v, s2, idx=idx))
+                        for k, (X, uv, v, s2, idx) in edges.items()}
+    out["two_view_edges"] = {k: digest(*initializer.initialize_two_view(cs.CAM, a, b, v, sample=s))
+                             for k, (a, b, v, s) in two_view_edge_inputs(cs).items()}
+    out["stamps_us"] = stamped(calls)
+    return out
+
+
 def time_k11_k5(cs, te, tp) -> dict:
     """K5 on frame 12, K11 on the ring graphs and the flagship map's graph,
     the tracker's device time a frame, the loop orbit's and the stereo e2e
@@ -725,8 +1011,11 @@ def time_k8(cam, pb, n_iters: int, cg: int, huber: int, graph_ms, counter="ba_de
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join("chiprun_out", "kernel_times.json"))
-    ap.add_argument("--parts", default="k3k10,k1k4,k6k2,k6sweep,k11k5,k7k8",
-                    help="k3k10: K3 on the entry pair, a Sim3 attempt at full width and on "
+    ap.add_argument("--parts", default="k10k12,k3k10,k1k4,k6k2,k6sweep,k11k5,k7k8",
+                    help="k10k12: K10's PnP RANSAC at full width and on the loop orbit's "
+                         "LOST frame, K12 on the mono bootstrap's attempt and a non-planar "
+                         "scene; "
+                         "k3k10: K3 on the entry pair, a Sim3 attempt at full width and on "
                          "the loop map, the tracker's device time and the loop orbit; "
                          "k1k4: K1 and K4 on the entry pair and the tracker's device time; "
                          "k6k2: K6 and K2 on the tracking path; k6sweep: K6 by observations "
@@ -742,6 +1031,8 @@ def main() -> None:
     out = dict(nvidia_smi=cs.nvidia_smi_line(), device=torch.cuda.get_device_name(0))
     kernels.lib()
     dev = torch.device("cuda")
+    if "k10k12" in parts:
+        out.update(time_k10_k12(cs, os.path.splitext(args.out)[0] + "_k12.npz"))
     if "k3k10" in parts:
         out.update(time_k3_k10(cs))
     if "k1k4" in parts:

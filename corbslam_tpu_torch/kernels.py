@@ -95,8 +95,7 @@ _SIGNATURES = {
     "vocab_l1_scores": [VP, I32, VP, I32, I32, VP] + [VP],
     # ransac.cu
     "sim3_attempt": [VP] * 5 + [I32, VP, I32] + [VP] * 3 + [I32] * 4 + [F32] * 8 + [VP] * 7 + [VP],
-    "pnp_hypotheses": [VP] * 4 + [I32, VP, I32] + [F32] * 5 + [VP] * 3 + [VP],
-    "pnp_select": [VP] * 4 + [I32] + [VP] * 3 + [I32, I32] + [F32] * 5 + [VP] * 4 + [VP],
+    "pnp_ransac": [VP] * 4 + [I32, VP, I32, I32] + [F32] * 5 + [VP] * 6 + [VP],
     # pose_graph.cu
     "pg_linearize": [VP] * 8 + [I32] + [VP] * 2 + [VP],
     "pg_optimize": ([VP] * 4 + [I32] + [VP] * 6 + [I32] + [VP] * 2 + [I32] * 2 + [F32]
@@ -105,11 +104,7 @@ _SIGNATURES = {
     "covis_fill": [VP] * 3 + [I32] * 3 + [VP] * 3 + [VP],
     "covis_pairs": [VP, VP, I32, I32, VP] + [VP],
     # two_view.cu
-    "tv_normalize": [VP] * 3 + [I32] + [VP] * 2 + [VP],
-    "tv_hypotheses": [VP] * 3 + [I32] + [VP] * 3 + [I32, F32] + [VP] * 2 + [VP],
-    "tv_refit": [VP] * 5 + [I32, F32] + [VP] * 2 + [I32] + [F32] * 4 + [VP] * 3 + [VP],
-    "tv_check": [VP] * 2 + [I32, F32] + [F32] * 4 + [VP] * 6 + [VP],
-    "tv_final": [I32, I32] + [VP] * 11 + [VP],
+    "two_view": [VP] * 3 + [I32, VP, I32, F32, I32] + [F32] * 4 + [VP] * 9 + [VP],
     # triangulate.cu
     "tri_points": [VP] * 4 + [I32, I32] + [VP] * 4 + [F32] * 5 + [VP] * 5 + [VP],
     # kmajority.cu
@@ -213,6 +208,25 @@ def launch(counter: str, fn: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {fn} failed: cudaError {err}")
     LAUNCHES[counter] += 1
+
+
+_WORK: dict = {}
+# The workspace words of K10's PnP RANSAC and K12: keys and ticket in
+# words 0..7, the `%globaltimer` stamps of a -DKERNEL_STAMPS build in 8..23.
+STAMPED_WORDS = 24
+
+
+def workspace(name: str, device, stream: int = 0, words: int = 2) -> torch.Tensor:
+    """The words (int64) that kernel `name` keeps between launches on one
+    stream (a best-hypothesis key, a CTA ticket, ...): zeros when made, kept
+    from call to call, the launch's last CTA setting them back to 0. K10's
+    Sim3 attempt ("sim3") and PnP RANSAC ("pnp") and K12 ("two_view") each
+    have their own."""
+    key = (name, torch.device(device), stream)
+    work = _WORK.get(key)
+    if work is None:
+        work = _WORK[key] = torch.zeros(words, dtype=torch.int64, device=device)
+    return work
 
 
 def reset_launches() -> None:

@@ -128,27 +128,34 @@ def optimize_plain(g: PoseGraph, n_iters: int = 20, cg_iters: int = 50, lam: flo
     w = (g.e_valid.to(torch.float32) * g.e_weight)[:, None]
     I7 = torch.eye(7, dtype=torch.float32, device=dev)
 
-    def seg(x, idx):
-        return torch.zeros(N, *x.shape[1:], dtype=x.dtype, device=dev).index_add_(0, idx, x)
+    # Each vertex's sum over its edges in edge order (segment_reduce over the
+    # edges sorted by vertex): a sequential index_add_'s sums, and on CUDA,
+    # where index_add_ adds with atomics in no fixed order, the same from
+    # run to run.
+    def segment_sum(idx):
+        order, cnt = torch.argsort(idx, stable=True), torch.bincount(idx, minlength=N)
+        return lambda x: torch.segment_reduce(x[order], "sum", lengths=cnt, axis=0)
+
+    seg_i, seg_j = segment_sum(ei), segment_sum(ej)
 
     R, t, s = g.R, g.t, g.s
     costs = []
     for _ in range(n_iters):
         r, Ji, Jj = linearize_edges_plain(g._replace(R=R, t=t, s=s))
         Ji_w, Jj_w = Ji * w[:, :, None], Jj * w[:, :, None]
-        Hd = (seg(torch.einsum("eri,erj->eij", Ji_w, Ji), ei)
-              + seg(torch.einsum("eri,erj->eij", Jj_w, Jj), ej))
+        Hd = (seg_i(torch.einsum("eri,erj->eij", Ji_w, Ji))
+              + seg_j(torch.einsum("eri,erj->eij", Jj_w, Jj)))
         Hd = Hd + lam * I7 + 1e-8 * I7
         Minv = inv_spd_unrolled(Hd + 1e-6 * I7, 7)
-        b = -(seg(torch.einsum("eri,er->ei", Ji_w, r), ei)
-              + seg(torch.einsum("eri,er->ei", Jj_w, r), ej)) * free
+        b = -(seg_i(torch.einsum("eri,er->ei", Ji_w, r))
+              + seg_j(torch.einsum("eri,er->ei", Jj_w, r))) * free
 
         def Hv(v):
             v = v * free
             a = torch.einsum("eri,ei->er", Ji, v[ei]) + torch.einsum("eri,ei->er", Jj, v[ej])
             a = a * w
-            out = (seg(torch.einsum("eri,er->ei", Ji, a), ei)
-                   + seg(torch.einsum("eri,er->ei", Jj, a), ej))
+            out = (seg_i(torch.einsum("eri,er->ei", Ji, a))
+                   + seg_j(torch.einsum("eri,er->ei", Jj, a)))
             return (out + (lam + 1e-8) * v) * free
 
         def precond(x):

@@ -17,8 +17,8 @@ coordinate axis) and `R * sign(det R)` keeps a zero matrix when det R is 0.
 
 The sample is an input: `sample_indices` with the tracker's generator on
 the path, JAX's index array in the tests. On CUDA tensors the whole pass is
-kernel K12 (`csrc/two_view.cu`, five launches, no host sync); on CPU
-tensors `initialize_two_view_plain`.
+one launch of kernel K12 (`csrc/two_view.cu` `two_view`, no host sync) on
+N <= `TV_MAX_N` matches; on CPU tensors `initialize_two_view_plain`.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ CHI2_F = 3.841    # 1-DoF epipolar distance gate (CheckFundamental)
 CHI2_H = 5.991    # 2-DoF transfer error gate (CheckHomography)
 SCORE_TH = 5.991  # score accumulator offset
 N_HYP, N_SAMPLE = 256, 8
+TV_MAX_N = 4096  # the kernel keeps 39 bytes of every match in one CTA's shared memory
 
 
 class InitResult(NamedTuple):
@@ -218,11 +219,14 @@ def initialize_two_view_plain(cam, xy1, xy2, valid, sample, sigma: float = 1.0,
     Hn = _dlt_H(x1n[idx], x2n[idx])
     T2inv = torch.linalg.inv(T2)
     Hm = T2inv @ Hn @ T1
-    sH, okH = _score_H(Hm, torch.linalg.inv(Hm + 1e-12 * eye), xy1, xy2, valid, inv_sigma2)
+    # inv_ex: a singular H (a degenerate sample) gives non-finite entries, as
+    # jnp.linalg.inv does, instead of raising.
+    sH, okH = _score_H(Hm, torch.linalg.inv_ex(Hm + 1e-12 * eye)[0], xy1, xy2, valid,
+                       inv_sigma2)
     Hn_ref = _dlt_H(x1n, x2n, w=okH[torch.argmax(sH)].to(torch.float32))
     H_best = T2inv @ Hn_ref @ T1
-    score_h, inl_H = _score_H(H_best, torch.linalg.inv(H_best + 1e-12 * eye), xy1, xy2, valid,
-                              inv_sigma2)
+    score_h, inl_H = _score_H(H_best, torch.linalg.inv_ex(H_best + 1e-12 * eye)[0], xy1, xy2,
+                              valid, inv_sigma2)
 
     use_H = score_h / (score_h + score_f).clamp_min(1e-9) > 0.40
     RF, tF = candidates_F(cam, F_best)
@@ -251,6 +255,14 @@ def _choose(n_good, inl, use_H, R_all, t_all, X_all, good_all, score_h, score_f,
                       score_h, score_f)
 
 
+def check_capacity(n_matches: int, device) -> None:
+    """Raises when K12 cannot take `n_matches` matches on `device` (the
+    plain version takes any number): the tracker calls it at set-up with
+    its frames' feature capacity."""
+    if torch.device(device).type == "cuda" and n_matches > TV_MAX_N:
+        raise ValueError(f"{n_matches} matches: K12 takes at most {TV_MAX_N}")
+
+
 def _initialize_two_view_cuda(cam, xy1, xy2, valid, sample, sigma: float,
                               min_triangulated: int) -> InitResult:
     dev, N = xy1.device, xy1.shape[0]
@@ -260,35 +272,25 @@ def _initialize_two_view_cuda(cam, xy1, xy2, valid, sample, sigma: float,
     chk(xy2, "xy2", torch.float32, (N, 2), dev)
     chk(valid, "valid", torch.bool, (N,), dev)
     chk(sample, "sample", torch.int32, (H, N_SAMPLE), dev)
+    check_capacity(N, dev)
+    if H < 1:
+        raise ValueError("sample: needs at least one hypothesis")
     f32 = dict(dtype=torch.float32, device=dev)
-    p = kernels.ptr
-    inv_sigma2 = 1.0 / (sigma * sigma)
-    camv = (float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy))
-    tparams = torch.empty(8, **f32)
-    xn = torch.empty(2, N, 2, **f32)
-    kernels.launch("two_view", "tv_normalize", p(xy1), p(xy2), p(valid), N, p(tparams), p(xn))
     models = torch.empty(2, H, 18, **f32)   # per model and hypothesis: M, then M^-1 (H)
     scores = torch.empty(2, H, **f32)
-    kernels.launch("two_view", "tv_hypotheses", p(xn), p(tparams), p(sample), H, p(xy1), p(xy2),
-                   p(valid), N, inv_sigma2, p(models), p(scores))
     score_fh = torch.empty(2, **f32)
-    inl = torch.empty(2, N, dtype=torch.bool, device=dev)
-    cand = torch.empty(12, 12, **f32)       # per candidate: R (row-major), t
-    kernels.launch("two_view", "tv_refit", p(xn), p(tparams), p(xy1), p(xy2), p(valid), N,
-                   inv_sigma2, p(models), p(scores), H, *camv, p(score_fh), p(inl), p(cand))
-    n_good = torch.empty(12, dtype=torch.int32, device=dev)
-    good_all = torch.empty(12, N, dtype=torch.bool, device=dev)
-    X_all = torch.empty(12, N, 3, **f32)
-    kernels.launch("two_view", "tv_check", p(xy1), p(xy2), N, inv_sigma2, *camv, p(score_fh),
-                   p(inl), p(cand), p(n_good), p(good_all), p(X_all))
-    out_i = torch.empty(4, dtype=torch.int32, device=dev)  # ok, used_H, n_good, best
+    # ok, used_H, n_good, best candidate, the chosen model's inliers, best F and H hypotheses
+    out_i = torch.empty(7, dtype=torch.int32, device=dev)
     R = torch.empty(3, 3, **f32)
     t = torch.empty(3, **f32)
     X = torch.empty(N, 3, **f32)
     good = torch.empty(N, dtype=torch.bool, device=dev)
-    kernels.launch("two_view", "tv_final", N, int(min_triangulated), p(score_fh), p(inl),
-                   p(cand), p(n_good), p(good_all), p(X_all), p(out_i), p(R), p(t), p(X),
-                   p(good))
+    p = kernels.ptr
+    work = kernels.workspace("two_view", dev, kernels.stream(), kernels.STAMPED_WORDS)
+    kernels.launch("two_view", "two_view", p(xy1), p(xy2), p(valid), N, p(sample), H,
+                   1.0 / (sigma * sigma), int(min_triangulated), float(cam.fx), float(cam.fy),
+                   float(cam.cx), float(cam.cy), p(work), p(models), p(scores), p(score_fh),
+                   p(out_i), p(R), p(t), p(X), p(good))
     return InitResult(out_i[0] != 0, out_i[1] != 0, R, t, X, good, out_i[2], score_fh[1],
                       score_fh[0])
 

@@ -7,8 +7,10 @@ eigenvector by 8 inverse iterations on a regularized Cholesky factor, the
 sign and scale from det(M), and 8 Newton polar steps (Cramer 3x3
 inverses) onto SO(3), in float64 (the reference's f32 carries rounding
 into poses of near-degenerate samples). The sampling is an input as in
-`sim3_solver`. On CUDA tensors the hypotheses and the choice of the best
-run on kernel K10 (`csrc/ransac.cu`).
+`sim3_solver`. On CUDA tensors the whole RANSAC (the hypotheses, the
+first maximum of their counts and its inlier mask) is one launch of kernel
+K10 (`csrc/ransac.cu` `pnp_ransac`) on N <= `PNP_MAX_N` matches; on CPU
+tensors `solve_pnp_ransac_plain`.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from ..geometry import se3
 from ..matching.matcher import div
 from ..optim.smallmat import chol_solve_factored, chol_unrolled
 from .sim3_solver import sample_indices
+
+PNP_MAX_N = 8192  # the kernel stages 6 floats of every match in one CTA's shared memory
 
 
 class PnPResult(NamedTuple):
@@ -114,17 +118,26 @@ def solve_pnp_ransac(cam, X, uv, valid, sigma2, generator: Optional[torch.Genera
                                ("sigma2", sigma2, torch.float32, (N,)),
                                ("idx", idx, torch.int32, (H, 6))):
         kernels.check(t, name, dt, shape, dev)
+    check_capacity(N, dev)
+    if H < 1:
+        raise ValueError("idx: needs at least one hypothesis")
     f32 = dict(dtype=torch.float32, device=dev)
-    hR, ht = torch.empty(H, 3, 3, **f32), torch.empty(H, 3, **f32)
-    counts = torch.empty(H, dtype=torch.int32, device=dev)
-    p = kernels.ptr
-    camv = (float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy), float(chi2_th))
-    kernels.launch("pnp", "pnp_hypotheses", p(X), p(uv), p(valid), p(sigma2), N, p(idx), H,
-                   *camv, p(hR), p(ht), p(counts))
+    models = torch.empty(H, 12, **f32)
     T = torch.empty(4, 4, **f32)
     inl = torch.empty(N, dtype=torch.bool, device=dev)
     n_in = torch.empty((), dtype=torch.int32, device=dev)
     ok = torch.empty((), dtype=torch.bool, device=dev)
-    kernels.launch("pnp", "pnp_select", p(X), p(uv), p(valid), p(sigma2), N, p(hR), p(ht),
-                   p(counts), H, int(min_inliers), *camv, p(T), p(inl), p(n_in), p(ok))
+    p = kernels.ptr
+    work = kernels.workspace("pnp", dev, kernels.stream(), kernels.STAMPED_WORDS)
+    kernels.launch("pnp", "pnp_ransac", p(X), p(uv), p(valid), p(sigma2), N, p(idx), H,
+                   int(min_inliers), float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy),
+                   float(chi2_th), p(work), p(models), p(T), p(inl), p(n_in), p(ok))
     return PnPResult(T, inl, n_in, ok)
+
+
+def check_capacity(n_matches: int, device) -> None:
+    """Raises when K10's PnP kernel cannot take `n_matches` matches on
+    `device` (the plain version takes any number): the tracker calls it at
+    set-up with its frames' feature capacity."""
+    if torch.device(device).type == "cuda" and n_matches > PNP_MAX_N:
+        raise ValueError(f"{n_matches} matches: K10's PnP kernel takes at most {PNP_MAX_N}")

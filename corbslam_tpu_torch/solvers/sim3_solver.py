@@ -292,20 +292,6 @@ def solve_and_refine_sim3(cam1, cam2, p1, p2, valid, s2_1, s2_2,
     return Sim3Attempt(ransac, refined, *combined)
 
 
-_SIM3_WORK: dict = {}
-
-
-def sim3_workspace(device, stream: int = 0) -> torch.Tensor:
-    """K10's two Sim3 words (int64: the best hypothesis key and the CTA
-    ticket) for one stream, 0 when made and kept from call to call: the
-    launch's last CTA sets them back to 0."""
-    key = (torch.device(device), stream)
-    work = _SIM3_WORK.get(key)
-    if work is None:
-        work = _SIM3_WORK[key] = torch.zeros(2, dtype=torch.int64, device=device)
-    return work
-
-
 def _sim3_cuda(mode: int, cam1, cam2, p1, p2, valid, s2_1, s2_2, idx=None, R0=None, t0=None,
                s0=None, min_inliers: int = 20, fix_scale: bool = False, n_rounds: int = 3):
     """One launch of K10's `sim3_attempt` in `mode`: ((R, t, s, inliers,
@@ -335,10 +321,10 @@ def _sim3_cuda(mode: int, cam1, cam2, p1, p2, valid, s2_1, s2_2, idx=None, R0=No
     inl_r = torch.empty(N, dtype=torch.bool, device=dev)
     inl_f = torch.empty(N, dtype=torch.bool, device=dev)
     models = torch.empty(max(H, 1), 13, **f32)
+    work = kernels.workspace("sim3", dev, kernels.stream())
     kernels.launch("sim3", "sim3_attempt", p(p1), p(p2), p(valid), p(s2_1), p(s2_2), N, *start,
                    mode, int(fix_scale), int(n_rounds), int(min_inliers), *_cams(cam1, cam2),
-                   p(sim3_workspace(dev, kernels.stream())), p(models), p(out_f), p(out_i),
-                   p(ok), p(inl_r), p(inl_f))
+                   p(work), p(models), p(out_f), p(out_i), p(ok), p(inl_r), p(inl_f))
 
     def model(i):
         return out_f[i, :9].view(3, 3), out_f[i, 9:12], out_f[i, 12]

@@ -36,6 +36,7 @@ from corbslam_tpu_torch.matching import matcher
 from corbslam_tpu_torch.solvers import initializer
 from test_init_reloc import CAM as JCAM
 from test_init_reloc import two_view_scene
+from test_torch_sim3 import with_draw
 
 torch.set_num_threads(2)
 
@@ -80,6 +81,33 @@ def test_initialize_two_view_equals_the_reference(scene):
     assert np.abs(res.R.numpy() - T21[:3, :3]).max() < 0.02
     t_gt = T21[:3, 3] / np.linalg.norm(T21[:3, 3])
     assert abs(abs(float(res.t.numpy() @ t_gt)) - 1.0) < 0.01
+
+
+@pytest.mark.parametrize("scene", ["general_F", "planar_H"])
+def test_initialize_two_view_with_degenerate_rows_in_the_references_draw(scene):
+    """The reference's sample with two rows holding one match in all eight
+    slots (a rank-1 F and a rank-2 H system): the plain version against
+    JAX's, at the tolerances above."""
+    rng = np.random.default_rng(0)
+    xy1, xy2, ok, _, _ = two_view_scene(rng, **SCENES[scene])
+    key = jax.random.PRNGKey(0)
+    sample = jax_sample(key, ok).copy()
+    sample[9] = np.flatnonzero(ok)[3]
+    sample[170] = np.flatnonzero(ok)[40]
+    ref = with_draw(jinit.initialize_two_view, sample, ("cam", "n_hyp", "min_triangulated"))(
+        JCAM, jnp.asarray(xy1), jnp.asarray(xy2), jnp.asarray(ok), key)
+    res = initializer.initialize_two_view(CAM, torch.from_numpy(xy1), torch.from_numpy(xy2),
+                                          torch.from_numpy(ok), sample=torch.from_numpy(sample))
+    assert bool(res.ok) == bool(ref.ok) and bool(res.used_H) == bool(ref.used_H)
+    assert bool(res.used_H) == (scene == "planar_H")
+    good, good_ref = res.good.numpy(), np.asarray(ref.good)
+    n = int(ref.n_good)
+    assert abs(int(res.n_good) - n) <= n // 100 and (good != good_ref).sum() <= n // 100
+    np.testing.assert_allclose(res.R.numpy(), np.asarray(ref.R), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(res.t.numpy(), np.asarray(ref.t), rtol=0, atol=1e-3)
+    both = good & good_ref
+    X, Xr = res.X.numpy()[both], np.asarray(ref.X)[both]
+    assert (np.linalg.norm(X - Xr, axis=1) <= 1e-2 * np.linalg.norm(Xr, axis=1)).all()
 
 
 def test_initialize_two_view_draws_from_the_generator():

@@ -29,7 +29,7 @@ from corbslam_tpu.ops import brief as jbrief
 from corbslam_tpu.ops import fast as jfast
 from corbslam_tpu.ops import pyramid as jpyramid
 from corbslam_tpu_torch import config, entry, interop, kernels, system
-from corbslam_tpu_torch.frontend import frame, track_ops
+from corbslam_tpu_torch.frontend import frame, track_ops, tracking
 from corbslam_tpu_torch.geometry import camera
 from corbslam_tpu_torch.loop import loop_closing
 from corbslam_tpu_torch.io import synthetic
@@ -578,12 +578,14 @@ def test_sim3_kernel_capacity_is_checked_when_the_loop_closer_is_set_up():
         loop_closing.LoopCloser(CAM_, cfg, voc)
 
 
-@pytest.mark.parametrize("mode", ["ransac", "refine", "attempt", "describe"])
+@pytest.mark.parametrize("mode", ["ransac", "refine", "attempt", "describe", "pnp", "two_view"])
 def test_k10_sim3_and_k3_make_one_launch_that_fits_their_c_entry(mode, monkeypatch):
     """K10's Sim3 RANSAC, refinement and whole attempt are one launch of
     `sim3_attempt` in modes 1, 2 and 3 (the attempt's grid covers ceil(H / 2)
-    hypotheses, its outputs are views of one model buffer), and K3's
-    `describe` one launch of `orb_describe`, each argument list fitting its
+    hypotheses, its outputs are views of one model buffer), K3's
+    `describe` one launch of `orb_describe`, K10's PnP RANSAC one launch of
+    `pnp_ransac` and K12's two-view attempt one launch of `two_view` (each
+    with its kernel's `kernels.STAMPED_WORDS` workspace words), each argument list fitting its
     C entry's ctypes signature; run here on CPU tensors with the launch
     recorded instead of made."""
     calls = []
@@ -591,10 +593,27 @@ def test_k10_sim3_and_k3_make_one_launch_that_fits_their_c_entry(mode, monkeypat
     monkeypatch.setattr(kernels, "ptr", lambda t: 0)
     monkeypatch.setattr(kernels, "stream", lambda: 0)
     monkeypatch.setattr(kernels, "check", lambda *a, **k: None)
-    monkeypatch.setattr(sim3_solver, "_SIM3_WORK", {})
+    monkeypatch.setattr(kernels, "_WORK", {})
     ops = _sim3_operands(N=8, H=5)
     m = (ops["p1"], ops["p2"], ops["valid"], ops["s2_1"], ops["s2_2"])
-    if mode == "describe":
+    if mode in ("pnp", "two_view"):
+        monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+        k = 6 if mode == "pnp" else 8
+        idx = torch.from_numpy(np.random.default_rng(1).integers(0, 8, (5, k)).astype(np.int32))
+        if mode == "pnp":
+            r = pnp.solve_pnp_ransac(CAM_, ops["p1"], ops["p1"][:, :2].contiguous(), ops["valid"],
+                                     ops["s2_1"], idx=idx)
+            assert calls[0][1] == "pnp_ransac" and calls[0][2][4:7] == (8, 0, 5)
+            assert r.Tcw.shape == (4, 4) and r.inliers.shape == (8,) and r.n_inliers.dim() == 0
+        else:
+            r = initializer.initialize_two_view(CAM_, ops["p1"][:, :2].contiguous(),
+                                                ops["p2"][:, :2].contiguous(), ops["valid"],
+                                                sample=idx)
+            assert calls[0][1] == "two_view" and calls[0][2][3:6] == (8, 0, 5)
+            assert r.X.shape == (8, 3) and r.good.shape == (8,) and r.R.shape == (3, 3)
+        work = kernels._WORK[(mode, torch.device("cpu"), 0)]
+        assert work.numel() == kernels.STAMPED_WORDS and not bool(work.any())
+    elif mode == "describe":
         prm = orb.params(config.OrbConfig(n_features=64, n_levels=2), 64, 96, "cpu")
         meta = torch.zeros(2, prm.total)
         i32 = [torch.zeros(2, 64, dtype=torch.int32) for _ in range(4)]
@@ -623,15 +642,56 @@ def test_k10_sim3_and_k3_make_one_launch_that_fits_their_c_entry(mode, monkeypat
 
 
 def test_k10_sim3_workspace_is_kept_per_stream_and_zeroed():
-    """K10's Sim3 words (best key, ticket): 0 when made, kept from call to
-    call on one stream, separate for another stream."""
-    saved = dict(sim3_solver._SIM3_WORK)
-    sim3_solver._SIM3_WORK.clear()
+    """K10's Sim3 words (best key, ticket; `kernels.workspace`): 0 when
+    made, kept from call to call on one stream, separate for another
+    stream."""
+    saved = dict(kernels._WORK)
+    kernels._WORK.clear()
     try:
-        w = sim3_solver.sim3_workspace("cpu", stream=7)
+        w = kernels.workspace("sim3", "cpu", stream=7)
         assert w.numel() == 2 and w.dtype == torch.int64 and not bool(w.any())
-        assert sim3_solver.sim3_workspace("cpu", stream=7) is w
-        assert sim3_solver.sim3_workspace("cpu", stream=8) is not w
+        assert kernels.workspace("sim3", "cpu", stream=7) is w
+        assert kernels.workspace("sim3", "cpu", stream=8) is not w
     finally:
-        sim3_solver._SIM3_WORK.clear()
-        sim3_solver._SIM3_WORK.update(saved)
+        kernels._WORK.clear()
+        kernels._WORK.update(saved)
+
+
+@pytest.mark.parametrize("name", ["pnp", "two_view"])
+def test_k10_pnp_and_k12_workspaces_are_their_own_per_stream_and_zeroed(name):
+    """K10's PnP words and K12's (best keys, ticket, and the stamp words of
+    a build with -DKERNEL_STAMPS): zeros when made, kept from call to call
+    on one stream, apart from another stream's and from the other kernels'."""
+    saved = dict(kernels._WORK)
+    kernels._WORK.clear()
+    try:
+        n = kernels.STAMPED_WORDS
+        w = kernels.workspace(name, "cpu", stream=7, words=n)
+        assert w.numel() == n and w.dtype == torch.int64 and not bool(w.any())
+        assert kernels.workspace(name, "cpu", stream=7, words=n) is w
+        assert kernels.workspace(name, "cpu", stream=8, words=n) is not w
+        assert kernels.workspace("sim3", "cpu", stream=7) is not w
+    finally:
+        kernels._WORK.clear()
+        kernels._WORK.update(saved)
+
+
+@pytest.mark.parametrize("kernel", ["pnp", "two_view"])
+def test_pnp_and_two_view_kernel_capacity_is_checked_when_the_tracker_is_set_up(kernel,
+                                                                                monkeypatch):
+    """K10's PnP kernel takes at most `pnp.PNP_MAX_N` matches and K12 at most
+    `initializer.TV_MAX_N` (the plain versions any number): a CUDA tracker
+    whose frames hold more features is refused when it is built, before it
+    touches the device."""
+    mod, n, msg = ((pnp, pnp.PNP_MAX_N, "PnP kernel takes at most") if kernel == "pnp" else
+                   (initializer, initializer.TV_MAX_N, "K12 takes at most"))
+    mod.check_capacity(n, "cuda")
+    mod.check_capacity(n + 1, "cpu")
+    with pytest.raises(ValueError, match=msg):
+        mod.check_capacity(n + 1, "cuda")
+    monkeypatch.setattr(kernels, "resolve_device", lambda d: torch.device(d))
+    cfg = config.SlamConfig(orb=config.OrbConfig(n_features=n + 1))
+    with pytest.raises(ValueError, match=msg):
+        tracking.StereoTracker(CAM_, cfg, device="cuda")
+    tracking.StereoTracker(CAM_, config.SlamConfig(orb=config.OrbConfig(n_features=n + 1)),
+                           device="cpu")

@@ -232,6 +232,65 @@ def test_pnp_ransac_with_the_references_draw():
     assert (np.abs(R.numpy() - np.asarray(Rj)).max(axis=2) <= 1e-3 * scale).all()
 
 
+def with_draw(fn, idx, static_argnames):
+    """JAX RANSAC function `fn` (jitted, drawing with jax.random.choice)
+    traced anew, in a function of its own, with its draw replaced by `idx`:
+    the package is unchanged, the choice is swapped only while this trace
+    is made."""
+    drawn = []
+
+    def traced(*args, **kw):
+        return fn.__wrapped__(*args, **kw)
+
+    def draw(*a, **k):
+        drawn.append(k.get("shape"))
+        return jnp.asarray(idx)
+
+    def run(*args, **kw):
+        choice = jax.random.choice
+        jax.random.choice = draw
+        try:
+            out = jax.jit(traced, static_argnames=static_argnames)(*args, **kw)
+        finally:
+            jax.random.choice = choice
+        assert drawn == [idx.shape]
+        return out
+    return run
+
+
+def test_pnp_ransac_with_degenerate_rows_in_the_references_draw():
+    """The reference's draw with two rows holding one match in all six
+    slots (a rank-deficient DLT): the plain version against JAX's, at the
+    tolerances above."""
+    rng = np.random.default_rng(6)
+    N = 400
+    X = np.stack([rng.uniform(-4, 4, N), rng.uniform(-3, 3, N), rng.uniform(4, 14, N)],
+                 -1).astype(np.float32)
+    T = jse3.exp(jnp.asarray([0.1, -0.2, 0.3, 0.05, 0.1, -0.02], jnp.float32))
+    uv = np.asarray(jcamera.project(JCAM, jse3.transform(T, jnp.asarray(X))))
+    uv = (uv + rng.normal(size=uv.shape) * 0.5).astype(np.float32)
+    uv[: N // 4] = uv[: N // 4][::-1]
+    valid = rng.random(N) < 0.95
+    s2 = (1.44 ** rng.integers(0, 4, N)).astype(np.float32)
+    key = jax.random.PRNGKey(3)
+    probs = jnp.asarray(valid, jnp.float32)
+    idx = np.array(jax.random.choice(key, N, shape=(256, 6), p=probs / jnp.maximum(probs.sum(), 1)),
+                   np.int32)
+    idx[5] = np.flatnonzero(valid)[7]
+    idx[131] = np.flatnonzero(valid)[200]
+    ref = with_draw(jpnp.solve_pnp_ransac, idx, ("cam", "n_hyp", "min_inliers"))(
+        JCAM, jnp.asarray(X), jnp.asarray(uv), jnp.asarray(valid), jnp.asarray(s2), key,
+        n_hyp=256, min_inliers=15)
+    out = pnp.solve_pnp_ransac(CAM, t_(X), t_(uv), t_(valid), t_(s2), min_inliers=15, idx=t_(idx))
+    assert int(out.n_inliers) == int(ref.n_inliers) and bool(out.ok) == bool(ref.ok)
+    close(out.Tcw[:3, :3], ref.Tcw[:3, :3], 1e-5)
+    close(out.Tcw[:3, 3], ref.Tcw[:3, 3], 1e-4)
+    flips = out.inliers.numpy() != np.asarray(ref.inliers)
+    p = np.asarray(jse3.transform(ref.Tcw, jnp.asarray(X)))
+    e = ((np.asarray(jcamera.project(JCAM, jnp.asarray(p))) - uv) ** 2).sum(-1)
+    assert near_gate(e, 5.991 * s2, flips)
+
+
 @pytest.mark.parametrize("fix_scale", [True, False])
 def test_sim3_attempt_equals_the_references_sequence(fix_scale):
     """`solve_and_refine_sim3` (the plain path on the CPU) against JAX's

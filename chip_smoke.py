@@ -5,9 +5,10 @@
 1. prints the environment and the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from corbslam_tpu_torch/csrc/ (nvcc) and
    prints nvcc's register, spill and stack-frame bytes per kernel (K6's,
-   K2's, K11's pose graph, K5's, K1's, K4's, K3's, K10's Sim3 attempt and
-   PnP RANSAC and K12's kernels must not spill, and K6's, K11's, K1's,
-   K4's, K3's, the Sim3 attempt's, PnP's and K12's have no stack frame);
+   K2's, K11's pose graph and covisibility count, K5's, K1's, K4's, K3's,
+   K10's Sim3 attempt and PnP RANSAC, K12's and K14's kernels must not
+   spill, and K6's, K11's, K1's, K4's, K3's, the Sim3 attempt's, PnP's,
+   K12's and K14's have no stack frame);
 3. drives the front end — `build_frame_stereo` through `entry.entry()` — on
    3 warm-up and 20 timed stereo frames with all launch counters reset just
    before, checks its four kernels were launched (K1 and K4 once a frame),
@@ -126,7 +127,9 @@
    runs, each GBA chunk's time (CUDA events on the GBA stream), each
    closure's, frame p50 / p90 and the launches; then holds K14 against its
    plain version on the stereo run's training (its centres are the run's
-   vocabulary; and with row weights), K8 against optimize_plain on that
+   vocabulary; and with row weights), B17 on the stereo lap's and the 2.5
+   laps' maps, K14 and B17 at their edges (`km_edge_inputs`,
+   `covis_edge_maps`), K8 against optimize_plain on that
    run's first GBA chunk (one LM iteration and the 2-iteration chunk), K8
    at bench.py's bench_gba shape (its 1536-keyframe, 196608-point map made
    from seed 0 in the port's MapState, through build_global_problem_dense:
@@ -135,7 +138,8 @@
    bit-equal), and K14 at the full width: a ~400k-descriptor
    corpus of the port's front end over both images of 120 frames of the
    flagship world trained 2-level at G 1024 x B 32 (level-1 centres,
-   grouping, words, child table and idf exact) and `build_tree` over the
+   grouping, words, child table and idf exact), `train_chunked` at 32768
+   words over that corpus (words and idf exact) and `build_tree` over the
    shipped vocab32k (groups exact), and times those rows (their launches
    are one call's: no path runs them);
 11. writes every measurement (per-frame times and counts, nvcc's full
@@ -192,11 +196,13 @@ from corbslam_tpu_torch.optim import ba_dense, pose_graph, pose_opt, reproj  # n
 from corbslam_tpu_torch.place import database, vocab  # noqa: E402
 from corbslam_tpu_torch.solvers import initializer, pnp, sim3_solver  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): HBM rate and f32 rate outside the
-# tensor cores; every kernel here runs on the CUDA cores.
+# H100 SXM peaks (NVIDIA data sheet): HBM rate, f32 and f64 rates outside
+# the tensor cores, and the dense int8 tensor-core rate (K14's inner
+# products, counted as the int8 product the reference makes of them).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-F64_OPS_PER_S = 34e12  # the H100 SXM's float64 rate outside the tensor cores (NVIDIA's data sheet)
+F64_OPS_PER_S = 34e12
+INT8_OPS_PER_S = 1979e12
 
 # Where each kernel's TPU-shaped reference lives (the JAX functions it replaces).
 REPLACES = {
@@ -289,9 +295,11 @@ def ptxas_summary(log: str) -> dict:
 # memory) and K12's (its warp LU in shared memory) have no stack frame at all.
 NO_SPILL = ("pose_opt_kernel", "fast_cell_max_kernel", "fast_topk_kernel", "pg_optimize_kernel",
             "match_select_kernel", "pyramid_kernel", "stereo_match_kernel", "orb_describe_kernel",
-            "sim3_attempt_kernel", "pnp_ransac_kernel", "two_view_kernel")
+            "sim3_attempt_kernel", "pnp_ransac_kernel", "two_view_kernel", "km_train_kernel",
+            "covis_push_kernel", "covis_rows_kernel")
 NO_STACK = ("pose_opt_kernel", "pg_optimize_kernel", "pyramid_kernel", "stereo_match_kernel",
-            "orb_describe_kernel", "sim3_attempt_kernel", "pnp_ransac_kernel", "two_view_kernel")
+            "orb_describe_kernel", "sim3_attempt_kernel", "pnp_ransac_kernel", "two_view_kernel",
+            "km_train_kernel", "covis_push_kernel", "covis_rows_kernel")
 
 
 def check_ptxas(ptxas: dict) -> None:
@@ -346,12 +354,14 @@ def device_ms(fn, reps: int = 20, warmup: int = 3):
     return None
 
 
-def bound_ms(n_bytes: float, n_ops: float, n_f64_ops: float = 0.0):
+def bound_ms(n_bytes: float, n_ops: float, n_f64_ops: float = 0.0, n_int8_ops: float = 0.0):
     """(ms, "bytes" or "operations"): the larger of the bytes over the
     card's memory rate and the operations over its peak rate for their type
-    (f32, and f64 where the kernel computes in double)."""
+    (f32, and f64 where the kernel computes in double, on the CUDA cores;
+    int8 on the tensor cores, which run beside them)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (n_ops / F32_OPS_PER_S + n_f64_ops / F64_OPS_PER_S) * 1e3
+    t_ops = max((n_ops / F32_OPS_PER_S + n_f64_ops / F64_OPS_PER_S) * 1e3,
+                n_int8_ops / INT8_OPS_PER_S * 1e3)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2220,11 +2230,16 @@ def check_full_width(fl: dict) -> tuple:
 
     n_obs = int(((m.kf.mp_idx >= 0) & m.kf.fvalid & m.kf.valid[:, None]).sum())
     pairs = int(Wk.sum())
-    info["covis_matrix"] = dict(equal=True, observations=n_obs, pairs=pairs,
+    n_live = int(m.kf.valid.sum())
+    # Bytes any count must move: the N validity flags, the live rows'
+    # observations (index and flag, 5 bytes each) and W written once; the
+    # earlier count read all N rows' observations (N F 5 bytes).
+    cm_bytes = N + n_live * F * 5 + N * N * 4
+    cm_ops = 2 * n_obs + pairs
+    info["covis_matrix"] = dict(equal=True, observations=n_obs, pairs=pairs, live=n_live,
+                                bound_all_rows=bound_ms(N * F * 5 + N + N * N * 4, cm_ops),
                                 library_equal=bool(torch.equal(library_covis().float().round()
                                                                .to(torch.int32), Wk)))
-    cm_bytes = N * F * 5 + N + N * N * 4
-    cm_ops = 2 * n_obs + pairs
     rows.append(dict(name="covis_matrix", max_abs_err=0.0, bound=bound_ms(cm_bytes, cm_ops),
                      fns=(lambda: covis.covis_matrix(m), lambda: covis.covis_matrix_plain(m),
                           library_covis, 3)))
@@ -2825,9 +2840,21 @@ def kmajority_library(bits_pm: torch.Tensor, bits01: torch.Tensor, init01: torch
 
 def km_bound(N: int, W: int, cand: int, n_iters: int):
     """K14's bound: the descriptors and initial centres read once, centres,
-    counts and idf written once; per iteration each descriptor's XOR,
-    popcount and sum over 8 words with `cand` centres (24 operations each),
-    its vote (256) and the majority of W x 256 tallies."""
+    counts and idf written once; per iteration each descriptor's inner
+    products with `cand` centres as the int8 product (256 multiply-adds,
+    512 operations, each) on the tensor cores and, on the CUDA cores, the
+    argmin (one comparison a centre), its vote (256) and the majority of
+    W x 256 tallies."""
+    return bound_ms(N * 32 + W * 32 + W * 32 + W * 4 + W * 4,
+                    n_iters * (N * cand + N * 256 + W * 256 * 2),
+                    n_int8_ops=n_iters * N * cand * 512)
+
+
+def km_bound_cuda_cores(N: int, W: int, cand: int, n_iters: int):
+    """K14's bound with every distance on the CUDA cores (XOR, popcount and
+    sum over 8 words: 24 operations a centre), the count of the kernel
+    before its tensor-core product, kept beside `km_bound` to compare with
+    the rows measured then."""
     return bound_ms(N * 32 + W * 32 + W * 32 + W * 4 + W * 4,
                     n_iters * (N * cand * 24 + N * 256 + W * 256 * 2))
 
@@ -2856,6 +2883,120 @@ def same_km(desc, init, n_iters, name, group=None, block=0, weight=None) -> dict
     return out
 
 
+def km_edge_inputs(dev) -> dict:
+    """K14 at its edges, {name: (desc, init, n_iters, weight, group, block)},
+    made with numpy from seed 13: one row; N and W off every tile width
+    (16 rows, 8 centres, 1024 staged centres: two staging passes); a row
+    equidistant from two centres in different staging passes and a row
+    equidistant from two centres in one tile of 8 (the first must win), a
+    centre repeated in the second pass (never chosen); every row identical
+    (one centre takes all N, walked in many items); most centres empty;
+    row weights 0-2; level 2 with blocks of 4 and a block without members,
+    and with row weights 0-2; a corpus with more tiles of 16 rows than the
+    grid has warps (a warp a tile) against more centres than one staging
+    pass and the one-phase scan take (5003: five passes, the last partial,
+    each row's key kept between them; the two-phase scan)."""
+    rng = np.random.default_rng(13)
+
+    def rows(n):
+        return torch.from_numpy(rng.integers(0, 256, (n, 32), dtype=np.uint8)).to(dev)
+
+    def packed(bits):
+        return torch.from_numpy(np.packbits(bits, axis=-1, bitorder="little")).to(dev)
+
+    out = dict(one_row=(rows(1), rows(7), 3, None, None, 0),
+               ragged=(rows(1013), rows(77), 4, None, None, 0),
+               two_passes=(rows(3001), rows(1100), 3, None, None, 0))
+    init = rng.integers(0, 2, (1100, 256), dtype=np.uint8)
+    init[1030] = init[5]                     # a repeat in the second pass: 5 wins
+    init[1027] = init[3]
+    init[1027, :2] = 1 - init[3, :2]         # 3 and 1027 two bits apart
+    init[12] = init[9]
+    init[12, 100:102] = 1 - init[9, 100:102]  # 9 and 12 two bits apart, one tile of 8
+    desc = rng.integers(0, 2, (600, 256), dtype=np.uint8)
+    desc[0] = init[3]
+    desc[0, 0] = 1 - desc[0, 0]              # one bit from 3, one from 1027
+    desc[1] = init[9]
+    desc[1, 100] = 1 - desc[1, 100]          # one bit from 9, one from 12
+    desc[2] = init[5]
+    out["ties"] = (packed(desc), packed(init), 1, None, None, 0)
+    out["identical"] = (rows(1).repeat(100000, 1).contiguous(), rows(64), 3, None, None, 0)
+    out["mostly_empty"] = (rows(40), rows(1024), 3, None, None, 0)
+    w = torch.from_numpy(rng.integers(0, 3, 5000).astype(np.int32)).to(dev)
+    out["zero_weights"] = (rows(5000), rows(256), 4, w, None, 0)
+    grp = torch.from_numpy(rng.integers(0, 7, 700).astype(np.int32)).to(dev)
+    out["level2_empty_block"] = (rows(700), rows(32), 4, None, grp, 4)
+    w = torch.from_numpy(rng.integers(0, 3, 700).astype(np.int32)).to(dev)
+    out["level2_weights"] = (rows(700), rows(32), 4, w, grp, 4)
+    out["wide"] = (rows(40000), rows(5003), 2, None, None, 0)
+    return out
+
+
+def km_edges(dev) -> dict:
+    """K14 exact against its plain version at each of `km_edge_inputs`, and
+    the flat assignment (`assign_flat`, the final-assignment launch) on the
+    flat ones; the tie rows must take the first of their two centres."""
+    info = {}
+    for name, (desc, init, it, w, grp, B) in km_edge_inputs(dev).items():
+        info[name] = same_km(desc, init, it, name, group=grp, block=B, weight=w)
+        if grp is None:
+            ak, ap = vocab.assign_flat(desc, init), vocab.assign_flat_plain(desc, init)
+            require(torch.equal(ak, ap), f"assign_flat ({name}): kernel and plain differ")
+            if name == "ties":
+                require(ak[:3].tolist() == [3, 9, 5], f"ties: {ak[:3].tolist()}")
+    return info
+
+
+def covis_edge_maps(dev) -> dict:
+    """B17 at its edges, maps of 48 keyframe rows x 64 features x 256
+    points made with numpy from seed 17: no live keyframe; one; a keyframe
+    observing one point twice; a point with 40 observers (beyond the 16
+    kept inline); stale point ids on dead rows and invalid features; and 8
+    rows of `COVIS_MAX_FEATURES` features over 40 000 points."""
+    rng = np.random.default_rng(17)
+    N, F, M = 48, 64, 256
+    base = ms.empty(CapacityConfig(max_keyframes=N, max_map_points=M, max_features=F,
+                                   local_window_kfs=8, local_window_mps=64), dev)
+
+    def make(mp_idx, fvalid, valid):
+        t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)  # noqa: E731
+        return base._replace(kf=base.kf._replace(mp_idx=t(mp_idx, np.int32),
+                                                 fvalid=t(fvalid, np.bool_),
+                                                 valid=t(valid, np.bool_)))
+
+    idx = rng.integers(-1, M, (N, F))
+    fv = rng.random((N, F)) < 0.9
+    live = rng.random(N) < 0.5
+    out = dict(no_live=make(idx, fv, np.zeros(N, bool)),
+               one_live=make(idx, fv, np.arange(N) == 7))
+    twice = idx.copy()
+    twice[3, 10:20] = 42                     # row 3 observes point 42 ten times
+    out["observed_twice"] = make(twice, np.ones((N, F), bool), live | (np.arange(N) == 3))
+    many = idx.copy()
+    many[:40, 5] = 99                        # point 99 in 40 rows
+    out["forty_observers"] = make(many, np.ones((N, F), bool), np.arange(N) < 44)
+    stale = idx.copy()
+    stale[~live] = 7                         # dead rows all point at 7
+    stale[:, 0] = np.where(fv[:, 0], stale[:, 0], 200)
+    out["stale_rows"] = make(stale, fv, live)
+    # Rows of the most features the count takes (its largest hash set).
+    Fw, Mw = covis.COVIS_MAX_FEATURES, 40000
+    wide = ms.empty(CapacityConfig(max_keyframes=8, max_map_points=Mw, max_features=Fw,
+                                   local_window_kfs=8, local_window_mps=64), dev)
+    t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)  # noqa: E731
+    out["widest_rows"] = wide._replace(kf=wide.kf._replace(
+        mp_idx=t(rng.integers(-1, Mw, (8, Fw)), np.int32),
+        fvalid=t(rng.random((8, Fw)) < 0.9, np.bool_), valid=t(np.arange(8) != 2, np.bool_)))
+    return out
+
+
+def same_covis(m, name: str) -> dict:
+    """B17 exact against its plain version on map m."""
+    Wk, Wp = covis.covis_matrix(m), covis.covis_matrix_plain(m)
+    require(torch.equal(Wk, Wp), f"covis_matrix ({name}): kernel and plain differ")
+    return dict(live=int(m.kf.valid.sum()), pairs=int(Wk.sum()), max=int(Wk.max()))
+
+
 def check_e2e_kernels(ep: dict) -> tuple:
     """K14 on the stereo run's training corpus with the run's own initial
     rows (its centres must be the run's vocabulary), and K8 on the run's
@@ -2877,6 +3018,7 @@ def check_e2e_kernels(ep: dict) -> tuple:
     lib = kmajority_library(bits_pm, bits01, init01, it)
     info["train"]["library_equal"] = bool(torch.equal(
         descriptors.pack_bits(lib.to(torch.uint8)), vocab.kmajority(corpus, init, it)[0]))
+    info["train"]["bound_cuda_cores"] = km_bound_cuda_cores(N, W, W, it)
     rows = [dict(name="kmajority", max_abs_err=info["train"]["idf"], bound=km_bound(N, W, W, it),
                  fns=(lambda: vocab.idf_of(vocab.kmajority(corpus, init, it)[1]),
                       lambda: vocab.idf_plain(vocab.kmajority_plain(corpus, init, it)[1]),
@@ -3017,6 +3159,7 @@ def check_bench_gba() -> tuple:
 
 
 FULL_CORPUS_FRAMES = 120  # the bench trajectory leaves the plane's texture near frame 110
+CHUNKED_WORDS = 32768  # train_chunked's default vocabulary width
 
 
 def check_full_width_training(te) -> tuple:
@@ -3026,9 +3169,10 @@ def check_full_width_training(te) -> tuple:
     iterations a level, with K14 and with the plain version on the card from
     the same level-1 rows (the plain hierarchy composed from the plain
     pieces): level-1 centres, the grouping, words, child table and idf
-    exact; `build_tree` over the shipped vocab32k's 32768 words (G 1024, 8
-    iterations): its groups exact. Rows for level 1, level 2 and the tree's
-    k-majority."""
+    exact; `train_chunked` at 32768 words over the corpus (2 iterations):
+    words and idf exact; `build_tree` over the shipped vocab32k's 32768
+    words (G 1024, 8 iterations): its groups exact. Rows for level 1, level
+    2 and the tree's k-majority."""
     dev = te.world.device
     t0 = time.perf_counter()
     descs = []
@@ -3065,6 +3209,14 @@ def check_full_width_training(te) -> tuple:
     require(all(eq.values()), f"train_hierarchical: kernel and plain differ {eq}")
     info["hierarchical_launches"] = launches_of(
         lambda: vocab.train_hierarchical(corpus, G, B, it, init_idx=idx))
+    # train_chunked at its default width over the same corpus, 2 iterations:
+    # a warp a tile of 16 rows and 32 staging passes of the centres.
+    cidx = vocab._draw(N, CHUNKED_WORDS, 3, dev, None)
+    ck = vocab.train_chunked(corpus, CHUNKED_WORDS, 2, init_idx=cidx)
+    cw_p, cc_p = vocab.kmajority_plain(corpus, corpus[cidx].contiguous(), 2, chunk=8192)
+    eq = dict(words=torch.equal(ck.words, cw_p), idf=torch.equal(ck.idf, vocab.idf_plain(cc_p)))
+    info["train_chunked"] = dict(equal=eq, words=CHUNKED_WORDS, empty=int((cc_p == 0).sum()))
+    require(all(eq.values()), f"train_chunked: kernel and plain differ {eq}")
     base = vocab.load_default(dev)
     flat = vocab.Vocabulary(base.words, base.idf)
     words = flat.words
@@ -3083,6 +3235,9 @@ def check_full_width_training(te) -> tuple:
     info["level1"] = same_km(corpus, init1, it, "level 1")
     info["level2"] = same_km(corpus, init2, it, "level 2", group=grp_k, block=B)
     info["tree_km"] = same_km(words, tinit, it, "build_tree")
+    for k, (n, w, cand) in (("level1", (N, G, G)), ("level2", (N, G * B, B)),
+                            ("tree_km", (words.shape[0], G, G))):
+        info[k]["bound_cuda_cores"] = km_bound_cuda_cores(n, w, cand, it)
     bits01 = descriptors.unpack_bits(corpus).to(torch.int32)
     bits_pm = (2 * bits01 - 1).to(torch.float16)
     g01 = descriptors.unpack_bits(init1).to(torch.float16)
@@ -3377,6 +3532,12 @@ def main() -> int:
     print(f"K12 edge cases: {json.dumps(sinfo['two_view_edges'])}", flush=True)
     phase("kernels_k12_k13")
     erows, einfo = check_e2e_kernels(e2e["stereo"])
+    for run in ("stereo", "laps"):
+        einfo[f"covis_{run}"] = same_covis(e2e[run]["client"].tracker.map, f"e2e {run} map")
+    einfo["km_edges"] = km_edges(dev)
+    print(f"K14 edge cases: {json.dumps(einfo['km_edges'])}", flush=True)
+    einfo["covis_edges"] = {k: same_covis(m, k) for k, m in covis_edge_maps(dev).items()}
+    print(f"B17 edge cases: {json.dumps(einfo['covis_edges'])}", flush=True)
     print(f"e2e kernel checks (K14 training, K8 at the first GBA chunk): {json.dumps(einfo)}",
           flush=True)
     brows, binfo = check_full_width_training(te)

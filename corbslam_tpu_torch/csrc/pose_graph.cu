@@ -13,8 +13,9 @@
 // 20 x (E x 14 dual evaluations, ~2 KFLOP each) plus 800 CG passes over E
 // edges of 2 x 49 MACs: ~1 GFLOP and a few MB, a millisecond of the card's
 // arithmetic, while every CG pass depends on the previous one through two
-// dot products. The covisibility count is bound by bytes: one read of the
-// [N, F] observation table and one write of the [N, N] counts.
+// dot products. The covisibility count is bound by bytes: the N validity
+// flags, one read of the live rows' observations (5 bytes each) and one
+// write of the [N, N] counts, which dominates.
 // Design: `pg_optimize` is one cooperative launch for the whole of
 // `optimize` (cudaLaunchCooperativeKernel, one 256-thread CTA on each SM,
 // grid.sync() between dependent phases). Each CTA owns a contiguous range
@@ -45,10 +46,22 @@
 // add nothing, and a fixed vertex's gradient, direction and product are
 // exactly 0 (the reference multiplies them by its free mask), so its block
 // is neither built nor inverted. `pg_linearize` runs the same linearization
-// alone (`linearize_edges`). The covisibility count groups each point's
-// observers (count, exclusive scan, fill), sorts each point's list in place
-// and adds one per distinct observer pair with an integer atomic: exact in
-// any order, and no [N, M] matrix.
+// alone (`linearize_edges`).
+// The covisibility count is two launches and no [N, M] matrix, each a
+// 1024-thread CTA a row (two on each SM). `covis_push`: a live keyframe
+// (dead rows are never read) keeps, by a hash set of its points in shared
+// memory, one of its observations of each point, whose row is appended to
+// the point's observer list (an integer atomic a point gives its slot: the
+// first 16 slots inline, the rest on a chain) and whose first observer
+// records the point as touched. `covis_rows`: a live row adds, for each of
+// its distinct points, one to its shared-memory count of every other
+// observer of that point (one atomic a distinct row a warp,
+// __match_any_sync), its own count of distinct points is the diagonal,
+// and it writes its row of W once; a dead row writes zeros, so W needs no
+// fill and each entry is written once. The
+// last CTA (an atomic ticket) clears the touched points' counts and
+// chains, which stay zero from call to call. Integer counts: exact in any
+// order.
 
 #include <cooperative_groups.h>
 
@@ -583,46 +596,200 @@ __global__ void __launch_bounds__(OPT_THREADS, 1) pg_optimize_kernel(OptArgs A) 
     }
 }
 
-// Covisibility count: observers per point.
-__global__ void covis_count_kernel(const int* mp_idx, const bool* fvalid, const bool* kvalid,
-                                   int N, int F, int M, int* cnt) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= N * F) return;
-    const int p = mp_idx[i];
-    if (p >= 0 && p < M && fvalid[i] && kvalid[i / F]) atomicAdd(&cnt[p], 1);
-}
+// Covisibility count (`covis_push`, `covis_rows`).
+constexpr int COV_THREADS = 1024;
+constexpr int COV_INLINE = 16;  // observers of a point kept inline; the rest chained
 
-__global__ void covis_fill_kernel(const int* mp_idx, const bool* fvalid, const bool* kvalid,
-                                  int N, int F, int M, const int* offs, int* cursor, int* lists) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= N * F) return;
-    const int p = mp_idx[i];
-    if (p >= 0 && p < M && fvalid[i] && kvalid[i / F])
-        lists[offs[p] + atomicAdd(&cursor[p], 1)] = i / F;
-}
+struct CovArgs {
+    const int* mp_idx;  // [N, F]
+    const bool* fvalid; // [N, F]
+    const bool* kvalid; // [N]
+    int N, F, M, log2_table;
+    int* cnt;           // [M] observers of each point (workspace: zero between calls)
+    int* head;          // [M] chain head + 1 of its overflow observers (workspace)
+    int* ctl;           // [2] touched points, CTA ticket (workspace)
+    int* inl;           // [M, COV_INLINE] the first observers' rows
+    int* nxt;           // [N F] the next chained observation + 1
+    uint8_t* first;     // [N F] the observation that stands for its (row, point)
+    int* touched;       // [min(M, N F)] points with an observer
+    int* W;             // [N, N]
+};
 
-// One thread per point: sort its observers, then one count per distinct pair.
-__global__ void covis_pairs_kernel(const int* offs, int* lists, int M, int N, int* W) {
-    const int p = blockIdx.x * blockDim.x + threadIdx.x;
-    if (p >= M) return;
-    const int lo = offs[p], hi = offs[p + 1];
-    for (int i = lo + 1; i < hi; ++i) {
-        const int x = lists[i];
-        int j = i - 1;
-        while (j >= lo && lists[j] > x) {
-            lists[j + 1] = lists[j];
-            --j;
-        }
-        lists[j + 1] = x;
+// One observation of a live row: its point when valid and the first of the
+// row's observations of it (the row's hash set), else -1.
+__device__ __forceinline__ int first_point(const CovArgs& a, int* table, int T, int p, bool ok) {
+    if (!ok || p < 0 || p >= a.M) return -1;
+    unsigned h = ((unsigned)p * 2654435761u) >> (32 - a.log2_table);
+    while (true) {
+        const int old = atomicCAS(table + h, 0, p + 1);
+        if (old == 0) return p;
+        if (old == p + 1) return -1;
+        h = (h + 1) & (T - 1);
     }
-    for (int i = lo; i < hi; ++i) {
-        const int a = lists[i];
-        if (i > lo && lists[i - 1] == a) continue;
-        for (int j = lo; j < hi; ++j) {
-            const int b = lists[j];
-            if (j > lo && lists[j - 1] == b) continue;
-            atomicAdd(&W[(size_t)a * N + b], 1);
+}
+
+// Push: live row r's distinct points onto their observer lists. Each
+// thread takes observations f and f + COV_THREADS of a round of
+// 2 COV_THREADS: both loads first, then both slots, then one range of the
+// touched list for the round's new points.
+__device__ void push_row(const CovArgs& a, int r, int* table, int* s_new, int* s_base) {
+    const int T = 1 << a.log2_table;
+    for (int i = threadIdx.x; i < T; i += COV_THREADS) table[i] = 0;
+    if (threadIdx.x == 0) *s_new = 0;
+    __syncthreads();
+    for (int f0 = 0; f0 < a.F; f0 += 2 * COV_THREADS) {
+        int o[2], p[2], local[2] = {-1, -1};
+        bool ok[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+            const int f = f0 + u * COV_THREADS + threadIdx.x;
+            o[u] = r * a.F + f;
+            ok[u] = f < a.F && a.fvalid[o[u]];
+            p[u] = f < a.F ? a.mp_idx[o[u]] : -1;
         }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+            const int f = f0 + u * COV_THREADS + threadIdx.x;
+            p[u] = first_point(a, table, T, p[u], ok[u]);
+            if (f < a.F) a.first[o[u]] = p[u] >= 0;
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+            if (p[u] < 0) continue;
+            const int slot = atomicAdd(a.cnt + p[u], 1);
+            if (slot == 0) local[u] = atomicAdd(s_new, 1);
+            if (slot < COV_INLINE) a.inl[(size_t)p[u] * COV_INLINE + slot] = r;
+            else a.nxt[o[u]] = atomicExch(a.head + p[u], o[u] + 1);
+        }
+        __syncthreads();  // the round's new points: one range of the touched list
+        if (threadIdx.x == 0) {
+            *s_base = *s_new ? atomicAdd(a.ctl, *s_new) : 0;
+            *s_new = 0;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+            if (local[u] >= 0) a.touched[*s_base + local[u]] = p[u];
+    }
+    __syncthreads();
+}
+
+// Row r of W from the observer lists: for each of its distinct points, one
+// to its shared-memory count of every other observer (one atomic a
+// distinct row a warp); its own count of distinct points on the diagonal.
+__device__ void count_row(const CovArgs& a, int r, int* acc, int* s_self) {
+    const int N = a.N, lane = threadIdx.x & 31;
+    for (int j = threadIdx.x; j < N; j += COV_THREADS) acc[j] = 0;
+    if (threadIdx.x == 0) *s_self = 0;
+    __syncthreads();
+    int own = 0;
+    for (int f0 = 0; f0 < a.F; f0 += 2 * COV_THREADS) {
+        // Two observations a thread, every load of both issued first: the
+        // flag and point, then the point's count and inline observers.
+        bool fi[2];
+        int p[2], k[2] = {0, 0};
+        int4 v[2][COV_INLINE / 4] = {};
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+            const int f = f0 + u * COV_THREADS + threadIdx.x, o = r * a.F + f;
+            fi[u] = f < a.F && __ldcg(a.first + o);
+            p[u] = f < a.F ? a.mp_idx[o] : 0;
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+            if (!fi[u]) continue;
+            const int4* q = reinterpret_cast<const int4*>(a.inl + (size_t)p[u] * COV_INLINE);
+#pragma unroll
+            for (int i = 0; i < COV_INLINE / 4; ++i) v[u][i] = __ldcg(q + i);
+            k[u] = __ldcg(a.cnt + p[u]);
+            ++own;
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+            const int kk = min(k[u], COV_INLINE), kmax = __reduce_max_sync(0xffffffffu, kk);
+#pragma unroll
+            for (int s = 0; s < COV_INLINE; ++s) {
+                if (s >= kmax) break;
+                const int4 w4 = v[u][s / 4];
+                int j = (s & 3) == 0 ? w4.x : (s & 3) == 1 ? w4.y : (s & 3) == 2 ? w4.z : w4.w;
+                if (s >= kk || j == r) j = -1;
+                const unsigned act = __ballot_sync(0xffffffffu, j >= 0);
+                if (j >= 0) {
+                    const unsigned peers = __match_any_sync(act, j);
+                    if (lane == __ffs(peers) - 1) atomicAdd(acc + j, __popc(peers));
+                }
+            }
+            // The chained observers, k - COV_INLINE of them.
+            for (int c = k[u] > COV_INLINE ? __ldcg(a.head + p[u]) : 0, left = k[u] - COV_INLINE;
+                 c != 0 && left > 0; c = __ldcg(a.nxt + c - 1), --left)
+                if ((c - 1) / a.F != r) atomicAdd(acc + (c - 1) / a.F, 1);
+        }
+    }
+    own = __reduce_add_sync(0xffffffffu, own);
+    if (lane == 0 && own) atomicAdd(s_self, own);
+    __syncthreads();
+    int* out = a.W + (size_t)r * N;
+    for (int j = threadIdx.x; j < N; j += COV_THREADS) out[j] = j == r ? *s_self : acc[j];
+    __syncthreads();
+}
+
+// The validity of the CTA's rows blockIdx.x + k gridDim.x, all loaded at once.
+__device__ __forceinline__ void load_rows_valid(const CovArgs& a, bool* v) {
+    for (int k = threadIdx.x; blockIdx.x + k * gridDim.x < (unsigned)a.N; k += COV_THREADS)
+        v[k] = a.kvalid[blockIdx.x + k * gridDim.x];
+    __syncthreads();
+}
+
+// Launch 1: a CTA a live row, pushed.
+__global__ void __launch_bounds__(COV_THREADS) covis_push_kernel(CovArgs a) {
+    extern __shared__ int table[];  // the row's hash set; row flags
+    __shared__ int s_new, s_base;
+    bool* valid = reinterpret_cast<bool*>(table + (1 << a.log2_table));
+    load_rows_valid(a, valid);
+    for (int r = blockIdx.x, k = 0; r < a.N; r += gridDim.x, ++k)
+        if (valid[k]) push_row(a, r, table, &s_new, &s_base);
+}
+
+// Launch 2: a CTA a row: a live row counted, a dead row zeros; the last
+// CTA (an atomic ticket) clears the touched points, so the next call
+// starts from zero.
+__global__ void __launch_bounds__(COV_THREADS) covis_rows_kernel(CovArgs a) {
+    extern __shared__ int acc[];  // [N] a row's counts; row flags
+    __shared__ int s_self;
+    __shared__ bool last;
+    const int N = a.N;
+    bool* valid = reinterpret_cast<bool*>(acc + N);
+    load_rows_valid(a, valid);
+    for (int r = blockIdx.x, k = 0; r < N; r += gridDim.x, ++k) {
+        if (valid[k]) {
+            count_row(a, r, acc, &s_self);
+            continue;
+        }
+        int* out = a.W + (size_t)r * N;  // a dead row: zeros
+        if ((N & 3) == 0)
+            for (int j = threadIdx.x; j < N / 4; j += COV_THREADS)
+                reinterpret_cast<int4*>(out)[j] = make_int4(0, 0, 0, 0);
+        else
+            for (int j = threadIdx.x; j < N; j += COV_THREADS) out[j] = 0;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        __threadfence();
+        last = atomicAdd(a.ctl + 1, 1) == (int)gridDim.x - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    const int n = __ldcg(a.ctl);
+    for (int i = threadIdx.x; i < n; i += COV_THREADS) {
+        const int p = __ldcg(a.touched + i);
+        a.cnt[p] = 0;
+        a.head[p] = 0;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        a.ctl[0] = 0;
+        a.ctl[1] = 0;
     }
 }
 
@@ -706,21 +873,66 @@ C_ENTRY int pg_optimize(float* R, float* t, float* s, const bool* fixed, int N, 
                                             dim3(OPT_THREADS), args, smem, stream);
 }
 
-C_ENTRY int covis_count(const int* mp_idx, const bool* fvalid, const bool* kvalid, int N, int F,
-                        int M, int* cnt, cudaStream_t stream) {
-    covis_count_kernel<<<(N * F + 255) / 256, 256, 0, stream>>>(mp_idx, fvalid, kvalid, N, F, M,
-                                                                cnt);
-    return (int)cudaGetLastError();
+// The covisibility count's state: work [2 M + 2] ints (zero between calls;
+// the launches leave it so), scratch at least
+// `covisibility.covis_scratch_ints` ints.
+static CovArgs covis_args(const int* mp_idx, const bool* fvalid, const bool* kvalid, int N, int F,
+                          int M, int* work, int* scratch, int* W) {
+    CovArgs a;
+    a.mp_idx = mp_idx; a.fvalid = fvalid; a.kvalid = kvalid; a.N = N; a.F = F; a.M = M;
+    int lt = 6;
+    while ((1 << lt) < 2 * F) ++lt;
+    a.log2_table = lt;
+    a.cnt = work;
+    a.head = work + M;
+    a.ctl = work + 2 * (size_t)M;
+    const size_t nf = (size_t)N * F;
+    a.inl = scratch;
+    a.nxt = scratch + (size_t)M * COV_INLINE;
+    a.touched = a.nxt + nf;
+    a.first = reinterpret_cast<uint8_t*>(a.touched + (nf < (size_t)M ? nf : (size_t)M));
+    a.W = W;
+    return a;
 }
 
-C_ENTRY int covis_fill(const int* mp_idx, const bool* fvalid, const bool* kvalid, int N, int F,
-                       int M, const int* offs, int* cursor, int* lists, cudaStream_t stream) {
-    covis_fill_kernel<<<(N * F + 255) / 256, 256, 0, stream>>>(mp_idx, fvalid, kvalid, N, F, M,
-                                                               offs, cursor, lists);
-    return (int)cudaGetLastError();
+static int covis_grid(int N) {
+    static int sms = 0;
+    if (sms == 0) {
+        int dev = 0;
+        if (cudaGetDevice(&dev) != cudaSuccess ||
+            cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+            sms = 132;
+    }
+    return N < 2 * sms ? N : 2 * sms;
 }
 
-C_ENTRY int covis_pairs(const int* offs, int* lists, int M, int N, int* W, cudaStream_t stream) {
-    covis_pairs_kernel<<<(M + 255) / 256, 256, 0, stream>>>(offs, lists, M, N, W);
-    return (int)cudaGetLastError();
+static int covis_launch(const void* kernel, const CovArgs& a, size_t smem, cudaStream_t stream) {
+    cudaError_t e = cudaSuccess;
+    if (smem > 48 * 1024)
+        e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    void* args[] = {(void*)&a};
+    e = cudaLaunchKernel(kernel, dim3(covis_grid(a.N)), dim3(COV_THREADS), args, smem, stream);
+    return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// Launch 1: each live row's distinct points onto their observer lists.
+C_ENTRY int covis_push(const int* mp_idx, const bool* fvalid, const bool* kvalid, int N, int F,
+                       int M, int* work, int* scratch, int* W, cudaStream_t stream) {
+    if (N <= 0) return 0;
+    const CovArgs a = covis_args(mp_idx, fvalid, kvalid, N, F, M, work, scratch, W);
+    const int grid = covis_grid(N);
+    return covis_launch((const void*)covis_push_kernel, a,
+                        (sizeof(int) << a.log2_table) + (N + grid - 1) / grid, stream);
+}
+
+// Launch 2: W [N, N], every entry written: the live rows from the observer
+// lists, the dead rows zeros; clears the state for the next call.
+C_ENTRY int covis_rows(const int* mp_idx, const bool* fvalid, const bool* kvalid, int N, int F,
+                       int M, int* work, int* scratch, int* W, cudaStream_t stream) {
+    if (N <= 0) return 0;
+    const CovArgs a = covis_args(mp_idx, fvalid, kvalid, N, F, M, work, scratch, W);
+    const int grid = covis_grid(N);
+    return covis_launch((const void*)covis_rows_kernel, a,
+                        sizeof(int) * (size_t)N + (N + grid - 1) / grid, stream);
 }

@@ -1,8 +1,8 @@
-"""K10's and K12's, K3's and K10's, K1's and K4's, K2's and K6's, K5's and K11's, K7's
-and K8's calls and launches, timed on the card.
+"""K14's and B17's, K10's and K12's, K3's and K10's, K1's and K4's, K2's and K6's, K5's
+and K11's, K7's and K8's calls and launches, timed on the card.
 
     python -m corbslam_tpu_torch.kernel_times [--out PATH]
-        [--parts k10k12,k3k10,k1k4,k6k2,k6sweep,k11k5,k7k8]
+        [--parts k14b17,k10k12,k3k10,k1k4,k6k2,k6sweep,k11k5,k7k8]
 
 Run from the root of a checkout (it drives the phases of `chip_smoke.py`
 there for its inputs): the tracking path (frame 12's K5 and K6 calls and
@@ -13,6 +13,18 @@ problem) and the e2e stereo lap (its first GBA chunk's problem); it keeps
 the tracker's and the 2.5-lap orbit's frame times (asynchronous global BA
 beside the tracker). `--parts` picks what to time (default all). Then:
 
+- K14 (`vocab.kmajority`) at its four shapes (`km_shapes`: the e2e
+  fixture's training, level 1 and level 2 of `train_hierarchical` on the
+  full-width corpus, `build_tree`'s k-majority over vocab32k): CUDA events
+  around back-to-back calls, launches a call, a hash of centres and counts,
+  torch.profiler by kernel name, and each launch alone as a replayed graph
+  summed by C entry (a call of several launches) or, for one cooperative
+  launch, its phases' `%globaltimer` split (`stamped`, a -DKERNEL_STAMPS
+  build); B17 (`covisibility.covis_matrix`) on the flagship's final map
+  with the loop closer: replayed graph, host-inclusive events, launches, a
+  hash of W, torch.profiler by kernel name, its fixed part (the map with
+  no live keyframe) and `torch.zeros` of W; the tracker's device time a
+  frame (k14b17);
 - K10's PnP RANSAC (`pnp.solve_pnp_ransac`) on `chip_smoke.check_full_width`'s
   set (`pnp_full_width`: the flagship's newest keyframe, F 2048, 256 draws
   of 6) and on the loop orbit's frame marked LOST against its first
@@ -107,6 +119,7 @@ from .mapstate import covisibility as covis
 from .matching import matcher
 from .ops import fast, pyramid
 from .optim import ba_dense, pose_graph, pose_opt
+from .place import vocab
 from .solvers import initializer, pnp, sim3_solver
 
 
@@ -757,6 +770,8 @@ NO_MATCHES = {"pnp_ransac": (4, 0)}
 # The phases that each kernel's `%globaltimer` stamps close (workspace
 # words 8.., a build with -DKERNEL_STAMPS), from the first CTA's start.
 STAMPS = {"pnp": ("dlt", "staged", "counted", "ticket", "end"),
+          # K14's are the summed durations of its phases (word 8 stays 0).
+          "kmajority": ("prologue", "assign", "scan", "scatter", "tally", "final"),
           "two_view": ("normalized", "hypotheses", "scored", "ticket", "refit_sums",
                        "refit_solved", "rescored", "candidates", "checked", "end")}
 
@@ -1008,13 +1023,120 @@ def time_k8(cam, pb, n_iters: int, cg: int, huber: int, graph_ms, counter="ba_de
                     lambda: ba_dense.build_point_major(pb.obs_mp, pb.obs_active, P, K, counter)))
 
 
+def full_width_corpus(cs, te) -> torch.Tensor:
+    """B16's full-width corpus: the valid descriptors of `build_frame_mono`
+    (2048 features) over both images of bench frames 0 ..
+    `chip_smoke.FULL_CORPUS_FRAMES` - 1 of the flagship world."""
+    descs = []
+    for i in range(cs.FULL_CORPUS_FRAMES):
+        for img in te.world.render_stereo(cs.gt_pose(i)):
+            f = frame_mod.build_frame_mono(img, te.cam, te.cfg.orb, device=te.world.device)
+            descs.append(f.desc[f.fvalid])
+    return torch.cat(descs).contiguous()
+
+
+def km_shapes(cs) -> dict:
+    """K14's four timed calls, {name: (desc, init, n_iters, group, block)},
+    with chip_smoke's draws: the e2e fixture's training (`entry.e2e_entry`'s
+    corpus x 1024 words x 6), level 1 and level 2 of `train_hierarchical`
+    on `full_width_corpus` (G 1024 x B 32, 8 iterations each) and
+    `build_tree`'s k-majority over vocab32k's 32768 words (G 1024 x 8)."""
+    from . import entry
+
+    dev = torch.device("cuda")
+    _, ee = entry.e2e_entry("stereo", "cuda")
+    e2e = ee.corpus
+    out = dict(e2e=(e2e, e2e[vocab._draw(e2e.shape[0], cs.E2E_WORDS, 0, dev, None)].contiguous(),
+                    cs.E2E_TRAIN_ITERS, None, 0))
+    big = full_width_corpus(cs, cs.track_entry("cuda"))
+    G, B, it = 1024, 32, 8
+    init1 = big[vocab._draw(big.shape[0], G, 0, dev, None)].contiguous()
+    out["level1"] = (big, init1, it, None, 0)
+    gb, _ = vocab.kmajority(big, init1, it)
+    grp = vocab.assign_flat(big, gb)
+    out["level2"] = (big, vocab.level2_init(big, gb, grp.cpu().numpy(), B, 0), it, grp, B)
+    words = vocab.load_default(dev).words
+    out["tree"] = (words, words[vocab._draw(words.shape[0], G, 101, dev, None)].contiguous(), it,
+                   None, 0)
+    return out
+
+
+def time_k14(cs, shapes: dict) -> dict:
+    """Each K14 call of `km_shapes`: CUDA events around back-to-back calls,
+    launches a call, a hash of its centres and counts, its device time by
+    kernel name (torch.profiler), and, where a call makes several launches,
+    each C entry's share (every launch alone as a replayed graph, summed by
+    entry) or else its phases' `%globaltimer` split (`stamped`)."""
+    out, stamp = {}, {}
+    for name, (desc, init, it, grp, B) in shapes.items():
+        call = lambda d=desc, i=init, n=it, g=grp, b=B: vocab.kmajority(d, i, n, group=g, block=b)  # noqa: E731
+        words, counts = call()
+        small = name == "e2e"
+        r = dict(N=desc.shape[0], W=init.shape[0], iters=it, block=B,
+                 events_ms=events_ms(call, 20 if small else 3),
+                 launches_per_call=cs.launches_of(call), outputs_hash=digest(words, counts),
+                 empty=int((counts == 0).sum()), max_count=int(counts.max()),
+                 profiler=device_per_frame(call, 5 if small else 2, top=None))
+        rec = recorded_launches(call)
+        if len(rec) > 1:
+            split = defaultdict(float)
+            for k, f in rec.items():
+                split[k.rstrip("0123456789").rstrip("_")] += cs.graph_ms(f, 100 if small else 5)
+            r["launch_split_ms"] = dict(split)
+        else:
+            stamp[name] = (call, "kmajority")
+        out[name] = r
+    if stamp:  # one cooperative launch a call: its phases by `%globaltimer`
+        out["stamps_us"] = stamped(stamp)
+    return out
+
+
+def time_b17(cs, m) -> dict:
+    """B17 (`covisibility.covis_matrix`) on map m: a replayed graph, host-
+    inclusive CUDA events, launches a call, a hash of the counts, and its
+    device time by kernel name (torch.profiler); its fixed part, the same
+    call on m with no live keyframe (replayed graph), and `torch.zeros` of
+    W, the write alone (replayed graph)."""
+    call = lambda: covis.covis_matrix(m)  # noqa: E731
+    w = call()
+    torch.cuda.synchronize()
+    obs = (m.kf.mp_idx >= 0) & m.kf.fvalid & m.kf.valid[:, None]
+    dead = m._replace(kf=m.kf._replace(valid=torch.zeros_like(m.kf.valid)))
+    N = m.kf.capacity
+    return dict(graph_ms=cs.graph_ms(call), host_ms=cs.host_ms(call),
+                no_live_rows_graph_ms=cs.graph_ms(lambda: covis.covis_matrix(dead)),
+                zeros_graph_ms=cs.graph_ms(
+                    lambda: torch.zeros(N, N, dtype=torch.int32, device=w.device)),
+                launches_per_call=cs.launches_of(call, "covis_matrix"), counts_hash=digest(w),
+                N=m.kf.capacity, F=m.kf.n_features, M=m.mp.capacity, live=int(m.kf.valid.sum()),
+                observations=int(obs.sum()), pairs=int(w.sum()),
+                profiler=device_per_frame(call, 20, top=None))
+
+
+def time_k14_b17(cs) -> dict:
+    """K14 at its four shapes (`time_k14`), B17 on the flagship's final map
+    with the loop closer (`time_b17`), and the tracker's device time a
+    frame."""
+    from . import profile_frame
+
+    out = dict(k14=time_k14(cs, km_shapes(cs)))
+    tp = cs.run_tracker_phase()
+    fl = cs.run_flagship_with_loop_closer(tp)
+    del tp
+    out["b17_flagship"] = time_b17(cs, fl["tracker"].map)
+    del fl
+    out["tracker_device"] = device_per_frame(profile_frame.tracker_frames(10), 10)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join("chiprun_out", "kernel_times.json"))
-    ap.add_argument("--parts", default="k10k12,k3k10,k1k4,k6k2,k6sweep,k11k5,k7k8",
-                    help="k10k12: K10's PnP RANSAC at full width and on the loop orbit's "
-                         "LOST frame, K12 on the mono bootstrap's attempt and a non-planar "
-                         "scene; "
+    ap.add_argument("--parts", default="k14b17,k10k12,k3k10,k1k4,k6k2,k6sweep,k11k5,k7k8",
+                    help="k14b17: K14 at the e2e, level-1, level-2 and build_tree shapes, B17 "
+                         "on the flagship's final map, the tracker's device time; k10k12: "
+                         "K10's PnP RANSAC at full width and on the loop orbit's LOST frame, "
+                         "K12 on the mono bootstrap's attempt and a non-planar scene; "
                          "k3k10: K3 on the entry pair, a Sim3 attempt at full width and on "
                          "the loop map, the tracker's device time and the loop orbit; "
                          "k1k4: K1 and K4 on the entry pair and the tracker's device time; "
@@ -1031,6 +1153,8 @@ def main() -> None:
     out = dict(nvidia_smi=cs.nvidia_smi_line(), device=torch.cuda.get_device_name(0))
     kernels.lib()
     dev = torch.device("cuda")
+    if "k14b17" in parts:
+        out.update(time_k14_b17(cs))
     if "k10k12" in parts:
         out.update(time_k10_k12(cs, os.path.splitext(args.out)[0] + "_k12.npz"))
     if "k3k10" in parts:

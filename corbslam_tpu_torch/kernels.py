@@ -42,9 +42,8 @@ NVCC_FLAGS = [
 # "pose_graph" or "covis_matrix" (the covisibility count); K4's RGB-D entry as
 # "rgbd_stereo"; K5's area-window mode (mono initialization) as "match_area"
 # and its epipolar-band mode (triangulation) as "match_band"; K12's as
-# "two_view", K13's as "triangulate"; K14's (and K9's assignments made while
-# training a vocabulary) as "kmajority"; K8's launches of global BA as
-# "ba_dense_gba".
+# "two_view", K13's as "triangulate"; K14's as "kmajority"; K8's launches
+# of global BA as "ba_dense_gba".
 LAUNCHES = {"pyramid": 0, "fast_cells": 0, "orb_describe": 0, "stereo_match": 0,
             "rgbd_stereo": 0, "match_masked": 0, "match_area": 0, "match_band": 0,
             "pose_opt": 0, "local_map": 0, "covisibility": 0, "ba_dense": 0, "vocab": 0,
@@ -100,17 +99,14 @@ _SIGNATURES = {
     "pg_linearize": [VP] * 8 + [I32] + [VP] * 2 + [VP],
     "pg_optimize": ([VP] * 4 + [I32] + [VP] * 6 + [I32] + [VP] * 2 + [I32] * 2 + [F32]
                     + [VP] * 2 + [I32] + [VP]),
-    "covis_count": [VP] * 3 + [I32] * 3 + [VP] + [VP],
-    "covis_fill": [VP] * 3 + [I32] * 3 + [VP] * 3 + [VP],
-    "covis_pairs": [VP, VP, I32, I32, VP] + [VP],
+    "covis_push": [VP] * 3 + [I32] * 3 + [VP] * 3 + [VP],
+    "covis_rows": [VP] * 3 + [I32] * 3 + [VP] * 3 + [VP],
     # two_view.cu
     "two_view": [VP] * 3 + [I32, VP, I32, F32, I32] + [F32] * 4 + [VP] * 9 + [VP],
     # triangulate.cu
     "tri_points": [VP] * 4 + [I32, I32] + [VP] * 4 + [F32] * 5 + [VP] * 5 + [VP],
     # kmajority.cu
-    "km_assign_block": [VP, I32, VP, VP, I32, VP] + [VP],
-    "km_vote": [VP, VP, VP, I32, I32, VP, VP] + [VP],
-    "km_majority": [VP, VP, I32, VP] + [VP],
+    "km_train": [VP] * 3 + [I32] * 4 + [VP] * 4 + [I32, VP] + [VP],
     "km_idf": [VP, I32, VP] + [VP],
 }
 

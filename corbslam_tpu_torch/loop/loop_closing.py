@@ -337,6 +337,8 @@ class LoopCloser:
         self.voc = voc
         self.device = voc.words.device
         sim3_solver.check_capacity(cfg.capacity.max_features, self.device)
+        covis.check_capacity(cfg.capacity.max_keyframes, cfg.capacity.max_features,
+                             self.device)
         self.fix_scale = fix_scale
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.stats = LoopCloserStats()

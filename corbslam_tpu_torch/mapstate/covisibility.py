@@ -311,30 +311,82 @@ def covis_matrix_plain(m: MapState, chunk: int = 8192) -> torch.Tensor:
     return W.to(torch.int32)
 
 
+COVIS_INLINE = 16  # observers of a point kept inline by K11's count (csrc/pose_graph.cu)
+# The count's shared memory (227 KB a CTA on the H100) holds a row of W in
+# `covis_rows` (4 N bytes) and a row's hash set of 2 F points, rounded up to
+# a power of two, in `covis_push`.
+COVIS_MAX_KEYFRAMES = 57344
+COVIS_MAX_FEATURES = 16384
+_COVIS_WORK: dict = {}
+
+
+def check_capacity(n_keyframes: int, n_features: int, device) -> None:
+    """Raises when the covisibility count's kernels cannot take a map of
+    `n_keyframes` rows of `n_features` on `device` (the plain version takes
+    any): the loop closer calls it at set-up with its map's capacity."""
+    if torch.device(device).type != "cuda":
+        return
+    if n_keyframes > COVIS_MAX_KEYFRAMES or n_features > COVIS_MAX_FEATURES:
+        raise ValueError(f"a map of {n_keyframes} keyframes x {n_features} features: the "
+                         f"covisibility count takes at most {COVIS_MAX_KEYFRAMES} x "
+                         f"{COVIS_MAX_FEATURES}")
+
+
+def covis_workspace(device, M: int, stream: int = 0) -> torch.Tensor:
+    """The covisibility count's per-point state for one stream: [2 M + 2]
+    int32 zeros (observer counts, chain heads, touched points, ticket), kept
+    from call to call (each call's last CTA clears what it touched), grown
+    when a map has more points, dropped when a launch fails."""
+    key = (torch.device(device), stream)
+    work = _COVIS_WORK.get(key)
+    if work is None or work.numel() < 2 * M + 2:
+        work = _COVIS_WORK[key] = torch.zeros(2 * M + 2, dtype=torch.int32, device=device)
+    return work
+
+
+def covis_scratch_ints(N: int, F: int, M: int) -> int:
+    """Ints of the count's scratch (`covis_args` in csrc/pose_graph.cu): the
+    inline observers [M, COVIS_INLINE], the chain [N F], the touched points
+    [min(M, N F)] and one byte an observation."""
+    nf = N * F
+    return M * COVIS_INLINE + nf + min(M, nf) + (nf + 3) // 4
+
+
 def covis_matrix(m: MapState) -> torch.Tensor:
     """[N, N] i32 covisibility weights (shared points). K11 on a CUDA map:
-    observers grouped per point, then one integer atomic per observer pair
-    (exact in any order); the plain version on a CPU map."""
+    two launches (`covis_push`: each live keyframe's distinct points onto
+    their observer lists; `covis_rows`: the live rows of W from those lists,
+    the dead rows' zeros), each entry written once, exact in any order; the
+    plain version on a CPU map."""
     idx = m.kf.mp_idx
     if not idx.is_cuda:
         if idx.device.type != "cpu":
             raise ValueError(f"unsupported device {idx.device}")
         return covis_matrix_plain(m)
-    N, F, M = m.kf.capacity, m.kf.n_features, m.mp.capacity
+    N, F = m.kf.capacity, m.kf.n_features
     dev = idx.device
     kernels.check(idx, "kf.mp_idx", torch.int32, (N, F), dev)
     kernels.check(m.kf.fvalid, "kf.fvalid", torch.bool, (N, F), dev)
     kernels.check(m.kf.valid, "kf.valid", torch.bool, (N,), dev)
+    check_capacity(N, F, dev)
+    return _covis_matrix_cuda(m)
+
+
+def _covis_matrix_cuda(m: MapState) -> torch.Tensor:
+    idx = m.kf.mp_idx
+    N, F, M, dev = m.kf.capacity, m.kf.n_features, m.mp.capacity, idx.device
     p = kernels.ptr
-    cnt = torch.zeros(M + 1, dtype=torch.int32, device=dev)
-    kernels.launch("covis_matrix", "covis_count", p(idx), p(m.kf.fvalid), p(m.kf.valid), N, F, M,
-                   p(cnt))
-    offs = torch.zeros(M + 1, dtype=torch.int32, device=dev)
-    offs[1:] = torch.cumsum(cnt[:M], 0)
-    cursor = torch.zeros(M, dtype=torch.int32, device=dev)
-    lists = torch.empty(N * F, dtype=torch.int32, device=dev)
-    kernels.launch("covis_matrix", "covis_fill", p(idx), p(m.kf.fvalid), p(m.kf.valid), N, F, M,
-                   p(offs), p(cursor), p(lists))
-    W = torch.zeros(N, N, dtype=torch.int32, device=dev)
-    kernels.launch("covis_matrix", "covis_pairs", p(offs), p(lists), M, N, p(W))
+    stream = kernels.stream()
+    work = covis_workspace(dev, M, stream)
+    scratch = torch.empty(covis_scratch_ints(N, F, M), dtype=torch.int32, device=dev)
+    W = torch.empty(N, N, dtype=torch.int32, device=dev)
+    args = (p(idx), p(m.kf.fvalid), p(m.kf.valid), N, F, M, p(work), p(scratch), p(W))
+    try:
+        kernels.launch("covis_matrix", "covis_push", *args)
+        kernels.launch("covis_matrix", "covis_rows", *args)
+    except Exception:
+        # covis_push may have filled the state that covis_rows clears: the
+        # next call makes a zeroed one.
+        _COVIS_WORK.pop((torch.device(dev), stream), None)
+        raise
     return W

@@ -23,8 +23,8 @@ and sets a centre bit where 2 ones > count (a tie gives 0); a centre with no
 descriptor keeps its bits. The idf comes from the last iteration's counts,
 taken against the centres before the last update. On a CUDA tensor
 `kmajority` runs the whole loop on the card with kernel K14
-(`csrc/kmajority.cu`, K9's flat assignment inside), with no host sync; on a
-CPU tensor `kmajority_plain`, which walks the corpus in chunks so that no
+(`csrc/kmajority.cu`: one cooperative launch a call, the assignment a
+tensor-core product), with no host sync; on a CPU tensor `kmajority_plain`, which walks the corpus in chunks so that no
 [N, W] distance matrix is ever whole. Trained centres are packed LSB-first
 like loaded ones, and `save` writes the reference's format (MSB-first), so
 the reference's `load` reads a vocabulary trained here.
@@ -69,10 +69,12 @@ def pack_lsb(bits: np.ndarray) -> np.ndarray:
     return np.packbits(np.asarray(bits, np.uint8), axis=-1, bitorder="little")
 
 
-def from_bits(word_bits, idf, group_bits=None, child_idx=None, device="cpu") -> Vocabulary:
+def from_bits(word_bits, idf, group_bits=None, child_idx=None, device="cuda") -> Vocabulary:
     """A Vocabulary on `device` from unpacked 0/1 centres [W, 256] (and the
-    tree's [G, 256] / [G, Cmax]), as the reference holds them."""
-    dev = torch.device(device)
+    tree's [G, 256] / [G, Cmax]), as the reference holds them. Like the
+    entry points, the loaders default to the card and raise without one;
+    pass device="cpu" for the plain path."""
+    dev = kernels.resolve_device(device)
     t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)  # noqa: E731
     return Vocabulary(
         t(pack_lsb(word_bits), np.uint8), t(idf, np.float32),
@@ -80,7 +82,7 @@ def from_bits(word_bits, idf, group_bits=None, child_idx=None, device="cpu") -> 
         None if child_idx is None else t(child_idx, np.int32))
 
 
-def load(path: str, device="cpu") -> Vocabulary:
+def load(path: str, device="cuda") -> Vocabulary:
     """The reference's artifact format (centres packed MSB-first)."""
     z = np.load(path)
     bits = np.unpackbits(z["word_bits_packed"], axis=1)[:, :256]
@@ -90,7 +92,7 @@ def load(path: str, device="cpu") -> Vocabulary:
     return from_bits(bits, z["idf"], device=device)
 
 
-def load_any(path: str, device="cpu") -> Vocabulary:
+def load_any(path: str, device="cuda") -> Vocabulary:
     """The packed artifact or a raw word_bits / idf npz."""
     z = np.load(path)
     if "word_bits_packed" in z:
@@ -104,7 +106,7 @@ def default_artifact_path() -> str:
         os.path.abspath(__file__)))), "assets", "vocab32k.npz")
 
 
-def load_default(device="cpu") -> Optional[Vocabulary]:
+def load_default(device="cuda") -> Optional[Vocabulary]:
     p = default_artifact_path()
     return load_any(p, device) if os.path.exists(p) else None
 
@@ -346,8 +348,20 @@ def idf_plain(counts: torch.Tensor) -> torch.Tensor:
     return torch.log(n_total / counts.to(torch.float32).clamp_min(1.0))
 
 
+KM_MAX_WORDS = 1 << 16  # centres of one K14 call, at most (MAX_W in csrc/kmajority.cu)
+
+
+def check_capacity(n_words: int, device) -> None:
+    """Raises when K14 cannot take `n_words` centres on `device` (the plain
+    version takes any number): the trainers call it before they touch the
+    corpus."""
+    if torch.device(device).type == "cuda" and n_words > KM_MAX_WORDS:
+        raise ValueError(f"{n_words} centres: K14 takes at most {KM_MAX_WORDS}")
+
+
 def _check_train(desc, init, weight, group, block, dev):
     N, W = desc.shape[0], init.shape[0]
+    check_capacity(W, dev)
     kernels.check(desc, "desc", torch.uint8, (N, 32), dev)
     kernels.check(init, "init", torch.uint8, (W, 32), dev)
     if weight is not None:
@@ -358,30 +372,51 @@ def _check_train(desc, init, weight, group, block, dev):
             raise ValueError(f"kmajority: block {block} does not divide {W} centres")
 
 
+def km_scratch_ints(N: int, W: int, G: int = 0) -> int:
+    """Ints of K14's scratch for N descriptors, W centres and G blocks (0:
+    flat), as `km_scratch` in csrc/kmajority.cu lays it out: the partial
+    sums of the centres of several tally items (257 ints a slot, N / 16 + 1
+    slots), the tally items (4 ints each, N / 32 + W + 1 of them),
+    per-centre and per-descriptor words, the scan's segment totals (3 ints
+    for each of at most 4096 CTAs), and level 2's grouping."""
+    n = (N // 16 + 1) * 257 + (N // 32 + W + 1) * 4 + 5 * W + 4 * N + 2 + 3 * 4096
+    if G:
+        n += G + 2 * (G + 1) + 2 * N + (N // 16 + G + 1)
+    return n
+
+
+def _km_train(desc, words, counts, n_iters, weight=None, group=None, block=0, assign_out=None):
+    """One `km_train` launch (K14): n_iters iterations on `words` in place,
+    the last counts into `counts`, the final assignment into `assign_out`."""
+    dev, N, W = desc.device, desc.shape[0], words.shape[0]
+    G = W // block if group is not None else 0
+    scratch = torch.empty(km_scratch_ints(N, W, G), dtype=torch.int32, device=dev)
+    stamps = kernels.workspace("kmajority", dev, kernels.stream(), kernels.STAMPED_WORDS)
+    p = kernels.ptr
+    opt = lambda t: None if t is None else p(t)  # noqa: E731
+    kernels.launch("kmajority", "km_train", p(desc), opt(weight), opt(group), N, W,
+                   block if group is not None else 0, n_iters, p(words), opt(counts),
+                   opt(assign_out), p(scratch), scratch.numel(), p(stamps))
+
+
 def kmajority(desc: torch.Tensor, init: torch.Tensor, n_iters: int,
               weight: Optional[torch.Tensor] = None, group: Optional[torch.Tensor] = None,
               block: int = 0):
     """Binary k-majority from the centres `init` [W, 32] (K14 on CUDA tensors,
-    `kmajority_plain` on CPU tensors): (centres, last iteration's counts)."""
+    `kmajority_plain` on CPU tensors): (centres, last iteration's counts).
+    On the card one launch a call (`km_train`, cooperative; W <= 65536);
+    `group` [N] must hold block ids in [0, W / block)."""
     if not _on_cuda(desc):
         return kmajority_plain(desc, init, n_iters, weight, group, block)
-    dev, N, W = desc.device, desc.shape[0], init.shape[0]
-    _check_train(desc, init, weight, group, block, dev)
+    _check_train(desc, init, weight, group, block, desc.device)
+    return _kmajority_cuda(desc, init, n_iters, weight, group, block)
+
+
+def _kmajority_cuda(desc, init, n_iters, weight=None, group=None, block=0):
     words = init.clone()
-    assign_ = torch.empty(N, dtype=torch.int32, device=dev)
-    ones = torch.empty(W, 256, dtype=torch.int32, device=dev)
-    counts = torch.zeros(W, dtype=torch.int32, device=dev)
-    p = kernels.ptr
-    wp = p(weight) if weight is not None else None
-    for _ in range(n_iters):
-        if group is None:
-            kernels.launch("kmajority", "vocab_assign", p(desc), N, p(words), W, None, 0, None,
-                           0, 0, p(assign_))
-        else:
-            kernels.launch("kmajority", "km_assign_block", p(desc), N, p(words), p(group), block,
-                           p(assign_))
-        kernels.launch("kmajority", "km_vote", p(desc), wp, p(assign_), N, W, p(ones), p(counts))
-        kernels.launch("kmajority", "km_majority", p(ones), p(counts), W, p(words))
+    counts = (torch.empty if n_iters > 0 else torch.zeros)(init.shape[0], dtype=torch.int32,
+                                                           device=desc.device)
+    _km_train(desc, words, counts, n_iters, weight, group, block)
     return words, counts
 
 
@@ -397,17 +432,20 @@ def idf_of(counts: torch.Tensor) -> torch.Tensor:
 
 
 def assign_flat(desc: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
-    """Nearest centre of every descriptor during training (K9's flat
-    assignment on the card, counted as "kmajority")."""
+    """Nearest centre of every descriptor during training (K14's assignment
+    on the card, one `km_train` launch with no iteration, counted as
+    "kmajority")."""
     if not _on_cuda(desc):
         return assign_flat_plain(desc, words)
     dev, N, W = desc.device, desc.shape[0], words.shape[0]
     kernels.check(desc, "desc", torch.uint8, (N, 32), dev)
     kernels.check(words, "words", torch.uint8, (W, 32), dev)
-    out = torch.empty(N, dtype=torch.int32, device=dev)
-    p = kernels.ptr
-    kernels.launch("kmajority", "vocab_assign", p(desc), N, p(words), W, None, 0, None, 0, 0,
-                   p(out))
+    return _assign_flat_cuda(desc, words)
+
+
+def _assign_flat_cuda(desc, words):
+    out = torch.empty(desc.shape[0], dtype=torch.int32, device=desc.device)
+    _km_train(desc, words, None, 0, assign_out=out)
     return out
 
 
@@ -438,6 +476,7 @@ def train(descriptors: torch.Tensor, n_words: int = 4096, n_iters: int = 10, see
     """A flat W-word vocabulary from packed descriptors [N, 32] u8, on their
     device (TemplatedVocabulary::create). The plain version walks `chunk`
     rows at a time; the card makes one pass over the corpus."""
+    check_capacity(n_words, descriptors.device)
     desc = descriptors.contiguous()
     km, idf_fn, _ = _trainer(desc, chunk)
     idx = _draw(desc.shape[0], n_words, seed, desc.device, init_idx)
@@ -480,6 +519,7 @@ def train_hierarchical(descriptors: torch.Tensor, n_groups: int = 1024,
     block; child block g is words [g B, (g + 1) B). `init_idx` are level 1's
     initial rows; the one host read is the level-1 grouping."""
     G, B = n_groups, words_per_group
+    check_capacity(G * B, descriptors.device)
     desc = descriptors.contiguous()
     km, idf_fn, assign_fn = _trainer(desc, chunk)
     dev = desc.device

@@ -197,7 +197,7 @@ def test_covis_matrix_and_spanning_parents_are_exact():
     m = covis_map(np.random.default_rng(2))
     pm = interop.map_from_numpy(m)
     W = covis.covis_matrix(pm)
-    Wj = np.asarray(jax.jit(jcovis.covis_matrix)(m))
+    Wj = np.asarray(JCOVIS(m))
     assert np.array_equal(W.numpy(), Wj) and Wj.max() >= 100
     assert np.array_equal(covis.obs_matrix(pm).numpy(), np.asarray(jcovis.obs_matrix(m)))
     par = covis.spanning_parents(pm)
@@ -208,6 +208,48 @@ def test_covis_matrix_and_spanning_parents_are_exact():
     grp, ok = covis.covis_groups_rows(pm, t_(rows), n_group=6)
     gj, oj = jcovis.covis_groups_rows(m, jnp.asarray(rows), n_group=6)
     assert np.array_equal(grp.numpy(), np.asarray(gj)) and np.array_equal(ok.numpy(), np.asarray(oj))
+
+
+def edge_map(case: str):
+    """`covis_map` changed at one of the covisibility count's edges: a row
+    observing one point ten times, dead rows and invalid features holding
+    stale point ids, no live row, one live row, a point observed by all 32
+    rows (more than the kernel keeps inline)."""
+    m = covis_map(np.random.default_rng(6))
+    idx, fv, valid = (np.array(x) for x in (m.kf.mp_idx, m.kf.fvalid, m.kf.valid))
+    if case == "observed_twice":
+        idx[3, 171:181] = idx[3, 5]
+    elif case == "stale_rows":
+        idx[~valid] = 7
+        idx[valid.nonzero()[0][:4], 185] = 11  # on features that are not valid
+    elif case == "no_live":
+        valid[:] = False
+    elif case == "one_live":
+        valid[:] = np.arange(N_KF) == 5
+    else:  # point_in_every_row: point 1999 in every row, every row live
+        valid[:] = True
+        fv[:, 181] = True
+        idx[:, 181] = 1999
+    return m._replace(kf=m.kf._replace(mp_idx=jnp.asarray(idx), fvalid=jnp.asarray(fv),
+                                       valid=jnp.asarray(valid)))
+
+
+@pytest.mark.parametrize("case", ["observed_twice", "stale_rows", "no_live", "one_live",
+                                  "point_in_every_row"])
+def test_covis_matrix_is_exact_at_its_edges(case):
+    m = edge_map(case)
+    W = covis.covis_matrix(interop.map_from_numpy(m)).numpy()
+    Wj = np.asarray(JCOVIS(m))
+    assert np.array_equal(W, Wj)
+    if case == "no_live":
+        assert not Wj.any()
+    elif case == "one_live":
+        assert Wj[5, 5] > 0 and Wj.sum() == Wj[5, 5]
+    elif case == "point_in_every_row":
+        assert Wj.min() >= 1
+
+
+JCOVIS = jax.jit(jcovis.covis_matrix)
 
 
 def test_build_essential_graph_edge_lists_are_exact():

@@ -89,7 +89,7 @@ def _tiny_inputs():
 
 @pytest.mark.parametrize("call", ["extract", "stereo", "mono", "rgbd", "entry", "track_entry",
                                   "tracker_entry", "loop_entry", "sensor_entry", "e2e_entry",
-                                  "client"])
+                                  "client", "vocab_load"])
 def test_entry_points_default_to_cuda_and_raise_without_it(call):
     assert not torch.cuda.is_available()
     img, cam = _tiny_inputs()
@@ -115,6 +115,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(call):
             entry.e2e_entry()
         elif call == "client":
             system.CorbslamClient(cam, config.SlamConfig())
+        elif call == "vocab_load":
+            vocab.load_default()
         else:
             fwd, imgs = entry.entry()
             fwd(*imgs)
@@ -454,6 +456,49 @@ def test_k11_and_k5_make_one_launch_that_fits_their_c_entry(wrapper, monkeypatch
     assert len(args) + 1 == len(kernels._SIGNATURES[fn])  # + the stream
 
 
+@pytest.mark.parametrize("wrapper", ["kmajority", "kmajority_level2", "assign_flat",
+                                     "covis_matrix"])
+def test_k14_and_b17_launches_fit_their_c_entries(wrapper, monkeypatch):
+    """K14 makes one `km_train` launch a call, k-majority (flat or level 2)
+    and the flat assignment alike, nothing of K9's, with the scratch that
+    `km_scratch_ints` lays out; B17 makes two launches, `covis_push` then
+    `covis_rows`, with the same arguments (state and W). Each
+    argument list fits its C entry's ctypes signature. Run here on CPU
+    tensors with the launches recorded instead of made."""
+    calls = []
+    monkeypatch.setattr(kernels, "launch", lambda counter, fn, *a: calls.append((counter, fn, a)))
+    monkeypatch.setattr(kernels, "ptr", lambda t: 0)
+    monkeypatch.setattr(kernels, "stream", lambda: 0)
+    monkeypatch.setattr(kernels, "_WORK", {})
+    monkeypatch.setattr(covis, "_COVIS_WORK", {})
+    d = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (50, 32), dtype=np.uint8))
+    if wrapper == "kmajority":
+        vocab._kmajority_cuda(d, d[:12].clone(), 5)
+        want, shape = ["km_train"], (50, 12, 0, 5, vocab.km_scratch_ints(50, 12))
+    elif wrapper == "kmajority_level2":
+        vocab._kmajority_cuda(d, d[:12].clone(), 3, group=torch.zeros(50, dtype=torch.int32),
+                              block=4)
+        want, shape = ["km_train"], (50, 12, 4, 3, vocab.km_scratch_ints(50, 12, 3))
+    elif wrapper == "assign_flat":
+        vocab._assign_flat_cuda(d, d[:12].clone())
+        want, shape = ["km_train"], (50, 12, 0, 0, vocab.km_scratch_ints(50, 12))
+        assert calls[0][2][8] is None and calls[0][2][9] == 0  # no counts; the assignment
+    else:
+        m = ms.empty(config.CapacityConfig(max_keyframes=6, max_map_points=40, max_features=16,
+                                           local_window_kfs=2, local_window_mps=8), "cpu")
+        W = covis._covis_matrix_cuda(m)
+        assert W.shape == (6, 6) and covis._COVIS_WORK[(torch.device("cpu"), 0)].numel() == 82
+        want = ["covis_push", "covis_rows"]
+        assert calls[1][2] == calls[0][2] and calls[0][2][3:6] == (6, 16, 40)
+    assert [c[1] for c in calls] == want
+    for counter, fn, args in calls:
+        assert counter == ("covis_matrix" if fn.startswith("covis") else "kmajority")
+        assert len(args) + 1 == len(kernels._SIGNATURES[fn])  # + the stream
+    if wrapper != "covis_matrix":
+        args = calls[0][2]
+        assert (args[3], args[4], args[5], args[6], args[11]) == shape
+
+
 def test_k5_workspace_is_kept_per_stream_and_grown_filled(monkeypatch):
     """K5's column keys and batch tickets: all COL_EMPTY and 0 when made,
     kept from call to call on one stream, grown (and filled) when a call
@@ -576,6 +621,65 @@ def test_sim3_kernel_capacity_is_checked_when_the_loop_closer_is_set_up():
     voc = vocab.Vocabulary(types.SimpleNamespace(device=torch.device("cuda")), None)
     with pytest.raises(ValueError, match="at most"):
         loop_closing.LoopCloser(CAM_, cfg, voc)
+
+
+@pytest.mark.parametrize("kernel", ["kmajority", "covis_matrix"])
+def test_k14_and_b17_capacities_are_checked_at_set_up(kernel):
+    """K14 takes at most `vocab.KM_MAX_WORDS` centres and the covisibility
+    count a map of at most `COVIS_MAX_KEYFRAMES` x `COVIS_MAX_FEATURES`
+    (the plain versions any): a CUDA trainer asked for more words, or a
+    CUDA loop closer whose map holds more keyframes, is refused before it
+    touches the device."""
+    cuda = types.SimpleNamespace(device=torch.device("cuda"))
+    if kernel == "kmajority":
+        n = vocab.KM_MAX_WORDS
+        vocab.check_capacity(n, "cuda")
+        vocab.check_capacity(n + 1, "cpu")
+        with pytest.raises(ValueError, match="K14 takes at most"):
+            vocab.check_capacity(n + 1, "cuda")
+        with pytest.raises(ValueError, match="K14 takes at most"):
+            vocab.train(cuda, n_words=n + 1)
+        with pytest.raises(ValueError, match="K14 takes at most"):
+            vocab.train_hierarchical(cuda, n_groups=1024, words_per_group=n // 1024 + 1)
+        return
+    n, f = covis.COVIS_MAX_KEYFRAMES, covis.COVIS_MAX_FEATURES
+    covis.check_capacity(n, f, "cuda")
+    covis.check_capacity(n + 1, f + 1, "cpu")
+    for bad in ((n + 1, f), (n, f + 1)):
+        with pytest.raises(ValueError, match="covisibility count takes at most"):
+            covis.check_capacity(*bad, "cuda")
+    cfg = config.SlamConfig(capacity=config.CapacityConfig(max_keyframes=n + 1))
+    with pytest.raises(ValueError, match="covisibility count takes at most"):
+        loop_closing.LoopCloser(CAM_, cfg, vocab.Vocabulary(cuda, None))
+
+
+def test_b17_workspace_is_dropped_when_a_launch_fails(monkeypatch):
+    """`covis_rows` clears what `covis_push` wrote to the stream's state:
+    when a launch raises, the state is dropped, so the next call starts
+    from a zeroed one."""
+    calls = []
+
+    def launch(counter, fn, *a):
+        calls.append(fn)
+        if fn == "covis_rows" and len(calls) == 2:
+            raise RuntimeError("covis_rows failed: cudaError 1")
+
+    monkeypatch.setattr(kernels, "launch", launch)
+    monkeypatch.setattr(kernels, "ptr", lambda t: 0)
+    monkeypatch.setattr(kernels, "stream", lambda: 0)
+    monkeypatch.setattr(covis, "_COVIS_WORK", {})
+    m = ms.empty(config.CapacityConfig(max_keyframes=6, max_map_points=40, max_features=16,
+                                       local_window_kfs=2, local_window_mps=8), "cpu")
+    key = (torch.device("cpu"), 0)
+    with pytest.raises(RuntimeError, match="covis_rows failed"):
+        covis._covis_matrix_cuda(m)
+    assert key not in covis._COVIS_WORK
+    covis._covis_matrix_cuda(m)
+    assert calls == ["covis_push", "covis_rows"] * 2
+    kept = covis._COVIS_WORK[key]
+    assert kept.numel() == 82 and not bool(kept.any())
+    covis._covis_matrix_cuda(m)
+    assert covis._COVIS_WORK[key] is kept
 
 
 @pytest.mark.parametrize("mode", ["ransac", "refine", "attempt", "describe", "pnp", "two_view"])

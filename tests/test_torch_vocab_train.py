@@ -128,6 +128,75 @@ def test_the_k_majority_rules_on_crafted_cases():
     assert torch.equal(ww, rw) and torch.equal(wc, rc) and int(wc.sum()) == int(w.sum())
 
 
+def edge_case(name):
+    """(packed rows, packed initial centres, iterations, row weights) at one
+    of K14's edges: centres tied across its staging passes of 1024 and
+    inside a tile of 8 (a row one bit from each of two centres, a row on a
+    centre that repeats), every row identical, N and W off the tile widths
+    (1013 x 77), row weights 0-2."""
+    rng = np.random.default_rng(11)
+    pk = lambda b: np.packbits(b, axis=1, bitorder="little")  # noqa: E731
+    if name == "cross_tile_tie":
+        init = rng.integers(0, 2, (1100, 256), dtype=np.uint8)
+        init[1030] = init[5]
+        init[1027] = init[3]
+        init[1027, :2] ^= 1
+        init[12] = init[9]
+        init[12, 100:102] ^= 1
+        bits = rng.integers(0, 2, (300, 256), dtype=np.uint8)
+        bits[0] = init[3]
+        bits[0, 0] ^= 1
+        bits[1] = init[9]
+        bits[1, 100] ^= 1
+        bits[2] = init[5]
+        return pk(bits), pk(init), 2, None
+    if name == "identical":
+        return np.repeat(corpus(n=1, seed=3), 3000, 0), corpus(n=16, seed=4), 3, None
+    if name == "ragged":
+        return corpus(n=1013, seed=5), corpus(n=77, seed=6), 4, None
+    d = corpus(n=900, seed=7)
+    return d, d[rng.choice(900, 96, replace=False)], 3, rng.integers(0, 3, 900).astype(np.int32)
+
+
+@pytest.mark.parametrize("name", ["cross_tile_tie", "identical", "ragged", "zero_weights"])
+def test_kmajority_at_the_kernels_edges_equals_the_reference(name):
+    """The plain version K14 is held to, against JAX's `_kmajority`, at the
+    kernel's edges; a weighted row votes as that many copies of itself in
+    the reference (weight 0: left out)."""
+    desc, init, n_iters, w = edge_case(name)
+    jd = desc if w is None else np.repeat(desc, w, 0)
+    jb = JD.unpack_bits(jnp.asarray(jd))
+    jw, jc = JV._kmajority(jb, JD.unpack_bits(jnp.asarray(init)), init.shape[0], n_iters)
+    pw, pc = vocab.kmajority(torch.from_numpy(desc), torch.from_numpy(init), n_iters,
+                             weight=None if w is None else torch.from_numpy(w))
+    np.testing.assert_array_equal(bits_of(pw), np.asarray(jw))
+    np.testing.assert_array_equal(pc.numpy(), np.asarray(jc[-1]))
+    if name == "cross_tile_tie":  # the first of two equidistant centres wins
+        a = vocab.assign_flat(torch.from_numpy(desc), torch.from_numpy(init))
+        assert a[:3].tolist() == [3, 9, 5]
+        assert a.tolist() == np.asarray(JV._assign(jb, JD.unpack_bits(jnp.asarray(init)))).tolist()
+    elif name == "identical":
+        assert int(pc.max()) == 3000
+
+
+def test_train_hierarchical_with_empty_groups_equals_the_reference():
+    """Every row one of 3 exact prototypes, so at least 5 of the 8 level-1
+    centres are repeats that never win: their level-2 blocks have no member
+    and keep the group centre."""
+    proto = corpus(n=3, flip=0.0, seed=8)
+    desc = proto[np.random.default_rng(9).integers(0, 3, 700)]
+    G, B, seed = 8, 4, 2
+    j = JV.train_hierarchical(desc, n_groups=G, words_per_group=B, n_iters=3, seed=seed,
+                              chunk=512)
+    k1, _ = jax.random.split(jax.random.PRNGKey(seed))
+    idx = np.array(jax.random.choice(k1, len(desc), (G,), replace=len(desc) < G))
+    p = vocab.train_hierarchical(torch.from_numpy(desc), n_groups=G, words_per_group=B,
+                                 n_iters=3, seed=seed, chunk=512, init_idx=idx)
+    same_vocab(p, j, tree=True)
+    grp = vocab.assign_flat(torch.from_numpy(desc), p.groups)
+    assert len(set(grp.tolist())) <= 3
+
+
 def test_train_chunked_reaches_the_references_fixed_point(desc):
     W, chunk = 128, 512  # 1500 rows: the last chunk is partial (padded in JAX)
     j = JV.train_chunked(desc, n_words=W, n_iters=4, seed=3, chunk=chunk)
@@ -170,7 +239,7 @@ def test_a_saved_port_vocabulary_loads_in_the_reference(desc, tmp_path):
     vocab.save(p, path)
     j = JV.load(path)
     same_vocab(p, j, tree=True)
-    back = vocab.load(path)
+    back = vocab.load(path, "cpu")
     assert all(torch.equal(a, b) for a, b in zip(back, p))
 
 

@@ -5,14 +5,17 @@
 1. prints the environment and the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from corbslam_tpu_torch/csrc/ (nvcc) and
    prints nvcc's register, spill and stack-frame bytes per kernel (K6's,
-   K2's, K11's pose graph and covisibility count, K5's, K1's, K4's, K3's,
-   K10's Sim3 attempt and PnP RANSAC, K12's and K14's kernels must not
-   spill, and K6's, K11's, K1's, K4's, K3's, the Sim3 attempt's, PnP's,
-   K12's and K14's have no stack frame);
+   K2's, K11's pose graph and covisibility count, K5's, K1's, K4's (both
+   entries), K3's, K10's Sim3 attempt and PnP RANSAC, K12's, K13's and
+   K14's kernels must not spill, and K6's, K11's, K1's, K4's, K3's, the Sim3
+   attempt's, PnP's, K12's, K13's and K14's have no stack frame);
 3. drives the front end — `build_frame_stereo` through `entry.entry()` — on
    3 warm-up and 20 timed stereo frames with all launch counters reset just
-   before, checks its four kernels were launched (K1 and K4 once a frame),
-   the outputs are finite and the feature / stereo counts are sane;
+   before, checks its kernels were launched (K1, K4's stereo match and K4's
+   `finish_keypoints` once a frame), the outputs are finite and the feature
+   / stereo counts are sane; every other path also makes one
+   `finish_keypoints` launch a frame (the tracking path, the tracker, mono
+   and RGB-D);
 4. drives the tracking path — `track_frame_stereo` through
    `entry.track_entry()`: the bench camera, KITTI_STEREO at full capacity and
    the bench's PlanarWorld rendered on the card — with all counters reset
@@ -82,7 +85,7 @@
    the bootstrap's time, each
    create_new_points call's time, frame p50 / p90 and the points printed)
    and RGB-D over 40 frames (every frame OK, 2 keyframes, points within 1 %
-   of 2906, ATE <= 2 x 0.00426 m, `rgbd_stereo` launched); then holds K12
+   of 2906, ATE <= 2 x 0.00426 m); then holds K12
    (the mono bootstrap's own matches, H branch, the same with every row of
    its draw degenerate so that the scores tie, and a seeded non-planar
    scene, F branch; one launch an attempt, two runs bit-equal, its outputs'
@@ -90,7 +93,12 @@
    past it refused, N = 1000, no valid match, two degenerate rows, an
    all-degenerate draw), K5's band mode (the keyframe against its 8 neighbour
    slots, 8 x 2048 x 2048) and K13 on a clone of the map at the first
-   create_new_points call, `rgbd_stereo` and K5's area mode (2048 x 2048)
+   create_new_points call (K13 also at its edges: a tied pair of slots,
+   K = 1, K = 11, F = 2047), K5's area mode (2048 x 2048) and K4's
+   `finish_keypoints` (bit for bit, with the entry camera and with a
+   distorted one, on the flagship's stereo frame, the last RGB-D frame and
+   a mono frame, and at its edges: N = 1, every feature invalid, every
+   depth at or under min_depth, keypoints at x.5 on the image border)
    against their plain versions, and times them;
 9. holds K9-K11 against their plain versions on the loop phase's first
    closure (its match set, essential graph and map, PnP and relocalize on
@@ -220,7 +228,7 @@ REPLACES = {
     "pnp": "corbslam_tpu/solvers/pnp.py:116",
     "pose_graph": "corbslam_tpu/optim/pose_graph.py:78",
     "covis_matrix": "corbslam_tpu/mapstate/covisibility.py:66",
-    "rgbd_stereo": "corbslam_tpu/ops/stereo.py:104",
+    "finish_keypoints": "corbslam_tpu/ops/stereo.py:104",
     "match_area": "corbslam_tpu/matching/matcher.py:241",
     "match_band": "corbslam_tpu/matching/matcher.py:291",
     "two_view": "corbslam_tpu/solvers/initializer.py:187",
@@ -236,14 +244,14 @@ SOURCES = {k: f"corbslam_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 SOURCES["covisibility"] = "corbslam_tpu_torch/csrc/local_map.cu"  # K7's mapping-stage launches
 SOURCES["sim3"] = SOURCES["pnp"] = "corbslam_tpu_torch/csrc/ransac.cu"  # K10
 SOURCES["covis_matrix"] = "corbslam_tpu_torch/csrc/pose_graph.cu"  # K11's covisibility count
-SOURCES["rgbd_stereo"] = "corbslam_tpu_torch/csrc/stereo_match.cu"  # K4's RGB-D entry
+SOURCES["finish_keypoints"] = "corbslam_tpu_torch/csrc/stereo_match.cu"  # K4's finishing entry
 SOURCES["match_area"] = "corbslam_tpu_torch/csrc/match_masked.cu"  # K5's area-window mode
 SOURCES["match_band"] = "corbslam_tpu_torch/csrc/match_masked.cu"  # K5's epipolar-band mode
 for _k in ("kmajority_l1", "kmajority_l2", "kmajority_tree"):  # K14 at the full-width shapes
     SOURCES[_k] = "corbslam_tpu_torch/csrc/kmajority.cu"
 SOURCES["ba_dense_gba"] = "corbslam_tpu_torch/csrc/ba_dense.cu"  # K8 at global BA's size
 SOURCES["ba_dense_bench_gba"] = "corbslam_tpu_torch/csrc/ba_dense.cu"  # K8 at bench_gba's size
-FRONT_END_KERNELS = ("pyramid", "fast_cells", "orb_describe", "stereo_match")
+FRONT_END_KERNELS = ("pyramid", "fast_cells", "orb_describe", "stereo_match", "finish_keypoints")
 TRACKING_KERNELS = FRONT_END_KERNELS + ("match_masked", "pose_opt", "local_map")
 REPORT = os.path.join(ROOT, "chiprun_out", "chip_smoke_report.json")
 
@@ -296,10 +304,12 @@ def ptxas_summary(log: str) -> dict:
 NO_SPILL = ("pose_opt_kernel", "fast_cell_max_kernel", "fast_topk_kernel", "pg_optimize_kernel",
             "match_select_kernel", "pyramid_kernel", "stereo_match_kernel", "orb_describe_kernel",
             "sim3_attempt_kernel", "pnp_ransac_kernel", "two_view_kernel", "km_train_kernel",
-            "covis_push_kernel", "covis_rows_kernel")
+            "covis_push_kernel", "covis_rows_kernel", "finish_keypoints_kernel",
+            "tri_points_kernel")
 NO_STACK = ("pose_opt_kernel", "pg_optimize_kernel", "pyramid_kernel", "stereo_match_kernel",
             "orb_describe_kernel", "sim3_attempt_kernel", "pnp_ransac_kernel", "two_view_kernel",
-            "km_train_kernel", "covis_push_kernel", "covis_rows_kernel")
+            "km_train_kernel", "covis_push_kernel", "covis_rows_kernel", "finish_keypoints_kernel",
+            "tri_points_kernel")
 
 
 def check_ptxas(ptxas: dict) -> None:
@@ -670,7 +680,7 @@ def run_main_path(fwd, entry_imgs) -> dict:
     launches = {k: kernels.LAUNCHES[k] for k in FRONT_END_KERNELS}
     for name, n in launches.items():
         require(n > 0, f"kernel {name} was not launched on the front end")
-    for name in ("pyramid", "stereo_match"):  # one launch a frame each
+    for name in ("pyramid", "stereo_match", "finish_keypoints"):  # one launch a frame each
         require(launches[name] == 3 + len(pairs),
                 f"{name}: {launches[name]} launches over {3 + len(pairs)} frames")
     ev, eo = int(entry_fd.fvalid.sum()), int((entry_fd.uright >= 0).sum())
@@ -755,6 +765,9 @@ def run_tracking_path(te, dev) -> dict:
         require(bool(torch.isfinite(t).all()), f"non-finite map field {name}")
     for name in TRACKING_KERNELS:
         require(launches[name] > 0, f"kernel {name} was not launched on the tracking path")
+    require(launches["finish_keypoints"] == TRACK_FRAMES + 1,
+            f"tracking: {launches['finish_keypoints']} finish_keypoints launches over "
+            f"{TRACK_FRAMES + 1} frames")
     require(all(r["ok"] for r in rows), f"a frame was not ok: {[r['ok'] for r in rows]}")
     require(min(r["n_local"] for r in rows) >= 1000,
             f"n_local below 1000: {[r['n_local'] for r in rows]}")
@@ -1288,8 +1301,8 @@ def check_tracking_kernels(te, st: TrackState, img_l, img_r, timed: bool = True)
 # CPU, JAX 0.9.0; the script is in PERF.md); the port must stay within 2x.
 JAX_SCHEDULE_ATE_M = 0.0213
 CPU_PREFIX = 8  # frames 1..7 (with the 6 forced keyframes) again on the CPU plain path
-TRACKER_COUNTERS = ("pyramid", "fast_cells", "orb_describe", "stereo_match", "match_masked",
-                    "pose_opt", "local_map", "covisibility", "ba_dense")
+TRACKER_COUNTERS = ("pyramid", "fast_cells", "orb_describe", "stereo_match", "finish_keypoints",
+                    "match_masked", "pose_opt", "local_map", "covisibility", "ba_dense")
 
 
 def aligned_ate(traj) -> float:
@@ -1354,6 +1367,9 @@ def run_tracker_phase() -> dict:
             f"tracker: frame states {states}")
     for name in TRACKER_COUNTERS:
         require(launches[name] > 0, f"kernel {name} was not launched by the tracker")
+    require(launches["finish_keypoints"] == BENCH_FRAMES,
+            f"tracker: {launches['finish_keypoints']} finish_keypoints launches over "
+            f"{BENCH_FRAMES} frames")
     bad = map_finite(tracker.map)
     require(not bad, f"tracker: non-finite map fields {bad}")
     ate = aligned_ate(tracker.trajectory)
@@ -2351,6 +2367,8 @@ def run_sensor_phase(sensor: str) -> dict:
                ate_m=sensor_ate(tracker.trajectory, states, sensor == "mono"))
     bad = map_finite(tracker.map)
     require(not bad, f"{sensor}: non-finite map fields {bad}")
+    require(launches["finish_keypoints"] == n and "rgbd_stereo" not in launches,
+            f"{sensor}: {launches['finish_keypoints']} finish_keypoints launches over {n} frames")
     if sensor == "mono":
         init = states.index("OK") if "OK" in states else -1
         out.update(init_frame=init, init_ms=frame_ms[init] if init >= 0 else None,
@@ -2377,8 +2395,8 @@ def run_sensor_phase(sensor: str) -> dict:
                 f"rgbd: {out['points']} points, JAX {JAX_RGBD['points']}")
         require(out["ate_m"] <= 2 * JAX_RGBD["ate_m"],
                 f"rgbd: ATE {out['ate_m']:.5f} m > 2 x JAX's {JAX_RGBD['ate_m']} m")
-        for name in ("rgbd_stereo", "pyramid", "fast_cells", "orb_describe", "match_masked",
-                     "pose_opt", "local_map"):
+        for name in ("pyramid", "fast_cells", "orb_describe", "match_masked", "pose_opt",
+                     "local_map"):
             require(launches[name] > 0, f"kernel {name} was not launched by the RGB-D phase")
         require(launches["stereo_match"] == 0, "rgbd: the stereo matcher ran")
     tm = out["tracked_ms"]
@@ -2538,9 +2556,9 @@ def two_view_cost(xy1, xy2, valid, sample, k) -> tuple:
 
 
 def check_sensor_kernels(mp_: dict, rg: dict) -> tuple:
-    """K12, K5's band mode, K13, K4's rgbd_stereo and K5's area mode against
-    their plain versions on the sensor phases' inputs; rows for the kernels' line
-    with each bound from these inputs."""
+    """K12, K5's band mode, K13 (also at its edges, `tri_edges`) and K5's
+    area mode against their plain versions on the sensor phases' inputs; rows
+    for the kernels' line with each bound from these inputs."""
     info, rows = {}, []
     tracker, te = mp_["tracker"], mp_["te"]
     cfg = tracker.cfg
@@ -2608,6 +2626,7 @@ def check_sensor_kernels(mp_: dict, rg: dict) -> tuple:
     mpl = triangulation.write_points(ms.clone(m), st, cpl, cfg)
     require(int(mk.n_mp) == int(mpl.n_mp) and torch.equal(mk.kf.mp_idx, mpl.kf.mp_idx),
             "triangulate: created rows or bindings differ")
+    info["triangulate_edges"] = tri_edges(m, st, nbf, match, cfg)
     # Bound: ~150 flops of rays, midpoint and gates per (neighbour, feature)
     # with a match, one read of each match. Bytes: the keyframe's keypoints
     # and octaves, the matches, the matched neighbour features' keypoints and
@@ -2632,23 +2651,146 @@ def check_sensor_kernels(mp_: dict, rg: dict) -> tuple:
     rows.append(dict(name="match_area", max_abs_err=0.0, bound=bound_ms(a_bytes, a_ops),
                      fns=(lambda: matcher.match_select(**q_area),
                           lambda: matcher.match_select_plain(**q_area), None, 10)))
-    # K4's rgbd_stereo: the last RGB-D frame's keypoints and depth map.
-    T = gt_pose(RGBD_FRAMES - 1)
-    dmap = rg["te"].world.depth(T).contiguous()
-    f = orb.extract(rg["te"].world.render(T), cfg.orb, "cuda")
-    xu = camera.undistort_points(CAM, f.xy)
-    rargs = (dmap, f.xy, f.valid, float(CAM.bf))
-    kr = stereo.compute_stereo_from_rgbd(*rargs, xy_und=xu)
-    pr = stereo.compute_stereo_from_rgbd_plain(*rargs, xy_und=xu)
-    torch.cuda.synchronize()
-    require(all(torch.equal(a, b) for a, b in zip(kr, pr)), "rgbd_stereo differs from plain")
-    info["rgbd_ok"] = int(kr.ok.sum())
-    N = f.xy.shape[0]
-    rows.append(dict(name="rgbd_stereo", max_abs_err=0.0, bound=bound_ms(N * 26, N * 12),
-                     fns=(lambda: stereo.compute_stereo_from_rgbd(*rargs, xy_und=xu),
-                          lambda: stereo.compute_stereo_from_rgbd_plain(*rargs, xy_und=xu),
-                          None, 20)))
     return rows, info
+
+
+def same_candidates(m, st, nbf, match, cfg, name: str) -> dict:
+    """K13 against its plain version on one input: create, k and f2 exact
+    (k and f2 where a point is made), X within 1e-5 m."""
+    ck = triangulation.points(CAM, m, st, nbf, match, cfg)
+    cp = triangulation.points_plain(CAM, m, st, nbf, match, cfg)
+    torch.cuda.synchronize()
+    made = ck.create & cp.create
+    out = dict(K=int(match.shape[0]), F=int(match.shape[1]), created=int(ck.create.sum()),
+               X_max_abs=float((ck.X - cp.X)[made].abs().max()) if bool(made.any()) else 0.0,
+               k_hist=torch.bincount(ck.k[ck.create].long(), minlength=match.shape[0]).tolist())
+    require(torch.equal(ck.create, cp.create) and torch.equal(ck.k[made], cp.k[made])
+            and torch.equal(ck.f2[made], cp.f2[made]) and out["X_max_abs"] <= 1e-5,
+            f"triangulate ({name}): candidates differ: {out}")
+    return out
+
+
+def reslot(st, nbf, match, slots, drop=()):
+    """The set-up, neighbour features and matches with neighbour slot i
+    taken from slot slots[i]; the matches of the new slots in `drop` cleared."""
+    i = torch.tensor(slots, device=match.device)
+    st2 = st._replace(nb_rows=st.nb_rows[i].contiguous(), nb_use=st.nb_use[i], R2=st.R2[i],
+                      t2=st.t2[i], o2=st.o2[i].contiguous(), F12=st.F12[i],
+                      epipole=st.epipole[i])
+    mt = match[i].clone()
+    mt[list(drop)] = -1
+    return st2, triangulation.Neighbours(*(t[i].contiguous() for t in nbf)), mt
+
+
+def tri_edges(m, st, nbf, match, cfg) -> dict:
+    """K13 at its edges, on the first create_new_points call's inputs: a tie
+    (slot 1 a copy of the slot that the plain version picks most often, s,
+    so that the lower slot must win), K = 1 (slot s alone), K = 11 (three
+    more slots, copies of s and the two after it, whose own matches are
+    cleared, so that lanes take a second slot and win with it) and F = 2047
+    (the last feature and every match to it dropped)."""
+    K = match.shape[0]
+    cp = triangulation.points_plain(CAM, m, st, nbf, match, cfg)
+    s = int(torch.bincount(cp.k[cp.create].long(), minlength=K).argmax())
+    nxt = [(s + d) % K for d in range(3)]
+    out = dict(tie=same_candidates(m, *reslot(st, nbf, match, [s, s] + [k for k in range(K)
+                                                                         if k != s][:K - 2]),
+                                   cfg, "tie"),
+               k1=same_candidates(m, *reslot(st, nbf, match, [s]), cfg, "K = 1"),
+               k11=same_candidates(m, *reslot(st, nbf, match, list(range(K)) + nxt, drop=nxt),
+                                   cfg, "K = 11"))
+    require(out["tie"]["k_hist"][1] == 0 < out["tie"]["k_hist"][0],
+            f"triangulate: the tie went to the second slot: {out['tie']}")
+    require(sum(out["k11"]["k_hist"][K:]) > 0, f"triangulate: no slot past 8 won: {out['k11']}")
+    F1 = m.kf.n_features - 1
+    kf = m.kf._replace(**{f: t[:, :F1].contiguous() for f, t in m.kf._asdict().items()
+                          if t.dim() >= 2 and t.shape[1] == F1 + 1})
+    mt = torch.where(match[:, :F1] < F1, match[:, :F1], torch.full_like(match[:, :F1], -1))
+    out["f2047"] = same_candidates(
+        m._replace(kf=kf), st._replace(unbound1=st.unbound1[:F1]),
+        triangulation.Neighbours(*(t[:, :F1].contiguous() for t in nbf)), mt.contiguous(), cfg,
+        "F = 2047")
+    return out
+
+
+# tests/test_torch_frame.py's distortion, and one with all five terms.
+DIST_CAM = CAM._replace(dist=(0.01, -0.002, 0.0005, -0.0003, 0.0))
+EDGE_CAM = CAM._replace(dist=(0.02, -0.004, 0.0007, -0.0004, 0.0009))
+
+
+def same_finish(cam, xy, valid=None, dmap=None, mode: str = "stereo", name: str = "") -> dict:
+    """K4's finish_keypoints against its plain version on one input, every
+    output bit for bit."""
+    k = stereo.finish_keypoints(cam, xy, valid, dmap, mode)
+    p = stereo.finish_keypoints_plain(cam, xy, valid, dmap, mode)
+    torch.cuda.synchronize()
+    for field, a, b in zip(k._fields, k, p):
+        require((a is None) == (b is None) and (a is None or torch.equal(a, b)),
+                f"finish_keypoints ({name}, {mode}): {field} differs from plain"
+                + ("" if a is None or b is None or a.shape != b.shape
+                   else f" in {int((a != b).sum())} places"))
+    return dict(N=int(xy.shape[0]), ok=None if k.ok is None else int(k.ok.sum()),
+                max_shift_px=float((k.xy_und - xy).abs().max()) if xy.shape[0] else 0.0)
+
+
+def finish_edges(dev, dmap) -> dict:
+    """finish_keypoints at its edges, with all five distortion terms: N = 1
+    in each mode, every feature invalid, every depth at or under min_depth,
+    and keypoints at x.5 on and beyond the image border (rounded half to
+    even, then clamped)."""
+    h, w = dmap.shape
+    rng = np.random.default_rng(11)
+    one = torch.tensor([[600.3, 200.7]], device=dev)
+    t = torch.ones(1, dtype=torch.bool, device=dev)
+    out = {f"n1_{mode}": same_finish(EDGE_CAM, one, t, dmap, mode, "N = 1")
+           for mode in ("stereo", "mono", "rgbd")}
+    xy = torch.from_numpy(rng.uniform(0, [w, h], (2048, 2)).astype(np.float32)).to(dev)
+    out["invalid"] = same_finish(EDGE_CAM, xy, torch.zeros(2048, dtype=torch.bool, device=dev),
+                                 dmap, "rgbd", "all invalid")
+    shallow = torch.where(torch.arange(h * w, device=dev).view(h, w) % 2 == 0,
+                          torch.full_like(dmap, 0.05), torch.zeros_like(dmap))
+    v = torch.ones(2048, dtype=torch.bool, device=dev)
+    out["shallow"] = same_finish(EDGE_CAM, xy, v, shallow, "rgbd", "depth <= min_depth")
+    xs = np.array([-1.5, -0.5, 0.5, 1.5, 2.5, w - 2.5, w - 1.5, w - 0.5, w + 0.5], np.float32)
+    ys = np.array([-1.5, -0.5, 0.5, 1.5, 2.5, h - 2.5, h - 1.5, h - 0.5, h + 0.5], np.float32)
+    border = torch.from_numpy(np.stack(np.meshgrid(xs, ys), -1).reshape(-1, 2)).to(dev)
+    out["border_half"] = same_finish(EDGE_CAM, border, torch.ones(border.shape[0], dtype=torch.bool,
+                                                                   device=dev),
+                                     dmap, "rgbd", "x.5 on the border")
+    require(out["invalid"]["ok"] == 0 and out["shallow"]["ok"] == 0,
+            f"finish_keypoints: ok where no depth passes: {out}")
+    return out
+
+
+def check_finish_keypoints(te, entry_imgs) -> tuple:
+    """K4's finish_keypoints against its plain version, bit for bit, with the
+    entry camera and with DIST_CAM: the flagship's stereo frame (the entry
+    pair's left features), the last RGB-D frame (its depth map) and a mono
+    frame (the first sensor frame), and at its edges (`finish_edges`); the
+    row times it on the last RGB-D frame."""
+    dev = torch.device("cuda")
+    imgs = orb.as_images(list(entry_imgs), dev)
+    fl = orb.extract_batch(imgs, orb.params(CFG, imgs.shape[1], imgs.shape[2], "cuda")).select(0)
+    T = gt_pose(RGBD_FRAMES - 1)
+    dmap = te.world.depth(T).contiguous()
+    fr = orb.extract(te.world.render(T), CFG, "cuda")
+    fm = orb.extract(te.world.render(gt_pose(0)), CFG, "cuda")
+    info = {}
+    for cname, cam in (("cam", CAM), ("dist", DIST_CAM)):
+        info[f"stereo_{cname}"] = same_finish(cam, fl.xy, fl.valid, None, "stereo", "stereo frame")
+        info[f"rgbd_{cname}"] = same_finish(cam, fr.xy, fr.valid, dmap, "rgbd", "RGB-D frame")
+        info[f"mono_{cname}"] = same_finish(cam, fm.xy, fm.valid, None, "mono", "mono frame")
+    info["edges"] = finish_edges(dev, dmap)
+    N = fr.xy.shape[0]
+    # Bound: bytes, each keypoint (8), valid flag (1) and depth read (4) in,
+    # xy_und (8), u_right, depth (4 each) and ok (1) out; operations, the two
+    # reciprocals, 5 iterations of 34 and the prologue, epilogue and depth
+    # step: 186 a keypoint.
+    args = (CAM, fr.xy, fr.valid, dmap, "rgbd")
+    row = dict(name="finish_keypoints", max_abs_err=0.0, bound=bound_ms(N * 30, N * 186),
+               fns=(lambda: stereo.finish_keypoints(*args),
+                    lambda: stereo.finish_keypoints_plain(*args), None, 20))
+    return [row], info
 
 
 # ---------------------------------------------------------------------------
@@ -3526,6 +3668,8 @@ def main() -> int:
     print(f"K11 edge cases: {json.dumps(finfo['pose_graph_edges'])}", flush=True)
     phase("kernels_k9_k11")
     srows, sinfo = check_sensor_kernels(mono, rgbd)
+    krows, sinfo["finish_keypoints"] = check_finish_keypoints(rgbd["te"], entry_imgs)
+    srows += krows
     time_rows(srows)
     print(f"sensor kernel checks: {json.dumps(sinfo)}", flush=True)
     sinfo["two_view_edges"] = two_view_edges(dev)
@@ -3556,7 +3700,6 @@ def main() -> int:
                     **{k: kp["launches"][k] for k in ("covisibility", "ba_dense")},
                     **{k: lp["launches"][k] for k in LOOP_KERNELS},
                     **{k: mono["launches"][k] for k in MONO_KERNELS[:-1]},
-                    rgbd_stereo=rgbd["launches"]["rgbd_stereo"],
                     ba_dense_gba=e2e["stereo"]["launches"]["ba_dense_gba"],
                     kmajority=e2e["stereo"]["launches"]["kmajority"],
                     **{r["name"]: r["launches"] for r in brows})

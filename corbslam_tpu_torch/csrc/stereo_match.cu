@@ -41,14 +41,22 @@
 // The ticket word lives in a per-stream workspace that the last CTA
 // restores to 0.
 //
-// `rgbd_stereo` replaces corbslam_tpu/ops/stereo.py compute_stereo_from_rgbd
-// (B6's RGB-D half): one thread per feature rounds the raw keypoint half to
-// even (rintf, as jnp.round), clamps it into the image, reads the registered
-// depth map there and writes u_right = x_undistorted - bf / max(d, min_depth)
-// and the depth, or -1 / 0 where the feature is invalid or d <= min_depth.
-// Bound: bytes (a 4-byte gather and ~20 bytes of keypoint in and out per
-// feature), so it is one launch with no shared memory.
-
+// `finish_keypoints` replaces corbslam_tpu/geometry/camera.py
+// undistort_points and corbslam_tpu/ops/stereo.py compute_stereo_from_rgbd
+// (B6's RGB-D half): the one launch that finishes every frame's keypoints,
+// whatever the sensor. One thread a keypoint runs the 5 fixed-point
+// undistortion iterations in the f32 operations and order that PyTorch runs
+// `undistort_points` in on the card (every product and sum explicitly
+// rounded, no FMA; a division by a camera scalar is a product with its f32
+// reciprocal, as PyTorch's CUDA division by a Python scalar is; each
+// constant rounded to f32 once, where PyTorch rounds it), so its output is
+// bit-equal to that sequence of ~180 elementwise launches. In RGB-D mode it
+// also rounds the raw keypoint half to even (rintf, as jnp.round), clamps
+// it into the image, reads the registered depth map there and writes
+// u_right = x_undistorted - bf / max(d, min_depth) and the depth, or -1 / 0
+// where the feature is invalid or d <= min_depth; in mono mode it writes
+// -1 / 0. Bound: bytes (8 in and 8 out a keypoint, RGB-D a 4-byte
+// gather and 9 bytes more), so it is one launch with no shared memory.
 #include <math.h>
 
 #include "common.cuh"
@@ -71,6 +79,10 @@ constexpr int NB = 512;         // row buckets: floor(y) mod NB
 constexpr int MAX_L = 32;       // octaves
 constexpr int MAX_N = 12288;    // left features (the finish's keys in 48 KB)
 constexpr int PEND = 4;         // candidates a lane gathers before reading their descriptors
+// finish_keypoints: a thread a keypoint; its modes; undistort_points' iterations.
+constexpr int FINISH_THREADS = 128;
+constexpr int FINISH_STEREO = 0, FINISH_MONO = 1, FINISH_RGBD = 2;
+constexpr int UNDISTORT_ITERS = 5;
 constexpr int WARP_FLOATS = WIN * WIN + WIN * RW + NS * WIN + NS + 1;
 static_assert(NB == THREADS, "the bucket scan takes one bucket a thread");
 
@@ -471,21 +483,67 @@ __global__ void __launch_bounds__(THREADS) stereo_match_kernel(const Args a) {
     }
 }
 
-__global__ void rgbd_stereo_kernel(const float* __restrict__ depth_map, int h, int w,
-                                   const float2* __restrict__ xy, const float* __restrict__ xy_und,
-                                   const bool* __restrict__ valid, int N, float bf, float min_depth,
-                                   float* __restrict__ u_right, float* __restrict__ depth,
-                                   bool* __restrict__ ok) {
+// Camera and distortion terms of `finish_keypoints`, each already the f32
+// that PyTorch's CUDA elementwise kernels use.
+struct Undistort {
+    float fx, fy, cx, cy, k1, k2, p1, p2, k3, two_p1, two_p2;
+};
+
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+
+// camera.undistort_points of one pixel, operation by operation:
+// x0 = (u - cx) * (1 / fx); 5 x (r2, radial, xd, yd, x = x0 - (xd - x));
+// u = x * fx + cx.
+__device__ __forceinline__ float2 undistort(const Undistort& c, float2 p) {
+    const float x0 = mul_rn(sub_rn(p.x, c.cx), __fdiv_rn(1.0f, c.fx));
+    const float y0 = mul_rn(sub_rn(p.y, c.cy), __fdiv_rn(1.0f, c.fy));
+    float x = x0, y = y0;
+#pragma unroll
+    for (int it = 0; it < UNDISTORT_ITERS; ++it) {
+        const float r2 = add_rn(mul_rn(x, x), mul_rn(y, y));
+        // ((1 + k1 r2) + (k2 r2) r2) + ((k3 r2) r2) r2
+        const float radial = add_rn(add_rn(add_rn(mul_rn(r2, c.k1), 1.0f),
+                                           mul_rn(mul_rn(r2, c.k2), r2)),
+                                    mul_rn(mul_rn(mul_rn(r2, c.k3), r2), r2));
+        // (x radial + ((2 p1) x) y) + p2 (r2 + (2 x) x)
+        const float xd = add_rn(add_rn(mul_rn(x, radial), mul_rn(mul_rn(x, c.two_p1), y)),
+                                mul_rn(add_rn(r2, mul_rn(mul_rn(x, 2.0f), x)), c.p2));
+        // (y radial + p1 (r2 + (2 y) y)) + ((2 p2) x) y
+        const float yd = add_rn(add_rn(mul_rn(y, radial),
+                                       mul_rn(add_rn(r2, mul_rn(mul_rn(y, 2.0f), y)), c.p1)),
+                                mul_rn(mul_rn(x, c.two_p2), y));
+        const float xn = sub_rn(x0, sub_rn(xd, x));
+        y = sub_rn(y0, sub_rn(yd, y));
+        x = xn;
+    }
+    return make_float2(add_rn(mul_rn(x, c.fx), c.cx), add_rn(mul_rn(y, c.fy), c.cy));
+}
+
+__global__ void __launch_bounds__(FINISH_THREADS) finish_keypoints_kernel(
+        const float2* __restrict__ xy, const bool* __restrict__ valid,
+        const float* __restrict__ depth_map, int h, int w, int N, int mode, Undistort c, float bf,
+        float min_depth, float2* __restrict__ xy_und, float* __restrict__ u_right,
+        float* __restrict__ depth, bool* __restrict__ ok) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= N) return;
     const float2 p = xy[i];
+    const float2 q = undistort(c, p);
+    xy_und[i] = q;
+    if (mode == FINISH_STEREO) return;
+    if (mode == FINISH_MONO) {
+        u_right[i] = -1.0f;
+        depth[i] = 0.f;
+        return;
+    }
     const int xi = min(max((int)rintf(p.x), 0), w - 1);
     const int yi = min(max((int)rintf(p.y), 0), h - 1);
     const float d = depth_map[(size_t)yi * w + xi];
     const bool o = valid[i] && d > min_depth;
     ok[i] = o;
     depth[i] = o ? d : 0.f;
-    u_right[i] = o ? __fsub_rn(xy_und[2 * i], __fdiv_rn(bf, fmaxf(d, min_depth))) : -1.0f;
+    u_right[i] = o ? sub_rn(q.x, __fdiv_rn(bf, fmaxf(d, min_depth))) : -1.0f;
 }
 
 }  // namespace
@@ -542,13 +600,23 @@ C_ENTRY int stereo_match(const float* xy_l, const int* oct_l, const bool* valid_
     return (int)cudaGetLastError();
 }
 
-// (u_right, depth, ok) of N features from a registered [h, w] depth map.
-C_ENTRY int rgbd_stereo(const float* depth_map, int h, int w, const float* xy,
-                        const float* xy_und, const bool* valid, int N, float bf, float min_depth,
-                        float* u_right, float* depth, bool* ok, cudaStream_t stream) {
+// Undistorted keypoints xy_und [N, 2] of N raw keypoints xy [N, 2], and by
+// `mode`: nothing more (FINISH_STEREO), u_right -1 / depth 0 (FINISH_MONO),
+// or (u_right, depth, ok) [N] from the registered [h, w] depth map at the
+// raw keypoints (FINISH_RGBD; valid [N], depth_map and ok used only there).
+C_ENTRY int finish_keypoints(const float* xy, const bool* valid, const float* depth_map, int h,
+                             int w, int N, int mode, float fx, float fy, float cx, float cy,
+                             float k1, float k2, float p1, float p2, float k3, float two_p1,
+                             float two_p2, float bf, float min_depth, float* xy_und,
+                             float* u_right, float* depth, bool* ok, cudaStream_t stream) {
+    if (N < 0 || mode < FINISH_STEREO || mode > FINISH_RGBD ||
+        (mode == FINISH_RGBD && (h < 1 || w < 1)))
+        return (int)cudaErrorInvalidValue;
     if (N > 0)
-        rgbd_stereo_kernel<<<(N + 255) / 256, 256, 0, stream>>>(
-            depth_map, h, w, reinterpret_cast<const float2*>(xy), xy_und, valid, N, bf,
-            min_depth, u_right, depth, ok);
+        finish_keypoints_kernel<<<(N + FINISH_THREADS - 1) / FINISH_THREADS, FINISH_THREADS, 0,
+                                  stream>>>(
+            reinterpret_cast<const float2*>(xy), valid, depth_map, h, w, N, mode,
+            Undistort{fx, fy, cx, cy, k1, k2, p1, p2, k3, two_p1, two_p2}, bf, min_depth,
+            reinterpret_cast<float2*>(xy_und), u_right, depth, ok);
     return (int)cudaGetLastError();
 }

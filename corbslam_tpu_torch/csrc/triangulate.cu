@@ -13,14 +13,26 @@
 // Bound on the H100: ~150 f32 operations of triangulation and gates per
 // (neighbour, feature) with a match; the bytes (the keyframe's and its
 // neighbours' keypoints and octaves, the matches, the outputs: ~0.3 MB) are
-// small.
-// Design: `tri_points` is one thread per feature: for each neighbour in
-// order, its match (none for a padded neighbour, one that fails the baseline
-// test, or a feature without a mutual match under th_low), the two rays,
-// their midpoint and the gates (cheirality, parallax, chi2 5.991 sigma^2 in
-// both views, the scale band), each in the same f32 operations and order as
-// the plain version (explicitly rounded, no FMA), and the first neighbour
-// with the least summed error; no neighbour gives create = false.
+// small, so the kernel is latency-bound: each pair is a dependent chain of
+// ~150 operations with 7 IEEE divisions and 3 square roots.
+// Design: `tri_points` gives each (neighbour slot, feature) pair a lane: the
+// 8 slots of a feature are 8 adjacent lanes of a warp (4 features a warp,
+// 16 a 128-thread CTA, so F 2048 gives 128 CTAs), and with K > 8 lane g
+// also takes slots g + 8, g + 16, ... Each lane evaluates its pair's match
+// (none for a padded neighbour, one that fails the baseline test, or a
+// feature without a mutual match under th_low), the two rays, their
+// midpoint and the gates (cheirality, parallax, chi2 5.991 sigma^2 in both
+// views, the scale band) in the same f32 operations and order as the plain
+// version (explicitly rounded, no FMA). The choice of neighbour is a
+// shuffle reduction over the 8 lanes on the 64-bit key (error bits, slot),
+// failed pairs +inf: the least summed error and the lower slot on ties,
+// torch.argmin's first minimum. The lane that holds the winning slot
+// writes the outputs; no winner gives create = false and zeros. Poses are
+// read straight from the map's [N, 4, 4] Tcw by row (the keyframe's row q
+// and each slot's neighbour row), the keyframe's keypoints and octaves from
+// row q of the map's [N, F] tables, the camera centres from the set-up's
+// o1 [3] and o2 [K, 3]; the outputs are one packed buffer of F x 25 bytes
+// (X [F, 3] and dist [F] f32, k and f2 [F] i32, create [F] bool).
 
 #include <math.h>
 
@@ -29,7 +41,8 @@
 namespace {
 
 constexpr int POINT_THREADS = 128;
-constexpr int NBP = 15;  // per neighbour: R2 (9), t2 (3), o2 (3)
+constexpr int GROUP = 8;  // lanes a feature: its neighbour slots, strided by 8 beyond 8
+constexpr int FEATS = POINT_THREADS / GROUP;
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -42,17 +55,19 @@ struct Cam {
     float fx, fy, cx, cy;
 };
 
-// R^T ((u - cx) / fx, (v - cy) / fy, 1): a unit-depth ray in the world frame.
-__device__ __forceinline__ void ray_world(const Cam& c, const float* R, float2 p, float* d) {
+// R^T ((u - cx) / fx, (v - cy) / fy, 1): a unit-depth ray in the world frame
+// (T: a row-major 4x4 pose, R its upper-left 3x3).
+__device__ __forceinline__ void ray_world(const Cam& c, const float* T, float2 p, float* d) {
     const float x = __fdiv_rn(sub(p.x, c.cx), c.fx), y = __fdiv_rn(sub(p.y, c.cy), c.fy);
-    for (int i = 0; i < 3; ++i) d[i] = add(add(mul(R[i], x), mul(R[3 + i], y)), R[6 + i]);
+    for (int i = 0; i < 3; ++i) d[i] = add(add(mul(T[i], x), mul(T[4 + i], y)), T[8 + i]);
 }
 
-__device__ __forceinline__ void transform(const float* R, const float* t, const float* X,
-                                          float* p) {
+// R X + t of pose T.
+__device__ __forceinline__ void transform(const float* T, const float* X, float* p) {
     for (int i = 0; i < 3; ++i)
-        p[i] = add(add(add(mul(R[3 * i], X[0]), mul(R[3 * i + 1], X[1])), mul(R[3 * i + 2], X[2])),
-                   t[i]);
+        p[i] = add(add(add(mul(T[4 * i], X[0]), mul(T[4 * i + 1], X[1])),
+                       mul(T[4 * i + 2], X[2])),
+                   T[4 * i + 3]);
 }
 
 // Squared reprojection error of camera point p against pixel o.
@@ -66,72 +81,95 @@ __device__ __forceinline__ float reproj2(const Cam& c, const float* p, float2 o)
 __global__ void __launch_bounds__(POINT_THREADS) tri_points_kernel(
         const float2* __restrict__ xy_q, const int* __restrict__ oct_q,
         const float2* __restrict__ xy_t, const int* __restrict__ oct_t, int F, int K,
-        const int* __restrict__ match, const float* __restrict__ nbp,
-        const float* __restrict__ kfp, const float* __restrict__ scales, Cam c, float sf,
-        bool* __restrict__ create, int* __restrict__ k_out, int* __restrict__ f2_out,
-        float* __restrict__ X_out, float* __restrict__ dist_out) {
-    const int f = blockIdx.x * blockDim.x + threadIdx.x;
-    if (f >= F) return;
-    const float* R1 = kfp;
-    const float* t1 = kfp + 9;
-    const float* o1 = kfp + 12;
-    const float2 p1 = xy_q[f];
-    const float s1c = scales[oct_q[f]];
-    const float chi1 = mul(5.991f, mul(s1c, s1c));
-    float d1[3];
-    ray_world(c, R1, p1, d1);
-    const float n1 = sqrtf(dot3(d1, d1));
-    float best_err = INFINITY, bX[3] = {0.f, 0.f, 0.f}, bdist = 0.f;
-    int bk = 0, bj = 0;
-    for (int k = 0; k < K; ++k) {
-        const int j = match[(size_t)k * F + f];
-        if (j < 0) continue;
-        const float* P = nbp + k * NBP;
-        const float *R2 = P, *t2 = P + 9, *o2 = P + 12;
-        const size_t r = (size_t)k * F + j;
-        const float2 p2 = xy_t[r];
-        const float s2c = scales[oct_t[r]];
-        float d2[3];
-        ray_world(c, R2, p2, d2);
-        float rr[3];
-        for (int i = 0; i < 3; ++i) rr[i] = sub(o2[i], o1[i]);
-        const float a = dot3(d1, d1), b = dot3(d1, d2), cc = dot3(d2, d2);
-        const float e = dot3(d1, rr), g = dot3(d2, rr);
-        float den = sub(mul(a, cc), mul(b, b));
-        den = fabsf(den) < 1e-12f ? 1e-12f : den;
-        const float s1 = __fdiv_rn(sub(mul(cc, e), mul(b, g)), den);
-        const float s2 = __fdiv_rn(sub(mul(b, e), mul(a, g)), den);
-        float X[3], pc1[3], pc2[3], v1[3], v2[3];
-        for (int i = 0; i < 3; ++i)
-            X[i] = mul(0.5f, add(add(o1[i], mul(s1, d1[i])), add(o2[i], mul(s2, d2[i]))));
-        transform(R1, t1, X, pc1);
-        transform(R2, t2, X, pc2);
-        const float cospar = __fdiv_rn(dot3(d1, d2), fmaxf(mul(n1, sqrtf(dot3(d2, d2))), 1e-9f));
-        const float e1 = reproj2(c, pc1, p1), e2 = reproj2(c, pc2, p2);
-        for (int i = 0; i < 3; ++i) {
-            v1[i] = sub(X[i], o1[i]);
-            v2[i] = sub(X[i], o2[i]);
-        }
-        const float dist1 = sqrtf(dot3(v1, v1)), dist2 = sqrtf(dot3(v2, v2));
-        const float ratio_d = __fdiv_rn(dist1, fmaxf(dist2, 1e-9f));
-        const float ratio_o = __fdiv_rn(s2c, s1c);
-        const bool ok = pc1[2] > 0.f && pc2[2] > 0.f && cospar < 0.9998f && e1 < chi1 &&
-                        e2 < mul(5.991f, mul(s2c, s2c)) &&
-                        ratio_d < mul(mul(ratio_o, 1.5f), sf) &&
-                        mul(mul(ratio_d, 1.5f), sf) > ratio_o;
-        if (!ok) continue;
-        const float err = add(e1, e2);
-        if (err < best_err) {
-            best_err = err;
-            bk = k;
-            bj = j;
-            bdist = dist1;
-            for (int i = 0; i < 3; ++i) bX[i] = X[i];
+        const int* __restrict__ match, const float* __restrict__ Tcw,
+        const int* __restrict__ nb_rows, int q, const float* __restrict__ o1g,
+        const float* __restrict__ o2g, const float* __restrict__ scales, Cam c, float sf,
+        unsigned char* __restrict__ out) {
+    const int g = threadIdx.x % GROUP;
+    const int f = blockIdx.x * FEATS + threadIdx.x / GROUP;
+    const bool live = f < F;
+    // Best (error bits << 32 | slot) of this lane's slots: errors are sums of
+    // squares, so their f32 bits order as the values; failed pairs are +inf.
+    unsigned long long best = ~0ull;
+    float bX[3] = {0.f, 0.f, 0.f}, bdist = 0.f;
+    int bj = 0;
+    if (live) {
+        xy_q += (size_t)q * F;
+        oct_q += (size_t)q * F;
+        const float* T1 = Tcw + (size_t)q * 16;
+        const float o1[3] = {o1g[0], o1g[1], o1g[2]};
+        const float2 p1 = xy_q[f];
+        const float s1c = scales[oct_q[f]];
+        const float chi1 = mul(5.991f, mul(s1c, s1c));
+        float d1[3];
+        ray_world(c, T1, p1, d1);
+        const float n1 = sqrtf(dot3(d1, d1));
+        for (int k = g; k < K; k += GROUP) {
+            const int j = match[(size_t)k * F + f];
+            if (j < 0) continue;
+            const float* T2 = Tcw + (size_t)nb_rows[k] * 16;
+            const float o2[3] = {o2g[3 * k], o2g[3 * k + 1], o2g[3 * k + 2]};
+            const size_t r = (size_t)k * F + j;
+            const float2 p2 = xy_t[r];
+            const float s2c = scales[oct_t[r]];
+            float d2[3];
+            ray_world(c, T2, p2, d2);
+            float rr[3];
+            for (int i = 0; i < 3; ++i) rr[i] = sub(o2[i], o1[i]);
+            const float a = dot3(d1, d1), b = dot3(d1, d2), cc = dot3(d2, d2);
+            const float e = dot3(d1, rr), gg = dot3(d2, rr);
+            float den = sub(mul(a, cc), mul(b, b));
+            den = fabsf(den) < 1e-12f ? 1e-12f : den;
+            const float s1 = __fdiv_rn(sub(mul(cc, e), mul(b, gg)), den);
+            const float s2 = __fdiv_rn(sub(mul(b, e), mul(a, gg)), den);
+            float X[3], pc1[3], pc2[3], v1[3], v2[3];
+            for (int i = 0; i < 3; ++i)
+                X[i] = mul(0.5f, add(add(o1[i], mul(s1, d1[i])), add(o2[i], mul(s2, d2[i]))));
+            transform(T1, X, pc1);
+            transform(T2, X, pc2);
+            const float cospar =
+                __fdiv_rn(dot3(d1, d2), fmaxf(mul(n1, sqrtf(dot3(d2, d2))), 1e-9f));
+            const float e1 = reproj2(c, pc1, p1), e2 = reproj2(c, pc2, p2);
+            for (int i = 0; i < 3; ++i) {
+                v1[i] = sub(X[i], o1[i]);
+                v2[i] = sub(X[i], o2[i]);
+            }
+            const float dist1 = sqrtf(dot3(v1, v1)), dist2 = sqrtf(dot3(v2, v2));
+            const float ratio_d = __fdiv_rn(dist1, fmaxf(dist2, 1e-9f));
+            const float ratio_o = __fdiv_rn(s2c, s1c);
+            const bool ok = pc1[2] > 0.f && pc2[2] > 0.f && cospar < 0.9998f && e1 < chi1 &&
+                            e2 < mul(5.991f, mul(s2c, s2c)) &&
+                            ratio_d < mul(mul(ratio_o, 1.5f), sf) &&
+                            mul(mul(ratio_d, 1.5f), sf) > ratio_o;
+            if (!ok) continue;
+            const unsigned long long key =
+                ((unsigned long long)__float_as_uint(add(e1, e2)) << 32) | (unsigned int)k;
+            if (key < best) {  // a lane's slots rise, so a tie keeps the lower slot
+                best = key;
+                bj = j;
+                bdist = dist1;
+                for (int i = 0; i < 3; ++i) bX[i] = X[i];
+            }
         }
     }
-    const bool made = best_err < INFINITY;
+    unsigned long long win = best;
+#pragma unroll
+    for (int o = GROUP / 2; o > 0; o >>= 1) {
+        const unsigned long long other = __shfl_xor_sync(0xffffffffu, win, o);
+        win = other < win ? other : win;
+    }
+    if (!live) return;
+    const bool made = win != ~0ull;
+    // The lane that holds the winning slot writes; lane 0 of the group when
+    // no slot passed.
+    if (made ? win != best : g != 0) return;
+    float* X_out = reinterpret_cast<float*>(out);
+    float* dist_out = X_out + 3 * (size_t)F;
+    int* k_out = reinterpret_cast<int*>(dist_out + F);
+    int* f2_out = k_out + F;
+    bool* create = reinterpret_cast<bool*>(f2_out + F);
     create[f] = made;
-    k_out[f] = bk;
+    k_out[f] = made ? (int)(win & 0xffffffffu) : 0;
     f2_out[f] = made ? bj : 0;
     dist_out[f] = bdist;
     for (int i = 0; i < 3; ++i) X_out[3 * f + i] = bX[i];
@@ -140,16 +178,20 @@ __global__ void __launch_bounds__(POINT_THREADS) tri_points_kernel(
 }  // namespace
 
 // Triangulation, gates and the neighbour choice of each of the F features of
-// the keyframe (xy_q, oct_q [F]) against its K neighbours (xy_t, oct_t
-// [K, F]), from the accepted matches `match` [K, F] (-1: none).
+// keyframe row q (row q of the map's xy_q, oct_q [N, F]) against its K
+// neighbours (rows nb_rows [K]; their features xy_t, oct_t [K, F]), from the
+// accepted matches `match` [K, F] (-1: none); poses from the map's Tcw
+// [N, 4, 4], camera centres o1 [3] and o2 [K, 3]. out: F x 25 bytes, X [F, 3] and dist [F] f32, k and f2 [F] i32,
+// create [F] bool, in that order.
 C_ENTRY int tri_points(const float* xy_q, const int* oct_q, const float* xy_t, const int* oct_t,
-                       int F, int K, const int* match, const float* nbp, const float* kfp,
-                       const float* scales, float fx, float fy, float cx, float cy, float sf,
-                       bool* create, int* k_out, int* f2_out, float* X_out, float* dist_out,
+                       int F, int K, const int* match, const float* Tcw, const int* nb_rows,
+                       int q, const float* o1, const float* o2, const float* scales, float fx,
+                       float fy, float cx, float cy, float sf, unsigned char* out,
                        cudaStream_t stream) {
-    tri_points_kernel<<<(F + POINT_THREADS - 1) / POINT_THREADS, POINT_THREADS, 0, stream>>>(
-        reinterpret_cast<const float2*>(xy_q), oct_q, reinterpret_cast<const float2*>(xy_t),
-        oct_t, F, K, match, nbp, kfp, scales, Cam{fx, fy, cx, cy}, sf, create, k_out, f2_out,
-        X_out, dist_out);
+    if (F < 0 || K < 0 || q < 0) return (int)cudaErrorInvalidValue;
+    if (F > 0)
+        tri_points_kernel<<<(F + FEATS - 1) / FEATS, POINT_THREADS, 0, stream>>>(
+            reinterpret_cast<const float2*>(xy_q), oct_q, reinterpret_cast<const float2*>(xy_t),
+            oct_t, F, K, match, Tcw, nb_rows, q, o1, o2, scales, Cam{fx, fy, cx, cy}, sf, out);
     return (int)cudaGetLastError();
 }

@@ -2,10 +2,12 @@
 (port of `corbslam_tpu/frontend/frame.py`).
 
 `build_frame_stereo` runs both images through the ORB kernels as one batch
-of two, matches them with the stereo kernel and undistorts the left
-keypoints; `build_frame_rgbd` reads a registered depth map at the raw
-keypoints (K4's `rgbd_stereo` entry); `build_frame_mono` leaves u_right -1
-and depth 0. Inputs are numpy arrays or tensors; `device` defaults to "cuda".
+of two and matches them with the stereo kernel; `build_frame_rgbd` reads a
+registered depth map at the raw keypoints; `build_frame_mono` leaves
+u_right -1 and depth 0. Each finishes its keypoints with one call of
+`stereo.finish_keypoints` (undistortion, and the RGB-D depth read or the
+mono fill): one launch of K4's `finish_keypoints` entry on the card. Inputs
+are numpy arrays or tensors; `device` defaults to "cuda".
 """
 
 from __future__ import annotations
@@ -59,23 +61,18 @@ def build_frame_stereo(img_l, img_r, cam: cam_mod.Intrinsics, cfg: OrbConfig,
     f = orb.extract_batch(imgs, prm)
     fl, fr = f.select(0), f.select(1)
     m = stereo.stereo_match(fl, fr, prm.scales, float(cam.bf))
-    return _frame(fl, cam_mod.undistort_points(cam, fl.xy), m.u_right, m.depth)
+    return _frame(fl, stereo.finish_keypoints(cam, fl.xy).xy_und, m.u_right, m.depth)
 
 
 def build_frame_rgbd(img, depth_map, cam: cam_mod.Intrinsics, cfg: OrbConfig,
                      device="cuda") -> FrameData:
     f = orb.extract(img, cfg, device)
     dmap = orb.as_images([depth_map], f.xy.device)[0]
-    xy_und = cam_mod.undistort_points(cam, f.xy)
-    r = stereo.compute_stereo_from_rgbd(dmap, f.xy, f.valid, float(cam.bf), xy_und=xy_und)
-    return _frame(f, xy_und, r.u_right, r.depth)
+    r = stereo.finish_keypoints(cam, f.xy, f.valid, dmap, mode="rgbd")
+    return _frame(f, r.xy_und, r.u_right, r.depth)
 
 
 def build_frame_mono(img, cam: cam_mod.Intrinsics, cfg: OrbConfig, device="cuda") -> FrameData:
     f = orb.extract(img, cfg, device)
-    F = f.xy.shape[0]
-    return _frame(
-        f, cam_mod.undistort_points(cam, f.xy),
-        torch.full((F,), -1.0, dtype=torch.float32, device=f.xy.device),
-        torch.zeros(F, dtype=torch.float32, device=f.xy.device),
-    )
+    r = stereo.finish_keypoints(cam, f.xy, mode="mono")
+    return _frame(f, r.xy_und, r.u_right, r.depth)

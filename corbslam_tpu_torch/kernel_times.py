@@ -1,8 +1,9 @@
-"""K14's and B17's, K10's and K12's, K3's and K10's, K1's and K4's, K2's and K6's, K5's
-and K11's, K7's and K8's calls and launches, timed on the card.
+"""K4's finishing entry and K13's, K14's and B17's, K10's and K12's, K3's and
+K10's, K1's and K4's, K2's and K6's, K5's and K11's, K7's and K8's calls and
+launches, timed on the card.
 
     python -m corbslam_tpu_torch.kernel_times [--out PATH]
-        [--parts k14b17,k10k12,k3k10,k1k4,k6k2,k6sweep,k11k5,k7k8]
+        [--parts k4rk13,k14b17,k10k12,k3k10,k1k4,k6k2,k6sweep,k11k5,k7k8]
 
 Run from the root of a checkout (it drives the phases of `chip_smoke.py`
 there for its inputs): the tracking path (frame 12's K5 and K6 calls and
@@ -13,6 +14,16 @@ problem) and the e2e stereo lap (its first GBA chunk's problem); it keeps
 the tracker's and the 2.5-lap orbit's frame times (asynchronous global BA
 beside the tracker). `--parts` picks what to time (default all). Then:
 
+- K4's `finish_keypoints` (`stereo.finish_keypoints`, which finishes every
+  frame's keypoints) on the flagship's stereo frame (the entry pair's left
+  features), the last RGB-D frame with its depth map and a mono frame, and
+  K13 (`triangulation.points`) on the mono run's first create_new_points
+  call (`chip_smoke.run_sensor_phase`): replayed graphs, host-inclusive
+  CUDA events, launches a call (by launch counter and by torch.profiler)
+  and hashes of the outputs; then the device time, launches and idle share
+  a frame of the flagship tracker, the RGB-D tracker and the mono tracker
+  (`profile_frame --tracker`, `--rgbd`, `--mono`) with the finishing work's
+  and K13's share (k4rk13);
 - K14 (`vocab.kmajority`) at its four shapes (`km_shapes`: the e2e
   fixture's training, level 1 and level 2 of `train_hierarchical` on the
   full-width corpus, `build_tree`'s k-majority over vocab32k): CUDA events
@@ -1023,6 +1034,58 @@ def time_k8(cam, pb, n_iters: int, cg: int, huber: int, graph_ms, counter="ba_de
                     lambda: ba_dense.build_point_major(pb.obs_mp, pb.obs_active, P, K, counter)))
 
 
+def time_k4r_k13(cs) -> dict:
+    """K4's finish_keypoints on the three sensors' frames and K13 on the mono
+    run's first create_new_points call (replayed graph, host-inclusive
+    events, launches a call, torch.profiler's kernels a call, output
+    hashes), and the three trackers' device time a frame."""
+    from . import profile_frame
+    from .mapping import triangulation
+    from .ops import orb, stereo
+
+    dev = torch.device("cuda")
+    _, entry_imgs = cs.entry("cuda")
+    imgs = orb.as_images(list(entry_imgs), dev)
+    fl = orb.extract_batch(imgs, orb.params(cs.CFG, imgs.shape[1], imgs.shape[2],
+                                            "cuda")).select(0)
+    mono = cs.run_sensor_phase("mono")
+    te = mono["te"]
+    T = cs.gt_pose(cs.RGBD_FRAMES - 1)
+    dmap = te.world.depth(T).contiguous()
+    fr = orb.extract(te.world.render(T), cs.CFG, "cuda")
+    fm = orb.extract(te.world.render(cs.gt_pose(0)), cs.CFG, "cuda")
+    out = {}
+
+    def timed(call, counter):
+        res = call()
+        torch.cuda.synchronize()
+        return dict(graph_ms=cs.graph_ms(call), host_ms=cs.host_ms(call),
+                    launches_per_call=cs.launches_of(call, counter),
+                    profiler=device_per_frame(call, 20, top=None),
+                    outputs_hash=digest(*(t for t in res if t is not None)))
+
+    for name, args in (("stereo", (cs.CAM, fl.xy, fl.valid, None, "stereo")),
+                       ("rgbd", (cs.CAM, fr.xy, fr.valid, dmap, "rgbd")),
+                       ("mono", (cs.CAM, fm.xy, fm.valid, None, "mono"))):
+        out[f"finish_{name}"] = timed(lambda a=args: stereo.finish_keypoints(*a),
+                                      "finish_keypoints")
+    m, q, cfg = mono["kept"]["tri_map"], mono["kept"]["tri_kf"], mono["tracker"].cfg
+    st = triangulation.setup(cs.CAM, m, q, cfg)
+    nbf = triangulation.neighbours(m, st)
+    match = triangulation.search(m, st, nbf, cfg).idx
+    out["k13"] = timed(lambda: triangulation.points(cs.CAM, m, st, nbf, match, cfg),
+                       "triangulate")
+    out["k13"].update(K=int(match.shape[0]), F=int(match.shape[1]),
+                      matches=int((match >= 0).sum()))
+    del mono, te
+    watch = ("finish_keypoints", "tri_points", "elementwise")
+    for name, step in (("tracker", lambda: profile_frame.tracker_frames(10)),
+                       ("rgbd", lambda: profile_frame.sensor_frames("rgbd", 10)),
+                       ("mono", lambda: profile_frame.sensor_frames("mono", 10))):
+        out[f"{name}_device"] = device_per_frame(step(), 10, watch=watch, top=None)
+    return out
+
+
 def full_width_corpus(cs, te) -> torch.Tensor:
     """B16's full-width corpus: the valid descriptors of `build_frame_mono`
     (2048 features) over both images of bench frames 0 ..
@@ -1132,8 +1195,11 @@ def time_k14_b17(cs) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join("chiprun_out", "kernel_times.json"))
-    ap.add_argument("--parts", default="k14b17,k10k12,k3k10,k1k4,k6k2,k6sweep,k11k5,k7k8",
-                    help="k14b17: K14 at the e2e, level-1, level-2 and build_tree shapes, B17 "
+    ap.add_argument("--parts",
+                    default="k4rk13,k14b17,k10k12,k3k10,k1k4,k6k2,k6sweep,k11k5,k7k8",
+                    help="k4rk13: K4's finish_keypoints on the stereo, RGB-D and mono "
+                         "frames, K13 on the mono run's first triangulation, the flagship, "
+                         "RGB-D and mono trackers' device time; k14b17: K14 at the e2e, level-1, level-2 and build_tree shapes, B17 "
                          "on the flagship's final map, the tracker's device time; k10k12: "
                          "K10's PnP RANSAC at full width and on the loop orbit's LOST frame, "
                          "K12 on the mono bootstrap's attempt and a non-planar scene; "
@@ -1153,6 +1219,8 @@ def main() -> None:
     out = dict(nvidia_smi=cs.nvidia_smi_line(), device=torch.cuda.get_device_name(0))
     kernels.lib()
     dev = torch.device("cuda")
+    if "k4rk13" in parts:
+        out.update(time_k4r_k13(cs))
     if "k14b17" in parts:
         out.update(time_k14_b17(cs))
     if "k10k12" in parts:

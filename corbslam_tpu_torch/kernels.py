@@ -38,14 +38,14 @@ NVCC_FLAGS = [
 # "covisibility" counts the K7 launches of the mapping stages
 # (`mapstate.covisibility`) apart from the tracking step's ("local_map");
 # K10's launches count as "sim3" (a Sim3 attempt, or its RANSAC or refinement
-# alone) or "pnp"; K11's as
-# "pose_graph" or "covis_matrix" (the covisibility count); K4's RGB-D entry as
-# "rgbd_stereo"; K5's area-window mode (mono initialization) as "match_area"
-# and its epipolar-band mode (triangulation) as "match_band"; K12's as
+# alone) or "pnp"; K11's as "pose_graph" or "covis_matrix" (the covisibility
+# count); K4's entry that finishes every frame's keypoints as
+# "finish_keypoints"; K5's area-window mode (mono initialization) as
+# "match_area" and its epipolar-band mode (triangulation) as "match_band"; K12's as
 # "two_view", K13's as "triangulate"; K14's as "kmajority"; K8's launches
 # of global BA as "ba_dense_gba".
 LAUNCHES = {"pyramid": 0, "fast_cells": 0, "orb_describe": 0, "stereo_match": 0,
-            "rgbd_stereo": 0, "match_masked": 0, "match_area": 0, "match_band": 0,
+            "finish_keypoints": 0, "match_masked": 0, "match_area": 0, "match_band": 0,
             "pose_opt": 0, "local_map": 0, "covisibility": 0, "ba_dense": 0, "vocab": 0,
             "sim3": 0, "pnp": 0, "pose_graph": 0, "covis_matrix": 0, "two_view": 0,
             "triangulate": 0, "kmajority": 0, "ba_dense_gba": 0}
@@ -68,7 +68,7 @@ _SIGNATURES = {
     "orb_describe": [VP] * 11 + [I32] * 4 + [VP],
     # stereo_match.cu
     "stereo_match": [VP] * 11 + [I32] * 3 + [F32, I32, F32] + [VP] * 7 + [VP],
-    "rgbd_stereo": [VP, I32, I32] + [VP] * 3 + [I32, F32, F32] + [VP] * 3 + [VP],
+    "finish_keypoints": [VP] * 3 + [I32] * 4 + [F32] * 13 + [VP] * 4 + [VP],
     # match_masked.cu
     "match_select": [VP] * 10 + [F32] + [I32] * 7 + [F32, I32] + [VP] * 8 + [VP],
     # pose_opt.cu
@@ -104,7 +104,7 @@ _SIGNATURES = {
     # two_view.cu
     "two_view": [VP] * 3 + [I32, VP, I32, F32, I32] + [F32] * 4 + [VP] * 9 + [VP],
     # triangulate.cu
-    "tri_points": [VP] * 4 + [I32, I32] + [VP] * 4 + [F32] * 5 + [VP] * 5 + [VP],
+    "tri_points": [VP] * 4 + [I32, I32] + [VP] * 3 + [I32] + [VP] * 3 + [F32] * 5 + [VP] + [VP],
     # kmajority.cu
     "km_train": [VP] * 3 + [I32] * 4 + [VP] * 4 + [I32, VP] + [VP],
     "km_idf": [VP, I32, VP] + [VP],

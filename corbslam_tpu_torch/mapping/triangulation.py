@@ -115,7 +115,7 @@ def setup(cam, m: ms.MapState, q: int, cfg: SlamConfig, n_neighbors: int = N_NEI
     med = torch.where(torch.isfinite(med), med, torch.ones_like(med))
     T2 = m.kf.Tcw[nb_rows.long()]
     R2, t2 = se3.rotation(T2), se3.translation(T2)
-    o2 = -torch.einsum("kji,kj->ki", R2, t2)
+    o2 = (-torch.einsum("kji,kj->ki", R2, t2)).contiguous()
     base_ok = cam_mod.norm3(o2 - o1) / med.clamp_min(1e-6) > 0.01
     F12 = matcher.fundamental_from_poses(cam, T1, cam, T2)
     e2 = cam_mod.project(cam, se3.transform(T2, o1))
@@ -203,29 +203,34 @@ def points_plain(cam, m: ms.MapState, st: Setup, nbf: Neighbours, match: torch.T
 
 def _points_cuda(cam, m: ms.MapState, st: Setup, nbf: Neighbours, match: torch.Tensor,
                  cfg: SlamConfig) -> Candidates:
-    F, K = m.kf.n_features, st.nb_rows.shape[0]
+    F, K, N = m.kf.n_features, st.nb_rows.shape[0], m.kf.capacity
     dev = m.kf.xy.device
     chk = kernels.check
     for name, t, dt, shape in (("match", match, torch.int32, (K, F)),
-                               ("kf.xy", m.kf.xy[st.q], torch.float32, (F, 2)),
-                               ("kf.octave", m.kf.octave[st.q], torch.int32, (F,)),
+                               ("kf.xy", m.kf.xy, torch.float32, (N, F, 2)),
+                               ("kf.octave", m.kf.octave, torch.int32, (N, F)),
+                               ("kf.Tcw", m.kf.Tcw, torch.float32, (N, 4, 4)),
                                ("neighbour xy", nbf.xy, torch.float32, (K, F, 2)),
-                               ("neighbour octave", nbf.octave, torch.int32, (K, F))):
+                               ("neighbour octave", nbf.octave, torch.int32, (K, F)),
+                               ("nb_rows", st.nb_rows, torch.int32, (K,)),
+                               ("o1", st.o1, torch.float32, (3,)),
+                               ("o2", st.o2, torch.float32, (K, 3))):
         chk(t, name, dt, shape, dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    # Per neighbour: R2 (9), t2 (3), o2 (3); then the keyframe's R1, t1, o1.
-    nbp = torch.cat([st.R2.reshape(K, 9), st.t2, st.o2], dim=1).to(torch.float32).contiguous()
-    kfp = torch.cat([st.R1.reshape(9), st.t1, st.o1]).to(torch.float32).contiguous()
-    create = torch.empty(F, dtype=torch.bool, device=dev)
-    kk, f2 = (torch.empty(F, dtype=torch.int32, device=dev) for _ in range(2))
-    X, dist1 = torch.empty(F, 3, **f32), torch.empty(F, **f32)
+    if not 0 <= st.q < N:
+        raise ValueError(f"triangulate: keyframe row {st.q} outside 0..{N - 1}")
+    # One buffer of F x 25 bytes: X [F, 3] and dist1 [F] f32, k and f2 [F]
+    # i32, create [F] bool (the kernel reads the keyframe's row q of the map
+    # itself, and each neighbour's pose by its row).
+    out = torch.empty(F * 25, dtype=torch.uint8, device=dev)
     p = kernels.ptr
-    kernels.launch("triangulate", "tri_points", p(m.kf.xy[st.q]), p(m.kf.octave[st.q]),
-                   p(nbf.xy), p(nbf.octave), F, K, p(match), p(nbp), p(kfp),
-                   p(_scales(cfg.orb, str(dev))), float(cam.fx), float(cam.fy), float(cam.cx),
-                   float(cam.cy), float(cfg.orb.scale_factor), p(create), p(kk), p(f2), p(X),
-                   p(dist1))
-    return Candidates(create, kk, f2, X, dist1)
+    kernels.launch("triangulate", "tri_points", p(m.kf.xy), p(m.kf.octave), p(nbf.xy),
+                   p(nbf.octave), F, K, p(match), p(m.kf.Tcw), p(st.nb_rows), int(st.q),
+                   p(st.o1), p(st.o2), p(_scales(cfg.orb, str(dev))), float(cam.fx),
+                   float(cam.fy), float(cam.cx), float(cam.cy), float(cfg.orb.scale_factor),
+                   p(out))
+    X, dist1, k, f2, create = out.split_with_sizes((12 * F, 4 * F, 4 * F, 4 * F, F))
+    return Candidates(create.view(torch.bool), k.view(torch.int32), f2.view(torch.int32),
+                      X.view(torch.float32).view(F, 3), dist1.view(torch.float32))
 
 
 def points(cam, m: ms.MapState, st: Setup, nbf: Neighbours, match: torch.Tensor,

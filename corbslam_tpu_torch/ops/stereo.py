@@ -15,19 +15,23 @@ launch on CUDA inputs (the candidates bucketed by row, the SAD slide a warp
 a feature, the median cut by the last CTA, whose ticket word lives in
 `k4_workspace`), `stereo_match_plain` on CPU inputs.
 
-`compute_stereo_from_rgbd` (Frame::ComputeStereoFromRGBD, Frame.cc:647) reads
-a registered depth map at the raw keypoint rounded half to even, and takes
-u_right from the undistorted x; on CUDA inputs it is K4's `rgbd_stereo`
-entry (its own launch counter), on CPU inputs `compute_stereo_from_rgbd_plain`.
+`finish_keypoints` finishes a frame's keypoints for every sensor: the
+undistorted keypoints (`camera.undistort_points`), and for RGB-D the depth
+map read at the raw keypoint rounded half to even with u_right from the
+undistorted x (Frame::ComputeStereoFromRGBD, Frame.cc:647,
+`compute_stereo_from_rgbd`), for mono u_right -1 and depth 0. On CUDA
+inputs it is K4's `finish_keypoints` entry, one launch (its own launch
+counter), on CPU inputs `finish_keypoints_plain`.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from .. import kernels
+from ..geometry import camera as cam_mod
 from . import descriptors as D
 
 PATCH_W = 5  # half-width of the SAD window (11x11 like the reference)
@@ -156,9 +160,16 @@ class RgbdStereo(NamedTuple):
     ok: torch.Tensor       # [N] bool
 
 
-def compute_stereo_from_rgbd_plain(depth_map, xy, valid, bf: float, min_depth: float = 0.05,
-                                   xy_und=None) -> RgbdStereo:
-    """Plain version of K4's `rgbd_stereo`."""
+MIN_DEPTH = 0.05  # metres: a depth read at or under it is no depth (Frame.cc:647)
+
+
+def compute_stereo_from_rgbd(depth_map, xy, valid, bf: float, min_depth: float = MIN_DEPTH,
+                             xy_und=None) -> RgbdStereo:
+    """(u_right, depth, ok) of each feature from a registered depth map [h, w]:
+    depth at the raw keypoint `xy` rounded half to even and clamped into the
+    image; u_right = x_und - bf / max(d, min_depth) where valid and
+    d > min_depth, else -1 (depth 0). Plain PyTorch on any device: the RGB-D
+    half of `finish_keypoints_plain`."""
     if xy_und is None:
         xy_und = xy
     h, w = depth_map.shape
@@ -172,33 +183,68 @@ def compute_stereo_from_rgbd_plain(depth_map, xy, valid, bf: float, min_depth: f
     return RgbdStereo(u_right, torch.where(ok, d, torch.zeros_like(d)), ok)
 
 
-def _rgbd_cuda(depth_map, xy, valid, bf, min_depth, xy_und) -> RgbdStereo:
+FINISH_MODES = {"stereo": 0, "mono": 1, "rgbd": 2}  # the C entry's FINISH_* modes
+
+
+class Finished(NamedTuple):
+    xy_und: torch.Tensor             # [N, 2] f32 undistorted keypoints
+    u_right: Optional[torch.Tensor]  # [N] f32: rgbd from the depth map, mono -1, stereo None
+    depth: Optional[torch.Tensor]    # [N] f32: rgbd the depth read, mono 0, stereo None
+    ok: Optional[torch.Tensor]       # [N] bool: rgbd a depth above MIN_DEPTH, else None
+
+
+def finish_keypoints_plain(cam, xy, valid=None, depth_map=None, mode: str = "stereo") -> Finished:
+    """Plain version of K4's `finish_keypoints`: `camera.undistort_points`,
+    then `compute_stereo_from_rgbd` (rgbd) or the -1 / 0 fill (mono)."""
+    xy_und = cam_mod.undistort_points(cam, xy)
+    if mode == "stereo":
+        return Finished(xy_und, None, None, None)
+    if mode == "mono":
+        N = xy.shape[0]
+        return Finished(xy_und, torch.full((N,), -1.0, dtype=torch.float32, device=xy.device),
+                        torch.zeros(N, dtype=torch.float32, device=xy.device), None)
+    r = compute_stereo_from_rgbd(depth_map, xy, valid, float(cam.bf), xy_und=xy_und)
+    return Finished(xy_und, r.u_right, r.depth, r.ok)
+
+
+def _finish_cuda(cam, xy, valid, depth_map, mode) -> Finished:
     dev = xy.device
     N = xy.shape[0]
-    h, w = depth_map.shape
-    kernels.check(depth_map, "depth_map", torch.float32, (h, w), dev)
     kernels.check(xy, "xy", torch.float32, (N, 2), dev)
-    kernels.check(xy_und, "xy_und", torch.float32, (N, 2), dev)
-    kernels.check(valid, "valid", torch.bool, (N,), dev)
-    u_right = torch.empty(N, dtype=torch.float32, device=dev)
-    depth = torch.empty(N, dtype=torch.float32, device=dev)
-    ok = torch.empty(N, dtype=torch.bool, device=dev)
-    p = kernels.ptr
-    kernels.launch("rgbd_stereo", "rgbd_stereo", p(depth_map), h, w, p(xy), p(xy_und), p(valid),
-                   N, float(bf), float(min_depth), p(u_right), p(depth), p(ok))
-    return RgbdStereo(u_right, depth, ok)
+    h = w = 0
+    if mode == "rgbd":
+        h, w = depth_map.shape
+        kernels.check(depth_map, "depth_map", torch.float32, (h, w), dev)
+        kernels.check(valid, "valid", torch.bool, (N,), dev)
+    xy_und = torch.empty(N, 2, dtype=torch.float32, device=dev)
+    u_right = depth = ok = None
+    if mode != "stereo":
+        u_right = torch.empty(N, dtype=torch.float32, device=dev)
+        depth = torch.empty(N, dtype=torch.float32, device=dev)
+    if mode == "rgbd":
+        ok = torch.empty(N, dtype=torch.bool, device=dev)
+    p = lambda t: None if t is None else kernels.ptr(t)  # noqa: E731
+    k1, k2, p1, p2, k3 = cam.dist
+    kernels.launch("finish_keypoints", "finish_keypoints", p(xy),
+                   p(valid if mode == "rgbd" else None), p(depth_map if mode == "rgbd" else None),
+                   h, w, N, FINISH_MODES[mode], cam.fx, cam.fy, cam.cx, cam.cy, k1, k2, p1, p2,
+                   k3, 2 * p1, 2 * p2, float(cam.bf), MIN_DEPTH, p(xy_und), p(u_right),
+                   p(depth), p(ok))
+    return Finished(xy_und, u_right, depth, ok)
 
 
-def compute_stereo_from_rgbd(depth_map, xy, valid, bf: float, min_depth: float = 0.05,
-                             xy_und=None) -> RgbdStereo:
-    """(u_right, depth, ok) of each feature from a registered depth map [h, w]:
-    depth at the raw keypoint `xy` rounded half to even and clamped into the
-    image; u_right = x_und - bf / max(d, min_depth) where valid and
-    d > min_depth, else -1 (depth 0)."""
-    if xy_und is None:
-        xy_und = xy
+def finish_keypoints(cam, xy, valid=None, depth_map=None, mode: str = "stereo") -> Finished:
+    """The one step that finishes a frame's raw level-0 keypoints `xy` [N, 2]:
+    undistorted by the camera, and by `mode`: "stereo" nothing more (K4's
+    `stereo_match` gives u_right and depth), "mono" u_right -1 / depth 0,
+    "rgbd" (u_right, depth, ok) from the registered depth map [h, w] at the
+    raw keypoints (`compute_stereo_from_rgbd`; `valid` [N] the features').
+    Kernel K4's `finish_keypoints` entry on CUDA keypoints, the plain
+    version on CPU keypoints."""
+    if mode not in FINISH_MODES:
+        raise ValueError(f"finish_keypoints: mode {mode!r} not in {sorted(FINISH_MODES)}")
     if xy.is_cuda:
-        return _rgbd_cuda(depth_map, xy, valid, bf, min_depth, xy_und)
+        return _finish_cuda(cam, xy, valid, depth_map, mode)
     if xy.device.type == "cpu":
-        return compute_stereo_from_rgbd_plain(depth_map, xy, valid, bf, min_depth, xy_und)
+        return finish_keypoints_plain(cam, xy, valid, depth_map, mode)
     raise ValueError(f"unsupported device {xy.device}")

@@ -1,6 +1,7 @@
 """Where a stereo frame's time goes on the card.
 
-    python -m corbslam_tpu_torch.profile_frame [--frames 10] [--trace PATH] [--track | --tracker]
+    python -m corbslam_tpu_torch.profile_frame [--frames 10] [--trace PATH]
+        [--track | --tracker | --rgbd | --mono]
 
 Without `--track`: runs `build_frame_stereo` at the flagship geometry
 (1241x376, 2048 features, 8 levels) on the entry input, warms up, then
@@ -17,6 +18,13 @@ frames_per_dispatch=2): the warm part of the bench schedule (6 frames, 6
 forced keyframes, 12 frames, flush), then `--frames` further frames of the
 schedule go through `process_stereo` under the trace, with their mapping
 stages, ending with the window's flush.
+
+With `--rgbd` or `--mono`: the RGB-D or the monocular tracker of
+`entry.sensor_entry` (the flagship's camera, config and world; one
+`process_rgbd` / `process_mono` call a frame): frames 0..9 of the bench
+trajectory warm up (mono bootstraps at frame 5), then `--frames` further
+frames go through the tracker under the trace, with their mapping stages,
+ending with a flush.
 
 Either way the trace is torch.profiler's (CPU + CUDA activities), and one
 JSON object is printed: the wall time per frame, the device time per frame
@@ -38,6 +46,7 @@ import torch
 from . import entry as entry_mod
 
 WARM_FRAMES = 5
+SENSOR_WARM = 10  # sensor frames before the trace (mono bootstraps at frame 5)
 
 
 def tracked_frames(n: int):
@@ -76,6 +85,35 @@ def tracker_frames(n: int):
     return step
 
 
+def sensor_frames(sensor: str, n: int):
+    """A callable that feeds the next bench frame to the RGB-D or mono
+    tracker of `entry.sensor_entry` after SENSOR_WARM frames (the last call
+    also flushes); images and depth maps are pre-rendered."""
+    tracker, te = entry_mod.sensor_entry("cuda")
+    total = SENSOR_WARM + n
+    frames = [(te.world.render(T), te.world.depth(T) if sensor == "rgbd" else None)
+              for T in map(entry_mod.gt_pose, range(total))]
+
+    def feed(i):
+        img, depth = frames[i]
+        if sensor == "rgbd":
+            tracker.process_rgbd(img, depth, i * 0.1)
+        else:
+            tracker.process_mono(img, i * 0.1)
+
+    for i in range(SENSOR_WARM):
+        feed(i)
+    nxt = iter(range(SENSOR_WARM, total))
+
+    def step():
+        i = next(nxt)
+        feed(i)
+        if i == total - 1:
+            tracker.flush()
+
+    return step
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=10)
@@ -85,11 +123,19 @@ def main() -> None:
                       help="profile the tracked frame (track_frame_stereo) instead of the front end")
     mode.add_argument("--tracker", action="store_true",
                       help="profile the flagship StereoTracker's frames, mapping stages included")
+    mode.add_argument("--rgbd", action="store_true",
+                      help="profile the RGB-D tracker's frames (entry.sensor_entry)")
+    mode.add_argument("--mono", action="store_true",
+                      help="profile the monocular tracker's frames after its bootstrap")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame: needs a CUDA device")
+    mode_name = next(m for m in ("tracker", "track", "rgbd", "mono", "front_end")
+                     if m == "front_end" or getattr(args, m))
     if args.tracker:
         step = tracker_frames(args.frames)
+    elif args.rgbd or args.mono:
+        step = sensor_frames(mode_name, args.frames)
     elif args.track:
         step = tracked_frames(args.frames)
     else:
@@ -115,7 +161,7 @@ def main() -> None:
     rows = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
     out = dict(
         device=torch.cuda.get_device_name(0),
-        mode="tracker" if args.tracker else "track" if args.track else "front_end",
+        mode=mode_name,
         frames=args.frames,
         wall_ms_per_frame=wall_ms, device_ms_per_frame=device_ms,
         device_idle_share=max(0.0, 1.0 - device_ms / wall_ms) if wall_ms else None,

@@ -1,11 +1,19 @@
 """Parity of the port's frame builders (plain PyTorch path, CPU) with the JAX
 reference: small stereo and mono frames, and one full-width stereo frame on
-the input of `__graft_entry__.entry()` (1241x376, 2048 features, 8 levels).
+the input of `__graft_entry__.entry()` (1241x376, 2048 features, 8 levels);
+and of `stereo.finish_keypoints_plain` (the plain version of K4's
+`finish_keypoints`, which finishes every frame's keypoints) in its three
+modes with and without distortion.
 
 Tolerances and why: pyramid levels >= 1 differ by float rounding (<= 1e-3),
 which can reorder equal-looking FAST ranks and flip a rare keypoint, so
 features are paired by (octave, x, y); counts agree within 1 %, paired
-keypoints' undistorted xy and u_right within 1e-2 px.
+keypoints' undistorted xy and u_right within 1e-2 px. `finish_keypoints_plain`
+against JAX's `undistort_points` and `compute_stereo_from_rgbd`: elementwise
+f32 in the same order, within 1e-4 (1e-6 relative to values of up to ~1e3);
+the depth read, `ok` and the -1 / 0 fill exact. Against the port's own
+`undistort_points` and `compute_stereo_from_rgbd` it is the same arithmetic
+on the same device: bit for bit.
 """
 
 import jax
@@ -19,11 +27,13 @@ from corbslam_tpu.config import OrbConfig as JOrbConfig
 from corbslam_tpu.frontend import frame as jframe
 from corbslam_tpu.geometry import camera as jcamera
 from corbslam_tpu.io import synthetic as jsynthetic
+from corbslam_tpu.ops import stereo as jstereo
 from corbslam_tpu_torch import entry as port_entry
 from corbslam_tpu_torch import interop
 from corbslam_tpu_torch.config import OrbConfig
 from corbslam_tpu_torch.frontend import frame
 from corbslam_tpu_torch.geometry import camera
+from corbslam_tpu_torch.ops import stereo
 
 torch.set_num_threads(2)
 
@@ -141,3 +151,68 @@ def test_camera_functions_equal_the_reference():
     for k, v in got.items():
         np.testing.assert_allclose(v.numpy(), ref[k], rtol=1e-6, atol=1e-4, err_msg=k)
     np.testing.assert_array_equal(cam.K.numpy(), np.asarray(_cams(376, 1241, DIST)[0].K))
+
+
+def _finish_inputs(h=240, w=320, N=300, seed=6):
+    """Keypoints inside and around an image (32 on a half pixel, some on the
+    border), 10 % invalid, and a depth map with rows under the 0.05 m minimum."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(-2.0, [w + 2, h + 2], (N, 2)).astype(np.float32)
+    xy[:32] = np.floor(xy[:32]) + 0.5
+    xy[32:36] = [[-0.5, -0.5], [w - 0.5, h - 0.5], [0.5, h - 1.5], [w - 1.5, 0.5]]
+    dmap = rng.uniform(0.0, 5.0, (h, w)).astype(np.float32)
+    dmap[::7] = 0.03
+    return xy, rng.uniform(size=N) > 0.1, dmap
+
+
+@pytest.mark.parametrize("dist", [None, DIST], ids=["rectified", "distorted"])
+@pytest.mark.parametrize("mode", ["stereo", "mono", "rgbd"])
+def test_finish_keypoints_plain_equals_the_reference(mode, dist):
+    """undistort_points (geometry/camera.py:111) and, for RGB-D,
+    compute_stereo_from_rgbd (ops/stereo.py:104) of JAX; mono's -1 / 0."""
+    h, w = 240, 320
+    jcam, cam = _cams(h, w, dist)
+    xy, valid, dmap = _finish_inputs(h, w)
+    got = stereo.finish_keypoints_plain(cam, torch.from_numpy(xy), torch.from_numpy(valid),
+                                        torch.from_numpy(dmap), mode)
+    und = np.asarray(jcamera.undistort_points(jcam, jnp.asarray(xy)))
+    np.testing.assert_allclose(got.xy_und.numpy(), und, rtol=1e-6, atol=1e-4)
+    if dist is not None:
+        assert np.abs(und - xy).max() > 0.1  # the distortion moves keypoints
+    if mode == "stereo":
+        assert got.u_right is None and got.depth is None and got.ok is None
+    elif mode == "mono":
+        assert (got.u_right.numpy() == -1).all() and (got.depth.numpy() == 0).all()
+        assert got.ok is None
+    else:
+        ur, d, ok = (np.asarray(a) for a in jstereo.compute_stereo_from_rgbd(
+            jnp.asarray(dmap), jnp.asarray(xy), jnp.asarray(valid), _cams(h, w)[0].bf,
+            xy_und=jnp.asarray(und)))
+        assert np.array_equal(got.ok.numpy(), ok) and 0 < ok.sum() < len(ok)
+        assert np.array_equal(got.depth.numpy(), d)
+        assert np.array_equal(got.u_right.numpy() == -1, ur == -1)
+        np.testing.assert_allclose(got.u_right.numpy(), ur, rtol=1e-6, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["stereo", "mono", "rgbd"])
+def test_finish_keypoints_is_undistortion_then_the_depth_read(mode):
+    """On CPU keypoints `finish_keypoints` is its plain version, and that is
+    the port's `undistort_points` followed by `compute_stereo_from_rgbd`
+    (RGB-D) or the -1 / 0 fill (mono), bit for bit: what `build_frame_*`
+    computed before one call of it finished their keypoints."""
+    _, cam = _cams(240, 320, DIST)
+    xy, valid, dmap = (torch.from_numpy(a) for a in _finish_inputs())
+    got = stereo.finish_keypoints(cam, xy, valid, dmap, mode)
+    plain = stereo.finish_keypoints_plain(cam, xy, valid, dmap, mode)
+    und = camera.undistort_points(cam, xy)
+    assert torch.equal(got.xy_und, und) and torch.equal(plain.xy_und, und)
+    if mode == "rgbd":
+        want = stereo.compute_stereo_from_rgbd(dmap, xy, valid, float(cam.bf), xy_und=und)
+    elif mode == "mono":
+        want = (torch.full((xy.shape[0],), -1.0), torch.zeros(xy.shape[0]), None)
+    else:
+        want = (None, None, None)
+    for a, b, c in zip(got[1:], plain[1:], want):
+        assert (a is b is c is None) or (torch.equal(a, c) and torch.equal(b, c))
+    with pytest.raises(ValueError, match="mode"):
+        stereo.finish_keypoints(cam, xy, mode="depth")

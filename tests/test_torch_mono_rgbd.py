@@ -1,6 +1,8 @@
 """The port's RGB-D and monocular paths against corbslam_tpu on the CPU:
-`ops.stereo.compute_stereo_from_rgbd` (the plain version of K4's
-`rgbd_stereo` entry), `frontend.frame.build_frame_rgbd`,
+`ops.stereo.compute_stereo_from_rgbd` and `finish_keypoints_plain` in its
+RGB-D mode on the planar world's depth map (the plain version of K4's
+`finish_keypoints` entry, which finishes every frame's keypoints),
+`frontend.frame.build_frame_rgbd`,
 `io.synthetic.PlanarWorld.depth`, and the whole `StereoTracker` through
 `process_rgbd` and `process_mono` at the size of tests/test_pipeline.py
 (320x240, 512 features, 4 levels, capacities 64 / 8192, 16 frames of its
@@ -83,6 +85,32 @@ def test_compute_stereo_from_rgbd_equals_the_reference(rng):
     assert np.array_equal(ours.ok.numpy(), np.asarray(ref[2])) and 0 < ours.ok.sum() < N
     assert np.array_equal(ours.depth.numpy(), np.asarray(ref[1]))
     np.testing.assert_allclose(ours.u_right.numpy(), np.asarray(ref[0]), rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("dist", [None, (0.02, -0.004, 0.0007, -0.0004, 0.0009)],
+                         ids=["rectified", "distorted"])
+def test_finish_keypoints_rgbd_equals_the_reference(world, rng, dist):
+    """`finish_keypoints_plain` in RGB-D mode on a rendered depth map against
+    JAX's undistort_points then compute_stereo_from_rgbd: the depth read and
+    ok exact, undistorted keypoints within 1e-4 px, u_right within 2e-5 px
+    of the reference's on the same undistorted x."""
+    dref = np.asarray(world.depth(gt_pose(5, 0.12)))
+    xy = rng.uniform(-1.0, [321.0, 241.0], (512, 2)).astype(np.float32)
+    xy[:64] = np.floor(xy[:64]) + 0.5
+    valid = rng.uniform(size=512) > 0.1
+    jcam = jcamera.Intrinsics.create(**KW, dist=dist)
+    got = stereo.finish_keypoints_plain(camera.Intrinsics.create(**KW, dist=dist),
+                                        torch.from_numpy(xy), torch.from_numpy(valid),
+                                        torch.from_numpy(dref), "rgbd")
+    und = jcamera.undistort_points(jcam, jnp.asarray(xy))
+    ur, d, ok = (np.asarray(a) for a in jstereo.compute_stereo_from_rgbd(
+        jnp.asarray(dref), jnp.asarray(xy), jnp.asarray(valid), JCAM.bf, xy_und=und))
+    np.testing.assert_allclose(got.xy_und.numpy(), np.asarray(und), rtol=0, atol=1e-4)
+    assert np.array_equal(got.ok.numpy(), ok) and 0.8 * valid.sum() < ok.sum() <= valid.sum()
+    assert np.array_equal(got.depth.numpy(), d)
+    u = got.xy_und[:, 0].numpy() - np.float32(JCAM.bf) / np.maximum(d, np.float32(0.05))
+    np.testing.assert_allclose(got.u_right.numpy(), np.where(ok, u, -1.0), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(got.u_right.numpy(), ur, rtol=0, atol=1e-4)
 
 
 def test_depth_map_and_rgbd_frame_equal_the_reference(world):

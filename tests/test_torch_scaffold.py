@@ -312,7 +312,7 @@ def test_chip_smoke_fails_without_cuda():
                                      "window_mask", "compact", "vocab_assign", "l1_scores",
                                      "sim3_ransac", "sim3_refine", "sim3_attempt", "pnp_ransac",
                                      "pose_graph",
-                                     "covis_matrix", "rgbd_stereo", "two_view", "band_search",
+                                     "covis_matrix", "finish_keypoints", "two_view", "band_search",
                                      "triangulate", "kmajority", "km_idf", "assign_flat"])
 def test_wrappers_refuse_devices_other_than_cpu_and_cuda(wrapper):
     """A wrapper takes its plain version only for a CPU tensor; a tensor on
@@ -377,10 +377,11 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda(wrapper):
             m = ms.empty(config.CapacityConfig(max_keyframes=4, max_map_points=16, max_features=8,
                                                local_window_kfs=2, local_window_mps=4), "meta")
             covis.covis_matrix(m)
-        elif wrapper == "rgbd_stereo":
-            stereo.compute_stereo_from_rgbd(torch.empty(4, 4, device="meta"),
-                                            torch.empty(8, 2, device="meta"),
-                                            torch.empty(8, dtype=torch.bool, device="meta"), 1.0)
+        elif wrapper == "finish_keypoints":
+            stereo.finish_keypoints(camera.Intrinsics.create(100, 100, 48, 32, bf=10.0),
+                                    torch.empty(8, 2, device="meta"),
+                                    torch.empty(8, dtype=torch.bool, device="meta"),
+                                    torch.empty(4, 4, device="meta"), mode="rgbd")
         elif wrapper == "two_view":
             xy = torch.empty(8, 2, device="meta")
             v = torch.empty(8, dtype=torch.bool, device="meta")
@@ -561,6 +562,61 @@ def test_k1_and_k4_make_one_launch_that_fits_their_c_entry(wrapper, monkeypatch)
     assert len(calls) == 1
     counter, fn, args = calls[0]
     assert counter in kernels.LAUNCHES
+    assert len(args) + 1 == len(kernels._SIGNATURES[fn])  # + the stream
+
+
+@pytest.mark.parametrize("wrapper", ["finish_stereo", "finish_mono", "finish_rgbd",
+                                     "triangulate"])
+def test_finish_keypoints_and_k13_make_one_launch_that_fits_their_c_entry(wrapper, monkeypatch):
+    """K4's `finish_keypoints` makes one launch in each mode, with the
+    camera's terms as the C entry takes them (2 p1 and 2 p2 formed before
+    they are rounded to f32) and no depth operands outside RGB-D; K13 makes
+    one launch that reads the keyframe's keypoints and every pose from the
+    map's tables by row (no gathered copy of them), and its five outputs are
+    views of one packed buffer.
+    Each argument list fits its C entry's ctypes signature. Run here on CPU
+    tensors with the launch recorded instead of made."""
+    from corbslam_tpu_torch.ops import stereo
+
+    calls = []
+    monkeypatch.setattr(kernels, "launch", lambda counter, fn, *a: calls.append((counter, fn, a)))
+    monkeypatch.setattr(kernels, "ptr", lambda t: t.data_ptr())
+    monkeypatch.setattr(kernels, "stream", lambda: 0)
+    if wrapper == "triangulate":
+        cap = config.CapacityConfig(max_keyframes=6, max_map_points=40, max_features=16,
+                                    local_window_kfs=2, local_window_mps=8)
+        cfg = config.SlamConfig(orb=config.OrbConfig(n_features=16, n_levels=2), capacity=cap)
+        m = ms.empty(cap, "cpu")
+        st = triangulation.setup(CAM_, m, 1, cfg)
+        nbf = triangulation.neighbours(m, st)
+        match = torch.full((8, 16), -1, dtype=torch.int32)
+        c = triangulation._points_cuda(CAM_, m, st, nbf, match, cfg)
+        counter, fn, args = calls[0]
+        assert (fn, args[0], args[1], args[4:6], args[7], args[8], args[9]) == (
+            "tri_points", m.kf.xy.data_ptr(), m.kf.octave.data_ptr(), (16, 8),
+            m.kf.Tcw.data_ptr(), st.nb_rows.data_ptr(), 1)
+        base = args[-1]
+        assert [t.data_ptr() - base for t in (c.X, c.dist1, c.k, c.f2, c.create)] == [
+            0, 12 * 16, 16 * 16, 20 * 16, 24 * 16]
+        assert [(t.dtype, tuple(t.shape)) for t in c] == [
+            (torch.bool, (16,)), (torch.int32, (16,)), (torch.int32, (16,)),
+            (torch.float32, (16, 3)), (torch.float32, (16,))]
+    else:
+        mode = wrapper.removeprefix("finish_")
+        cam = camera.Intrinsics.create(300.0, 310.0, 160.5, 120.25, bf=40.0,
+                                       dist=(0.01, -0.002, 0.1 + 2e-9, -0.3 - 2e-9, 0.001))
+        N = 9
+        xy, valid, dmap = torch.rand(N, 2) * 100, torch.ones(N, dtype=torch.bool), torch.rand(4, 5)
+        r = stereo._finish_cuda(cam, xy, valid, dmap, mode)
+        counter, fn, args = calls[0]
+        assert args[3:7] == ((4, 5) if mode == "rgbd" else (0, 0)) + (N, stereo.FINISH_MODES[mode])
+        assert args[7:20] == (*cam[:4], *cam.dist, 2 * cam.dist[2], 2 * cam.dist[3], 40.0, 0.05)
+        assert (args[1] is None) == (args[2] is None) == (mode != "rgbd")
+        assert r.xy_und.shape == (N, 2)
+        assert (r.u_right is None) == (r.depth is None) == (mode == "stereo")
+        assert (r.ok is None) == (args[-1] is None) == (mode != "rgbd")
+        assert (args[-3] is None) == (mode == "stereo")
+    assert len(calls) == 1 and counter in kernels.LAUNCHES
     assert len(args) + 1 == len(kernels._SIGNATURES[fn])  # + the stream
 
 

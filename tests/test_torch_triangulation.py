@@ -4,7 +4,10 @@ plain version of kernel K13) and its search (`matcher.epipolar_band_mask`,
 batch of a keyframe's neighbours; `fundamental_from_poses`)
 against corbslam_tpu on the CPU, on tests/test_init_reloc.py's
 `map_with_unbound_pair` (two keyframes sharing 40 bound points and 80
-unbound features of fresh landmarks, 0.6 m apart at 7-12 m).
+unbound features of fresh landmarks, 0.6 m apart at 7-12 m); also with a
+third keyframe that copies keyframe 0 (two neighbour slots with the same
+pose and features, so that the first must win every feature), and with 1
+and 11 neighbour slots.
 
 Tolerances and why: the searches are integer work on the same band test:
 exact. F12 within 1e-6 relative (3x3 products in another order). The
@@ -22,6 +25,7 @@ import pytest
 import torch
 
 from corbslam_tpu.mapping import triangulation as jtri
+from corbslam_tpu.mapstate import mapstate as jms
 from corbslam_tpu.matching import matcher as jmatcher
 from corbslam_tpu_torch import config, interop
 from corbslam_tpu_torch.geometry import camera
@@ -120,13 +124,30 @@ def test_the_neighbour_search_is_the_references_search_per_neighbour(pair):
         assert np.array_equal(res.dist[k].numpy(), np.asarray(ref.dist))
 
 
-def test_create_new_points_equals_the_reference(pair):
-    m, kf_new, X_new = pair
+def _with_twin_of_kf0(m):
+    """The map with a third keyframe that copies keyframe 0: the same pose,
+    features and bound points, so the new keyframe's first two neighbour
+    slots (rows 0 and 2, tied on weight, the lower row first) are identical."""
+    kf = m.kf
+    m2, row = jms.insert_keyframe(m, kf.Tcw[0], kf.xy[0], kf.octave[0], kf.angle[0], kf.desc[0],
+                                  kf.uright[0], kf.depth[0], kf.fvalid[0], kf.mp_idx[0],
+                                  frame_id=2, timestamp=2.0)
+    assert int(row) == 2
+    return m2
+
+
+def _create_new_points_equal(m, kf_new, X_new, nn=8, tied=False):
     n0 = int(m.n_mp)
-    ref = jtri.create_new_points(JCAM, m, kf_new, JCFG)
-    ours = interop.map_to_numpy(triangulation.create_new_points(
-        CAM, interop.map_from_numpy(m), kf_new, CFG))
+    ref = jtri.create_new_points(JCAM, m, kf_new, JCFG, n_neighbors=nn)
+    tm = interop.map_from_numpy(m)
+    st = triangulation.setup(CAM, tm, kf_new, CFG, nn)
+    assert st.nb_rows.shape == (nn,)
+    ours = interop.map_to_numpy(triangulation.create_new_points(CAM, tm, kf_new, CFG, nn))
     n1 = int(ref.n_mp)
+    if tied:
+        assert st.nb_rows[:2].tolist() == [0, 2] and st.nb_use[:2].all()
+        assert (ours["kf"]["mp_idx"][0][40:120] >= n0).sum() > 40
+        assert (ours["kf"]["mp_idx"][2][40:120] == -1).all()
     assert ours["n_mp"] == n1 and n1 - n0 > 40
     assert np.array_equal(ours["kf"]["mp_idx"], np.asarray(ref.kf.mp_idx))
     for f in ("valid", "desc", "ref_kf", "first_kf", "client", "n_visible", "n_found"):
@@ -140,6 +161,22 @@ def test_create_new_points_equals_the_reference(pair):
     # The new points are the scene's fresh landmarks (the reference's own bound).
     pos = ours["mp"]["pos"][n0:n1]
     assert np.median(np.linalg.norm(pos[:, None] - X_new[None], axis=-1).min(axis=1)) < 0.05
+
+
+def test_create_new_points_equals_the_reference(pair):
+    _create_new_points_equal(*pair)
+
+
+@pytest.mark.parametrize("case", ["tied_slots", "neighbours1", "neighbours11"])
+def test_create_new_points_neighbour_slots_equal_the_reference(pair, case):
+    """As above with two identical neighbour slots (the first must win: every
+    new point is bound on row 0, none on its twin), and with 1 and 11 slots
+    (`n_neighbors`)."""
+    m, kf_new, X_new = pair
+    if case == "tied_slots":
+        m = _with_twin_of_kf0(m)
+    _create_new_points_equal(m, kf_new, X_new, {"neighbours1": 1, "neighbours11": 11}.get(case, 8),
+                             tied=case == "tied_slots")
 
 
 def test_no_points_without_baseline(pair):

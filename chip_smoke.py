@@ -150,7 +150,34 @@
    words over that corpus (words and idf exact) and `build_tree` over the
    shipped vocab32k (groups exact), and times those rows (their launches
    are one call's: no path runs them);
-11. writes every measurement (per-frame times and counts, nvcc's full
+11. drives the collaboration layer (`apps.run_collab`: the JAX package's
+   collaboration config, 320x240, 512 features, 4 levels, 256 keyframes,
+   32768 points, the shipped vocab32k; stereo clients without loop closing
+   syncing through the in-process transport with a `MapFusionServer` on the
+   card) with 2 and then 4 clients over 30 frames, all counters reset just
+   before each: every client's keyframes reach the server, gids unique and
+   poses and points finite on every map, every client fused and its
+   alignment known, one batched K9 assignment and one histogram launch a
+   `transform_batch` (a query block of up to 256 sub-map keyframes or an
+   inserted chunk), one weighted-Horn launch a `detect_overlap`, no plain
+   version of a kernel function on the way, and each alignment putting the
+   client's map points less than half as far from their true place as no
+   alignment would (median error under half the start offset's length);
+   with 2 clients also the JAX yardstick: its fusions, each alignment within
+   2x JAX's error against the known start offsets (or 0.05 m / 5e-3 rad),
+   global keyframes within 1. Prints each client's frame
+   p50 / p90, the server steps' times (host clock and CUDA events), the
+   uplinks and downlinks and the server path's launches. Then one fusion at
+   the flagship's width: the tracker phase's final map as client 1 and the
+   same map moved by a known SE3 as client 2, through a serializing
+   transport into a server with synchronous global BA (K9 batched over the
+   sub-map's keyframes against N 2048, W 32768; K8 on the global map): the
+   Sim3 recovered to 5e-3 in R and scale and 5e-2 m in t, fewer points than
+   the union, one seam fuse and one essential graph, client 1 receiving client 2's keyframes, fixed.
+   Last, batched K9 (word ids exact, BoW 1e-6) and the weighted Horn (R and
+   s 1e-5, t 1e-4 m) against their plain versions on both runs' inputs and
+   at their edges, and their timed rows;
+12. writes every measurement (per-frame times and counts, nvcc's full
    -Xptxas -v log) to chiprun_out/chip_smoke_report.json in the checkout,
    and prints the kernels' JSON line, the nvidia-smi line, and as the last
    line {"ok": true, "device": {...}}.
@@ -177,6 +204,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from corbslam_tpu_torch import kernels  # noqa: E402
+from corbslam_tpu_torch.apps import run_collab  # noqa: E402
+from corbslam_tpu_torch.collab import fusion_ops  # noqa: E402
+from corbslam_tpu_torch.collab.client_cache import ClientCache  # noqa: E402
+from corbslam_tpu_torch.collab.server import MapFusionServer  # noqa: E402
+from corbslam_tpu_torch.collab.transport import InProcTransport  # noqa: E402
 from corbslam_tpu_torch.config import CapacityConfig  # noqa: E402
 from corbslam_tpu_torch.entry import (  # noqa: E402
     BENCH_FRAMES, BENCH_WARM, BENCH_WINDOW, CAM, CFG, E2E_RADIUS, E2E_TRAIN_ITERS, E2E_WORDS,
@@ -239,6 +271,8 @@ REPLACES = {
     "kmajority_tree": "corbslam_tpu/place/vocab.py:349",
     "ba_dense_gba": "corbslam_tpu/optim/ba_dense.py:434",
     "ba_dense_bench_gba": "corbslam_tpu/optim/ba_dense.py:434",
+    "vocab_batch": "corbslam_tpu/place/vocab.py:503",
+    "horn": "corbslam_tpu/solvers/sim3_solver.py:30",
 }
 SOURCES = {k: f"corbslam_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 SOURCES["covisibility"] = "corbslam_tpu_torch/csrc/local_map.cu"  # K7's mapping-stage launches
@@ -251,6 +285,8 @@ for _k in ("kmajority_l1", "kmajority_l2", "kmajority_tree"):  # K14 at the full
     SOURCES[_k] = "corbslam_tpu_torch/csrc/kmajority.cu"
 SOURCES["ba_dense_gba"] = "corbslam_tpu_torch/csrc/ba_dense.cu"  # K8 at global BA's size
 SOURCES["ba_dense_bench_gba"] = "corbslam_tpu_torch/csrc/ba_dense.cu"  # K8 at bench_gba's size
+SOURCES["vocab_batch"] = "corbslam_tpu_torch/csrc/vocab.cu"  # K9 over a block of keyframes
+SOURCES["horn"] = "corbslam_tpu_torch/csrc/ransac.cu"  # K10's weighted Horn
 FRONT_END_KERNELS = ("pyramid", "fast_cells", "orb_describe", "stereo_match", "finish_keypoints")
 TRACKING_KERNELS = FRONT_END_KERNELS + ("match_masked", "pose_opt", "local_map")
 REPORT = os.path.join(ROOT, "chiprun_out", "chip_smoke_report.json")
@@ -300,16 +336,17 @@ def ptxas_summary(log: str) -> dict:
 # solve in registers), K11's (its 7x7 blocks and dual numbers in
 # registers), K1's, K4's, K3's, K10's Sim3 attempt (its 7x7 solve in
 # shared memory) and PnP RANSAC (its f64 DLT in registers and shared
-# memory) and K12's (its warp LU in shared memory) have no stack frame at all.
+# memory), K12's (its warp LU in shared memory) and K10's weighted Horn (its
+# power iteration in registers) have no stack frame at all.
 NO_SPILL = ("pose_opt_kernel", "fast_cell_max_kernel", "fast_topk_kernel", "pg_optimize_kernel",
             "match_select_kernel", "pyramid_kernel", "stereo_match_kernel", "orb_describe_kernel",
             "sim3_attempt_kernel", "pnp_ransac_kernel", "two_view_kernel", "km_train_kernel",
             "covis_push_kernel", "covis_rows_kernel", "finish_keypoints_kernel",
-            "tri_points_kernel")
+            "tri_points_kernel", "horn_weighted_kernel")
 NO_STACK = ("pose_opt_kernel", "pg_optimize_kernel", "pyramid_kernel", "stereo_match_kernel",
             "orb_describe_kernel", "sim3_attempt_kernel", "pnp_ransac_kernel", "two_view_kernel",
             "km_train_kernel", "covis_push_kernel", "covis_rows_kernel", "finish_keypoints_kernel",
-            "tri_points_kernel")
+            "tri_points_kernel", "horn_weighted_kernel")
 
 
 def check_ptxas(ptxas: dict) -> None:
@@ -2174,9 +2211,12 @@ def check_full_width(fl: dict) -> tuple:
     words = vocab.assign(voc, desc)
     k9_bytes = (F * 33 + G * 32 + F * 2 * C * (4 + 32) + W * 4 + N * W * 4 + W * 4
                 + F * 4 + W * 4 + N * 4)
-    k9_ops = F * (G + 2 * C) * 24 + 3 * W + nv + 2 * N * W
+    # Distances as int8 products on the tensor cores, as the batched row
+    # counts them; `bound_cuda_cores` with 24 CUDA-core operations each.
+    k9_dist = F * (G + 2 * C)
+    info["vocab_bound_cuda_cores"] = bound_ms(k9_bytes, k9_dist * 24 + 3 * W + nv + 2 * N * W)
     rows.append(dict(name="vocab", max_abs_err=max(info["vocab"]["hist"], info["vocab"]["scores"]),
-                     bound=bound_ms(k9_bytes, k9_ops),
+                     bound=bound_ms(k9_bytes, 3 * W + nv + 2 * N * W, n_int8_ops=k9_dist * 512),
                      fns=(lambda: vocab.l1_scores(vocab.transform(voc, desc, valid), db),
                           lambda: vocab.l1_scores_plain(
                               vocab.histogram_plain(voc, vocab.assign_plain(voc, desc),
@@ -3409,6 +3449,492 @@ def check_full_width_training(te) -> tuple:
     return rows, info
 
 
+# ---------------------------------------------------------------------------
+# The collaboration layer: run_collab's clients and server, and one fusion at
+# the flagship's width
+# ---------------------------------------------------------------------------
+
+# The JAX yardstick: the JAX package's `apps/run_collab.py --clients 2
+# --frames 30` on an Intel Xeon CPU (`tests/yardstick_collab.py 2 0`), with
+# each client's recovered alignment held against the known offset of its
+# first camera (`run_collab.gt_pose`; PERF.md §6, PR 15): the rotation and
+# translation differences, and the median distance of the client's own map
+# points from where the known alignment puts them (no alignment: 0.4 m).
+# Every frame of both clients was OK and each client made one keyframe.
+JAX_COLLAB = dict(fusions=2, kfs_received=2, global_keyframes=2, global_points=628,
+                  foreign_kfs=(1, 1), transm=(True, True), rot_err_rad=(0.0, 0.03173585680266522),
+                  t_err_m=(0.0, 0.4438140563530611), point_err_m=(0.0, 0.2610693965929993))
+COLLAB_FRAMES = 30
+# Kernels that only the server launches in the collaboration runs (the
+# clients run no loop closer): their counts are the server path's.
+SERVER_KERNELS = ("vocab_batch", "vocab", "horn", "pnp", "covis_matrix", "pose_graph")
+# Plain versions of the kernels on the server path: none may run on the card.
+PLAIN_FUNCTIONS = (
+    (vocab, "assign_plain"), (vocab, "histogram_plain"), (vocab, "transform_batch_plain"),
+    (vocab, "l1_scores_plain"), (sim3_solver, "horn_weighted_plain"),
+    (sim3_solver, "horn_sim3_batched"), (pnp, "solve_pnp_ransac_plain"),
+    (matcher, "match_select_plain"), (covis, "top_covisible_plain"),
+    (covis, "local_map_mask_plain"), (covis, "compact_indices_plain"),
+    (covis, "covis_matrix_plain"), (pose_graph, "optimize_plain"), (ba_dense, "optimize_plain"))
+
+
+class Calls:
+    """Counts the calls of module functions while installed and keeps each
+    one's last arguments (for `vocab.transform_batch`, those of the call
+    with the most rows); `undo` puts the functions back."""
+
+    def __init__(self, targets):
+        self.n, self.last, self._saved = {}, {}, []
+        for mod, name in targets:
+            real = getattr(mod, name)
+            key = f"{mod.__name__.rsplit('.', 1)[-1]}.{name}"
+            self.n[key] = 0
+
+            def wrap(*a, _real=real, _key=key, **k):
+                self.n[_key] += 1
+                if _key != "vocab.transform_batch" or a[1].shape[0] >= (
+                        self.last[_key][0][1].shape[0] if _key in self.last else 0):
+                    self.last[_key] = (a, k)
+                return _real(*a, **k)
+
+            setattr(mod, name, wrap)
+            self._saved.append((mod, name, real))
+
+    def undo(self):
+        for mod, name, real in self._saved:
+            setattr(mod, name, real)
+
+
+def timed_method(obj, name: str, out: list, events: bool = True) -> None:
+    """Replace obj.name by a wrapper appending (host ms, CUDA-event ms or
+    None) of each call to `out`."""
+    real = getattr(obj, name)
+
+    def run(*a, **k):
+        t0 = time.perf_counter()
+        if events:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+        r = real(*a, **k)
+        ev = None
+        if events:
+            end.record()
+            end.synchronize()
+            ev = start.elapsed_time(end)
+        out.append(((time.perf_counter() - t0) * 1e3, ev))
+        return r
+
+    setattr(obj, name, run)
+
+
+def alignment_errors(server, clients) -> list:
+    """Each fused client's alignment against the known one (None where the
+    client was never fused): the clients' worlds are their first cameras,
+    so client k's world maps into client 1's by S = gt_pose(0, 0)
+    gt_pose(0, k)^-1. `rot` (rad) and `t` (m) are the differences of the
+    rotations and translations; `points` (m) is the median distance between
+    where the recovered alignment and S put the client's own map points,
+    and `identity` (m) that distance had the server returned no alignment
+    (|t of S|: S is a pure translation)."""
+    T0 = run_collab.gt_pose(0, 0).double()
+    out = []
+    for k, c in enumerate(clients):
+        if k + 1 not in server.transMs:
+            out.append(None)
+            continue
+        R, t, _ = server.transMs[k + 1]
+        R = torch.from_numpy(np.asarray(R, np.float64))
+        t = torch.from_numpy(np.asarray(t, np.float64))
+        S = T0 @ torch.linalg.inv(run_collab.gt_pose(0, k).double())
+        ang = float(torch.arccos(((torch.trace(R @ S[:3, :3].T) - 1) / 2).clamp(-1, 1)))
+        mp = c.tracker.map.mp
+        p = mp.pos[mp.valid & (mp.client == k + 1)].cpu().double()
+        moved = (p @ R.T + t) - (p @ S[:3, :3].T + S[:3, 3])
+        out.append(dict(rot=ang, t=float(torch.linalg.norm(t - S[:3, 3])),
+                        points=float(moved.norm(dim=1).median()) if len(p) else float("nan"),
+                        identity=float(torch.linalg.norm(S[:3, 3]))))
+    return out
+
+
+def unique_gids(*idmaps) -> bool:
+    for ids in idmaps:
+        g = ids.gid_of_row[ids.gid_of_row >= 0]
+        if len(np.unique(g)) != len(g):
+            return False
+    return True
+
+
+def finite_map(m) -> bool:
+    return bool(torch.isfinite(m.kf.Tcw[m.kf.valid]).all()) and bool(
+        torch.isfinite(m.mp.pos[m.mp.valid]).all())
+
+
+def stats_ms(v: list) -> dict:
+    host = [h for h, _ in v]
+    ev = [e for _, e in v if e is not None]
+    out = dict(n=len(v), host_ms=[round(x, 3) for x in host])
+    if ev:
+        out["event_ms"] = [round(x, 3) for x in ev]
+    return out
+
+
+def run_collab_clients(n: int) -> dict:
+    """`apps.run_collab` with n clients over COLLAB_FRAMES frames on the card
+    (the JAX package's collaboration config: 320x240, 512 features, 4
+    levels, 256 keyframes, 32768 points, the shipped vocab32k), every
+    counter reset just before; each client frame, server step, uplink and
+    downlink timed. Checks: every client's keyframes reach the server, gids
+    unique on every map, poses and points finite, one K9 assignment and one
+    histogram launch a `transform_batch` (a query block of up to 256
+    keyframes or an inserted chunk), one weighted-Horn launch a `detect_overlap`, and no
+    plain version of a kernel on the server path."""
+    t_setup = time.perf_counter()
+    cr = run_collab.setup(n, "cuda")
+    setup_s = time.perf_counter() - t_setup
+    server = cr.server
+    steps = {k: [] for k in ("fuse_step", "broadcast_step", "_try_align", "_merge_submap",
+                             "_post_fusion_optimize")}
+    for name in ("_try_align", "_merge_submap", "_post_fusion_optimize"):
+        timed_method(server, name, steps[name])
+    uplink, downlink = [], []
+    for c in cr.clients:
+        timed_method(c.cache, "uplink_step", uplink, events=False)
+        timed_method(c.cache, "downlink_step", downlink, events=False)
+    frame_ms = [[] for _ in range(n)]
+    step_launches: dict = {}
+
+    def frame(i, k, fn):
+        t0 = time.perf_counter()
+        fn()
+        frame_ms[k].append((time.perf_counter() - t0) * 1e3)
+
+    def step(name, fn):
+        before = dict(kernels.LAUNCHES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        steps[name].append(((time.perf_counter() - t0) * 1e3, start.elapsed_time(end)))
+        for key, v in kernels.LAUNCHES.items():
+            if v - before[key]:
+                step_launches[key] = step_launches.get(key, 0) + v - before[key]
+
+    calls = Calls(PLAIN_FUNCTIONS + ((vocab, "transform_batch"), (fusion_ops, "detect_overlap"),
+                                     (sim3_solver, "horn_sim3")))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        run_collab.run(cr, COLLAB_FRAMES, frame=frame, step=step)
+    finally:
+        calls.undo()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    plain = {k: v for k, v in calls.n.items() if k.endswith(("_plain", "_batched")) and v}
+    require(not plain, f"collab {n} clients: plain versions ran on the card: {plain}")
+    n_tb, n_do = calls.n["vocab.transform_batch"], calls.n["fusion_ops.detect_overlap"]
+    require(launches["vocab_batch"] == 2 * n_tb > 0,
+            f"collab {n}: {launches['vocab_batch']} batched K9 launches for {n_tb} transform_batch")
+    require(launches["horn"] == n_do == calls.n["sim3_solver.horn_sim3"],
+            f"collab {n}: {launches['horn']} weighted-Horn launches for {n_do} detect_overlap")
+    cl = []
+    for k, c in enumerate(cr.clients):
+        st = c.cache.stats
+        states = "".join(x.name[0] for x in c.tracker.frame_states)
+        cl.append(dict(cid=k + 1, states=states, kfs_pushed=st["kfs_pushed"],
+                       mps_pushed=st["mps_pushed"], foreign_kfs=st["foreign_kfs"],
+                       foreign_mps=st["foreign_mps"], failed_calls=st["failed_calls"],
+                       transm=c.cache.Ttrans is not None, keyframes=int(c.tracker.map.n_kf),
+                       frame_ms_p50=float(np.percentile(frame_ms[k], 50)),
+                       frame_ms_p90=float(np.percentile(frame_ms[k], 90))))
+        require(finite_map(c.tracker.map), f"collab {n}: client {k + 1} has a non-finite map")
+        require(unique_gids(c.cache.kf_ids, c.cache.mp_ids),
+                f"collab {n}: client {k + 1} has duplicate gids")
+    g = server.gmap
+    require(finite_map(g), f"collab {n}: the global map is not finite")
+    require(unique_gids(server.g_kf_ids, server.g_mp_ids), f"collab {n}: duplicate global gids")
+    pushed = sum(c["kfs_pushed"] for c in cl)
+    require(server.stats["kfs_received"] == pushed,
+            f"collab {n}: the server received {server.stats['kfs_received']} keyframes of the "
+            f"{pushed} pushed")
+    errs = alignment_errors(server, cr.clients)
+    out = dict(clients=n, frames=COLLAB_FRAMES, setup_s=setup_s, wall_s=wall_s,
+               stats=dict(server.stats), global_keyframes=int(g.kf.valid.sum()),
+               global_points=int(g.mp.valid.sum()), alignment_errors=errs, client_rows=cl,
+               steps={k: stats_ms(v) for k, v in steps.items()},
+               uplink=stats_ms(uplink), downlink=stats_ms(downlink),
+               launches=launches, server_step_launches=step_launches,
+               server_launches={k: launches[k] for k in SERVER_KERNELS},
+               transform_batch_calls=n_tb, detect_overlap_calls=n_do,
+               frame_ms=[[round(x, 3) for x in f] for f in frame_ms])
+    out["horn_inputs"] = calls.last.get("sim3_solver.horn_sim3")
+    out["k9_inputs"] = calls.last.get("vocab.transform_batch")
+    return out
+
+
+def collab_gates(cp: dict, jax: bool) -> None:
+    """The collaboration run's gates: every client fused and aligned, and
+    each alignment putting the client's map points less than half as far
+    from their true place as no alignment would (the median point error
+    under half the identity's);
+    against the JAX yardstick also the fusions, each alignment within 2x
+    JAX's error or 0.05 m / 5e-3 rad, the global keyframes within 1."""
+    n = cp["clients"]
+    require(all(c["transm"] for c in cp["client_rows"]),
+            f"collab {n}: a client's alignment is unknown: {cp['client_rows']}")
+    require(all(e is not None for e in cp["alignment_errors"]),
+            f"collab {n}: a client was never fused: {cp['alignment_errors']}")
+    for k, e in enumerate(cp["alignment_errors"][1:], start=2):
+        require(e["points"] < 0.5 * e["identity"], f"collab {n}: client {k}'s alignment puts "
+                f"its points {e['points']:.4g} m off, no alignment {e['identity']:.4g} m")
+    if not jax:
+        require(cp["stats"]["fusions"] == n, f"collab {n}: {cp['stats']['fusions']} fusions")
+        return
+    require(cp["stats"]["fusions"] == JAX_COLLAB["fusions"],
+            f"collab: {cp['stats']['fusions']} fusions, JAX {JAX_COLLAB['fusions']}")
+    for k, e in enumerate(cp["alignment_errors"]):
+        ang, t = e["rot"], e["t"]
+        lim_r = max(2 * JAX_COLLAB["rot_err_rad"][k], 5e-3)
+        lim_t = max(2 * JAX_COLLAB["t_err_m"][k], 0.05)
+        require(ang <= lim_r and t <= lim_t, f"collab: client {k + 1}'s alignment off by "
+                f"{ang:.4g} rad / {t:.4g} m (limits {lim_r:.4g} / {lim_t:.4g})")
+    require(abs(cp["global_keyframes"] - JAX_COLLAB["global_keyframes"]) <= 1,
+            f"collab: {cp['global_keyframes']} global keyframes, JAX "
+            f"{JAX_COLLAB['global_keyframes']}")
+
+
+class MapHolder:
+    """A client map standing in for a tracker (the cache needs `.map`)."""
+
+    def __init__(self, m):
+        self.map = m
+
+
+# Client 2's world: the scene moved by this SE3 (tests/test_collab.py's
+# T2_world), so the server must recover its inverse.
+T2_XI = (1.5, -0.4, 0.3, 0.0, 0.25, 0.0)
+
+
+def flagship_fusion(m_flag, cam, cfg) -> dict:
+    """One fusion at the flagship's width: client 1 is the tracker phase's
+    final map (KITTI_STEREO, 2048 features, 2048 keyframe rows), client 2
+    the same map moved by the known SE3 of T2_XI; both pushed through a
+    serializing in-process transport into a server with synchronous global
+    BA, then two fuse steps and a broadcast. Checks the recovered Sim3
+    (5e-3 in R and scale, 5e-2 m in t), fewer valid points than the union,
+    one seam fuse and one essential graph, the global BA run, and client 1
+    receiving client 2's keyframes, fixed."""
+    dev = m_flag.kf.Tcw.device
+    voc = vocab.load_default(dev)
+    m1 = ms.clone(m_flag)
+    m1.kf.client.fill_(1)
+    m1.mp.client.fill_(1)
+    T2 = se3.exp(torch.tensor(T2_XI, dtype=torch.float32, device=dev))
+    m2 = fusion_ops.transform_map(m1, T2[:3, :3].contiguous(), T2[:3, 3].contiguous(),
+                                  torch.ones((), device=dev))
+    m2.kf.client.fill_(2)
+    m2.mp.client.fill_(2)
+    transport = InProcTransport(serialize=True)
+    server = MapFusionServer(cam, cfg, voc, transport, run_gba=True, synchronous_gba=True,
+                             device=dev)
+    c1 = ClientCache(MapHolder(m1), transport, 1, cfg)
+    c2 = ClientCache(MapHolder(m2), transport, 2, cfg)
+    times = {}
+    calls = Calls(PLAIN_FUNCTIONS + ((vocab, "transform_batch"), (fusion_ops, "detect_overlap"),
+                                     (sim3_solver, "horn_sim3")))
+    kernels.reset_launches()
+
+    def timed(name, fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        r = fn()
+        end.record()
+        end.synchronize()
+        times.setdefault(name, []).append(((time.perf_counter() - t0) * 1e3,
+                                           start.elapsed_time(end)))
+        return r
+
+    try:
+        require(timed("uplink_1", c1.uplink_step) and timed("uplink_2", c2.uplink_step),
+                "flagship fusion: an uplink failed")
+        require(timed("fuse_step", server.fuse_step), "flagship fusion: the seed did not merge")
+        n_before = int(server.gmap.mp.valid.sum())
+        n_sub2 = int(server.sub[2].map.mp.valid.sum())
+        n_kf2 = int(server.sub[2].map.kf.valid.sum())
+        require(timed("fuse_step", server.fuse_step), "flagship fusion: client 2 did not merge")
+        n_kf_1 = int(c1.tracker.map.n_kf)
+        timed("broadcast_step", server.broadcast_step)
+        timed("downlink_1", c1.downlink_step)
+    finally:
+        calls.undo()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    plain = {k: v for k, v in calls.n.items() if k.endswith(("_plain", "_batched")) and v}
+    require(not plain, f"flagship fusion: plain versions ran on the card: {plain}")
+    R, t, s = server.transMs[2]
+    Te = torch.linalg.inv(T2.double()).cpu().numpy()
+    err_R = float(np.abs(R - Te[:3, :3]).max())
+    err_t = float(np.abs(t - Te[:3, 3]).max())
+    err_s = abs(s - 1.0)
+    require(err_R <= 5e-3 and err_s <= 5e-3 and err_t <= 5e-2,
+            f"flagship fusion: alignment off by R {err_R:.3g}, t {err_t:.3g} m, s {err_s:.3g}")
+    g = server.gmap
+    n_after = int(g.mp.valid.sum())
+    require(n_after < n_before + n_sub2,
+            f"flagship fusion: {n_after} valid points, not fewer than {n_before} + {n_sub2}")
+    st = server.stats
+    require(st["seam_fuses"] == st["essential_graph_runs"] == 1,
+            f"flagship fusion: seam fuses {st['seam_fuses']}, essential graphs "
+            f"{st['essential_graph_runs']}")
+    require(server.gba.runs_finished == 1 and launches["ba_dense_gba"] > 0,
+            "flagship fusion: the global BA did not run")
+    m = c1.tracker.map
+    rows = torch.arange(n_kf_1, int(m.n_kf), device=dev)
+    require(len(rows) == n_kf2 and bool(m.kf.fixed[rows].all())
+            and bool((m.kf.client[rows] == 2).all()),
+            f"flagship fusion: client 1 received {len(rows)} keyframes of client 2's {n_kf2}")
+    require(finite_map(g) and finite_map(m), "flagship fusion: a map is not finite")
+    require(launches["horn"] == calls.n["fusion_ops.detect_overlap"]
+            and launches["vocab_batch"] == 2 * calls.n["vocab.transform_batch"],
+            f"flagship fusion: launches {launches} for {calls.n}")
+    return dict(err_R=err_R, err_t_m=err_t, err_s=err_s, points_before=n_before,
+                points_sub2=n_sub2, points_after=n_after, keyframes_sub2=n_kf2,
+                received_keyframes=len(rows), stats=dict(st),
+                gba_runs=server.gba.runs_finished,
+                times={k: [(round(h, 3), round(e, 3)) for h, e in v] for k, v in times.items()},
+                launches=launches, k9_inputs=calls.last.get("vocab.transform_batch"),
+                horn_inputs=calls.last.get("sim3_solver.horn_sim3"),
+                transform_batch_calls=calls.n["vocab.transform_batch"],
+                detect_overlap_calls=calls.n["fusion_ops.detect_overlap"])
+
+
+def run_collab_phase(kp: dict) -> dict:
+    """The collaboration phase: run_collab with 2 clients (gated on the JAX
+    yardstick) and 4 clients, then one fusion at the flagship's width."""
+    two = run_collab_clients(2)
+    collab_gates(two, jax=True)
+    four = run_collab_clients(4)
+    collab_gates(four, jax=False)
+    tr = kp["tracker"]
+    flag = flagship_fusion(tr.map, tr.cam, tr.cfg)
+    return dict(two=two, four=four, flagship=flag)
+
+
+def same_horn(p1, p2, fix_scale, w, name: str) -> dict:
+    """The weighted-Horn kernel against its plain version on one input."""
+    Rk, tk, sk = sim3_solver.horn_sim3(p1, p2, fix_scale, w=w)
+    Rp, tp_, sp = sim3_solver.horn_weighted_plain(p1, p2, w, fix_scale)
+    d = dict(R=float((Rk - Rp).abs().max()), t=float((tk - tp_).abs().max()),
+             s=float((sk - sp).abs()), K=int(p1.shape[0]), fix_scale=bool(fix_scale),
+             weighted=int((w > 0).sum()))
+    require(d["R"] <= 1e-5 and d["t"] <= 1e-4 and d["s"] <= 1e-5,
+            f"weighted Horn ({name}): kernel and plain differ: {d}")
+    return d
+
+
+def horn_edges(dev) -> dict:
+    """The weighted Horn at its edges: K 1, every weight 0, fix_scale both
+    ways on a noisy Sim3 with 30 % of the pairs weighted out, K past the
+    CTA's 256 threads many times."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    out = {}
+    for name, K, fix, wmode in (("k1", 1, False, "ones"), ("zero_weights", 64, False, "zero"),
+                                ("fixed_scale", 2048, True, "mask"),
+                                ("free_scale", 2048, False, "mask"), ("k5000", 5000, False, "ones")):
+        p2 = torch.randn(K, 3, generator=g) * 4
+        S = sim3.exp(torch.randn(7, generator=g) * 0.3)
+        p1 = sim3.transform(S, p2) + torch.randn(K, 3, generator=g) * 0.01
+        w = {"ones": torch.ones(K), "zero": torch.zeros(K),
+             "mask": (torch.rand(K, generator=g) > 0.3).float()}[wmode]
+        out[name] = same_horn(p1.to(dev), p2.to(dev), fix, w.to(dev), name)
+    return out
+
+
+def same_vocab_batch(voc, desc, valid, name: str) -> dict:
+    """Batched K9 against its plain version: word ids exact, BoW 1e-6."""
+    B, F = desc.shape[:2]
+    wk = vocab.assign(voc, desc.reshape(B * F, 32).contiguous())
+    wp = vocab.assign_plain(voc, desc.reshape(B * F, 32))
+    bk = vocab.transform_batch(voc, desc, valid)
+    bp = vocab.transform_batch_plain(voc, desc, valid)
+    d = dict(words_equal=bool(torch.equal(wk, wp)), bow=float((bk - bp).abs().max()) if B else 0.0,
+             B=B, F=F, valid=int(valid.sum()))
+    require(d["words_equal"] and d["bow"] <= 1e-6, f"batched K9 ({name}): {d}")
+    return d
+
+
+def vocab_batch_edges(voc, dev) -> dict:
+    """Batched K9 at its edges: one row, a row with no valid feature, F off
+    every tile width, and no row at all."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    out = {}
+    for name, B, F in (("one_row", 1, 512), ("no_valid_row", 3, 512), ("f37", 4, 37),
+                       ("empty", 0, 64)):
+        desc = torch.randint(0, 256, (B, F, 32), generator=g, dtype=torch.uint8)
+        valid = torch.rand(B, F, generator=g) < 0.8
+        if name == "no_valid_row":
+            valid[1] = False
+        out[name] = same_vocab_batch(voc, desc.to(dev), valid.to(dev), name)
+    return out
+
+
+def check_collab_kernels(cp: dict) -> tuple:
+    """Batched K9 and the weighted Horn against their plain versions on the
+    collaboration runs' own inputs (the widest `transform_batch` and the
+    last `horn_sim3` of the 2-client run and of the flagship fusion: there
+    the query block of its alignment, every keyframe of client 2's sub-map) and at their edges; rows
+    for the kernels' line with their bounds, timed on the flagship fusion's
+    inputs."""
+    info, rows = {}, []
+    two, flag = cp["two"], cp["flagship"]
+    for run, d in (("run_collab", two), ("flagship", flag)):
+        (voc, desc, valid), _ = d["k9_inputs"]
+        info[f"vocab_batch_{run}"] = same_vocab_batch(voc, desc, valid, run)
+        (p1, p2, fix), kw = d["horn_inputs"]
+        info[f"horn_{run}"] = same_horn(p1, p2, fix, kw["w"], run)
+    (voc, desc, valid), _ = flag["k9_inputs"]
+    info["vocab_batch_edges"] = vocab_batch_edges(voc, desc.device)
+    info["horn_edges"] = horn_edges(desc.device)
+    B, F = desc.shape[:2]
+    W, G, C = voc.n_words, voc.groups.shape[0], voc.child_idx.shape[1]
+    nv = int(valid.sum())
+    # Bound: the assignment's operations and the histogram's bytes
+    # (descriptors and flags read, the centres, child table and idf read
+    # once, the [B, W] BoW written). Each descriptor-centre distance (the G
+    # group centres and the two chosen child blocks) counts as the int8
+    # product the reference computes it by (256 multiply-adds, 512
+    # operations) on the tensor cores, as K14's bound does; the histogram's
+    # adds on the CUDA cores. `bound_cuda_cores` keeps the count with every
+    # distance on the CUDA cores (24 operations), the kernel's own way.
+    vb_bytes = B * F * 33 + (G + W) * 32 + G * C * 4 + W * 4 + B * W * 4
+    vb_dist = B * F * (G + 2 * C)
+    info["vocab_batch_bound_cuda_cores"] = bound_ms(vb_bytes, vb_dist * 24 + B * 3 * W + nv)
+    rows.append(dict(name="vocab_batch", max_abs_err=info["vocab_batch_flagship"]["bow"],
+                     bound=bound_ms(vb_bytes, B * 3 * W + nv, n_int8_ops=vb_dist * 512),
+                     fns=(lambda: vocab.transform_batch(voc, desc, valid),
+                          lambda: vocab.transform_batch_plain(voc, desc, valid), None, 2)))
+    (p1, p2, fix), kw = flag["horn_inputs"]
+    w = kw["w"]
+    K = p1.shape[0]
+    # Bound: its reads (the pairs and weights once, the model written); ops
+    # per pair ~46 (the weight sum, centroids and M) plus ~50 for the free
+    # scale, and ~4200 serial ones on one thread (100 power iterations):
+    # in practice the chain's latency, not either rate.
+    h_bytes = K * (12 + 12 + 4) + 13 * 4
+    h_ops = K * (46 + (0 if fix else 50)) + 4200
+    rows.append(dict(name="horn", max_abs_err=max(info["horn_flagship"]["R"],
+                                                  info["horn_flagship"]["t"]),
+                     bound=bound_ms(h_bytes, h_ops),
+                     fns=(lambda: sim3_solver.horn_sim3(p1, p2, fix, w=w),
+                          lambda: sim3_solver.horn_weighted_plain(p1, p2, w, fix), None, 3)))
+    info["sizes"] = dict(B=B, F=F, W=W, G=G, C=C, valid=nv, horn_pairs=K,
+                         horn_weighted=int((w > 0).sum()), horn_fix_scale=bool(fix))
+    return rows, info
+
+
 SMALL_MS = 0.05  # below this, torch.profiler's device sums disagree between runs
 
 
@@ -3623,6 +4149,40 @@ def main() -> int:
               f"{la['vocab']}, K10 {la['sim3']} / {la['pnp']}, K11 {la['pose_graph']} / "
               f"{la['covis_matrix']}; wall {ep['wall_s']:.1f} s", flush=True)
         phase(f"e2e_{ep['run']}")
+    cp = run_collab_phase(kp)
+    for key in ("two", "four"):
+        c = cp[key]
+        st = c["steps"]
+        print(f"collab {c['clients']} clients x {c['frames']} frames: fusions "
+              f"{c['stats']['fusions']} (JAX with 2: {JAX_COLLAB['fusions']}), attempts "
+              f"{c['stats']['fusion_attempts']}, keyframes received {c['stats']['kfs_received']}; "
+              f"global map {c['global_keyframes']} keyframes / {c['global_points']} points (JAX "
+              f"with 2: {JAX_COLLAB['global_keyframes']} / {JAX_COLLAB['global_points']}); "
+              f"alignment errors {json.dumps(c['alignment_errors'])} (JAX with 2: rot "
+              f"{JAX_COLLAB['rot_err_rad']} rad, t {JAX_COLLAB['t_err_m']} m, points "
+              f"{JAX_COLLAB['point_err_m']} m); setup "
+              f"{c['setup_s']:.1f} s, run {c['wall_s']:.1f} s", flush=True)
+        for r in c["client_rows"]:
+            print(f"collab {c['clients']} client {r['cid']}: states {r['states']}, keyframes "
+                  f"{r['keyframes']}, pushed {r['kfs_pushed']} KFs / {r['mps_pushed']} MPs, "
+                  f"foreign {r['foreign_kfs']} KFs / {r['foreign_mps']} MPs, transM "
+                  f"{r['transm']}; frame p50 {r['frame_ms_p50']:.3f} ms p90 "
+                  f"{r['frame_ms_p90']:.3f} ms", flush=True)
+        print(f"collab {c['clients']} server steps (host ms, event ms): {json.dumps(st)}; uplink "
+              f"host ms {json.dumps(c['uplink'])}; downlink host ms {json.dumps(c['downlink'])}",
+              flush=True)
+        print(f"collab {c['clients']} server-path launches {json.dumps(c['server_launches'])} "
+              f"(in fuse / broadcast steps {json.dumps(c['server_step_launches'])}); "
+              f"transform_batch calls {c['transform_batch_calls']}, detect_overlap calls "
+              f"{c['detect_overlap_calls']}", flush=True)
+    fz = cp["flagship"]
+    print(f"collab flagship fusion: alignment error R {fz['err_R']:.3g} t {fz['err_t_m']:.3g} m "
+          f"s {fz['err_s']:.3g}; points {fz['points_before']} + {fz['points_sub2']} -> "
+          f"{fz['points_after']}; client 1 received {fz['received_keyframes']} of "
+          f"{fz['keyframes_sub2']} keyframes; stats {json.dumps(fz['stats'])}; GBA runs "
+          f"{fz['gba_runs']}; times (host ms, event ms) {json.dumps(fz['times'])}; launches "
+          f"{json.dumps({k: v for k, v in fz['launches'].items() if v})}", flush=True)
+    phase("collab")
 
     cmp = compare_frames(mp.pop("entry_frame"),
                          frame_mod.build_frame_stereo(*entry_imgs, CAM, CFG, device="cpu"))
@@ -3691,6 +4251,10 @@ def main() -> int:
     brows += grows
     time_rows(erows + brows)
     phase("kernels_k14_gba")
+    crows, cinfo = check_collab_kernels(cp)
+    time_rows(crows)
+    print(f"collaboration kernel checks: {json.dumps(cinfo)}", flush=True)
+    phase("kernels_collab")
     # Launches: each row's count from the main path that runs it (the front
     # end, the tracking step, the tracker's mapping stages, the e2e stereo
     # lap); K14's full-width rows and K8 at bench_gba's shape, on no path,
@@ -3702,8 +4266,9 @@ def main() -> int:
                     **{k: mono["launches"][k] for k in MONO_KERNELS[:-1]},
                     ba_dense_gba=e2e["stereo"]["launches"]["ba_dense_gba"],
                     kmajority=e2e["stereo"]["launches"]["kmajority"],
-                    **{r["name"]: r["launches"] for r in brows})
-    rows += trows + mrows + frows + srows + erows + brows
+                    **{r["name"]: r["launches"] for r in brows},
+                    **{k: cp["two"]["launches"][k] for k in ("vocab_batch", "horn")})
+    rows += trows + mrows + frows + srows + erows + brows + crows
     for r in rows:
         print(f"kernel {r['name']}: device ms {r['ms']:.5f} by {r['ms_by']} (host-inclusive "
               f"{r['host_ms']:.4f}) plain device ms {r['plain_ms']:.4f} by {r['plain_ms_by']} "
@@ -3751,6 +4316,9 @@ def main() -> int:
     for d in e2e.values():
         for k in ("client", "ee", "kept"):
             d.pop(k)
+    for d in cp.values():
+        for k in ("k9_inputs", "horn_inputs"):
+            d.pop(k)
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)
     with open(REPORT, "w") as fh:
         json.dump(dict(nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
@@ -3760,7 +4328,8 @@ def main() -> int:
                        tracker_vs_cpu=tracker_cmp, stage_times=stage_times, phase_s=phase_s,
                        loop=lp, flagship_loop_closer=fl, loop_checks=linfo, full_width=finfo,
                        mono=mono, rgbd=rgbd, sensor_checks=sinfo, e2e=e2e, e2e_checks=einfo,
-                       full_width_training=binfo, bench_gba=ginfo,
+                       full_width_training=binfo, bench_gba=ginfo, collab=cp,
+                       collab_checks=cinfo,
                        texture_s=texture_s), fh, indent=1)
     print(json.dumps(kernels_line))
     print(smi)

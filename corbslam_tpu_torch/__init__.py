@@ -10,8 +10,10 @@ when CUDA is missing. Each kernel wrapper dispatches on its input's device: a
 CPU tensor runs the plain PyTorch version (the tests' path), a CUDA tensor
 launches the kernel.
 
-Ported so far: the stereo ORB front end (`frontend.frame.build_frame_stereo`,
-`build_frame_mono`, `ops.orb.extract`) and stereo tracking against the map
-(`frontend.track_ops.track_frame_stereo`, `track_frame_stereo2`,
-`insert_keyframe_with_points`).
+Ported so far: the ORB front end and the tracker on its three sensors
+(`frontend`), local mapping and triangulation (`mapping`), loop closing,
+relocalization and global BA (`loop`, `frontend.reloc`), place recognition
+and vocabulary training (`place`), `system.CorbslamClient`, and the
+collaboration layer (`collab`: the map-fusion server, the client cache and
+the in-process, socket and shared-memory transports; `apps.run_collab`).
 """

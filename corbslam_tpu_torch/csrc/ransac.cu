@@ -39,7 +39,8 @@
 // reduction counts the inliers; `pnp_select` is one CTA: the first maximum
 // of the counts, then the winner's inlier mask by the same test. The
 // sample (which matches form each hypothesis) is an input, drawn by the
-// caller.
+// caller. The weighted Horn of the server's alignment (`horn_weighted`)
+// is one CTA; its note is at the kernel.
 
 #include "common.cuh"
 #define SIM3_SINCOSPI  // sincospif: no stack frame (sim3.cuh)
@@ -70,6 +71,72 @@ __device__ void r_from_quat(const float* q0, float* R) {
     R[6] = 2 * (x * z - w * y); R[7] = 2 * (y * z + w * x); R[8] = 1 - 2 * (x * x + y * y);
 }
 
+// The arithmetic of the Horn tail below: as written, where the compiler may
+// contract a product and a sum into an FMA (horn3, whose plain version is
+// the Sim3 RANSAC's), or each step rounded on its own, nothing contracted
+// (the weighted Horn, whose plain version repeats its order).
+struct ArithFast {
+    static __device__ __forceinline__ float add(float a, float b) { return a + b; }
+    static __device__ __forceinline__ float sub(float a, float b) { return a - b; }
+    static __device__ __forceinline__ float mul(float a, float b) { return a * b; }
+};
+struct ArithRn {
+    static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+    static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+    static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+};
+
+// The power iteration's division v = u / nrm: on a group of 4 lanes (horn3),
+// lane base + i divides element i and the quotients go round by shuffles.
+struct ShuffledDiv {
+    unsigned mask;
+    int base, i4;
+    __device__ __forceinline__ void operator()(const float* u, float nrm, float* v) const {
+        const float mine = (i4 == 0 ? u[0] : i4 == 1 ? u[1] : i4 == 2 ? u[2] : u[3]) / nrm;
+        for (int i = 0; i < 4; ++i) v[i] = __shfl_sync(mask, mine, base + i);
+    }
+};
+// ... or one thread dividing all four, rounded (the weighted Horn).
+struct RoundedDiv {
+    __device__ __forceinline__ void operator()(const float* u, float nrm, float* v) const {
+        for (int i = 0; i < 4; ++i) v[i] = __fdiv_rn(u[i], nrm);
+    }
+};
+
+// Horn's tail from M = q2^T q1 (row-major): the quaternion v (w, x, y, z,
+// not yet normalized) of the largest eigenvalue of Horn's N, by 100 power
+// iterations after the Gershgorin shift, in the plain versions' order.
+template <class A, class Div>
+__device__ __forceinline__ void horn_quat(const float* M, Div div, float* v) {
+    const float Sxx = M[0], Sxy = M[1], Sxz = M[2];
+    const float Syx = M[3], Syy = M[4], Syz = M[5];
+    const float Szx = M[6], Szy = M[7], Szz = M[8];
+    float N[4][4] = {
+        {A::add(A::add(Sxx, Syy), Szz), A::sub(Syz, Szy), A::sub(Szx, Sxz), A::sub(Sxy, Syx)},
+        {A::sub(Syz, Szy), A::sub(A::sub(Sxx, Syy), Szz), A::add(Sxy, Syx), A::add(Szx, Sxz)},
+        {A::sub(Szx, Sxz), A::add(Sxy, Syx), A::sub(A::add(-Sxx, Syy), Szz), A::add(Syz, Szy)},
+        {A::sub(Sxy, Syx), A::add(Szx, Sxz), A::add(Syz, Szy), A::add(A::sub(-Sxx, Syy), Szz)}};
+    float gmin = 0.f;
+    for (int i = 0; i < 4; ++i) {
+        const float abs_sum = A::add(A::add(A::add(fabsf(N[i][0]), fabsf(N[i][1])), fabsf(N[i][2])),
+                                     fabsf(N[i][3]));
+        const float g = A::sub(N[i][i], A::sub(abs_sum, fabsf(N[i][i])));
+        gmin = (i == 0) ? g : fminf(gmin, g);
+    }
+    const float shift = fmaxf(-gmin, 0.f);
+    for (int i = 0; i < 4; ++i) N[i][i] = A::add(N[i][i], shift);
+    for (int i = 0; i < 4; ++i) v[i] = 1.f;
+    for (int it = 0; it < 100; ++it) {
+        float u[4];
+        for (int i = 0; i < 4; ++i)
+            u[i] = A::add(A::add(A::add(A::mul(N[i][0], v[0]), A::mul(N[i][1], v[1])),
+                                 A::mul(N[i][2], v[2])), A::mul(N[i][3], v[3]));
+        const float ss = A::add(A::add(A::add(A::mul(u[0], u[0]), A::mul(u[1], u[1])),
+                                       A::mul(u[2], u[2])), A::mul(u[3], u[3]));
+        div(u, fmaxf(sqrtf(ss), 1e-12f), v);
+    }
+}
+
 // horn_sim3 on K = 3 correspondences with unit weights, on a group of 4
 // lanes (`mask`, the group's first lane `base`): every lane computes all of
 // it but the power iteration's divisions, lane base + i dividing element i
@@ -89,33 +156,12 @@ __device__ void horn3(const float (*P1)[3], const float (*P2)[3], bool fix_scale
             q1[k][i] = (P1[k][i] - c1[i]) * sw;
             q2[k][i] = (P2[k][i] - c2[i]) * sw;
         }
-    float M[3][3];
+    float M[9];
     for (int i = 0; i < 3; ++i)
-        for (int j = 0; j < 3; ++j) M[i][j] = q2[0][i] * q1[0][j] + q2[1][i] * q1[1][j] + q2[2][i] * q1[2][j];
-    const float Sxx = M[0][0], Sxy = M[0][1], Sxz = M[0][2];
-    const float Syx = M[1][0], Syy = M[1][1], Syz = M[1][2];
-    const float Szx = M[2][0], Szy = M[2][1], Szz = M[2][2];
-    float N[4][4] = {{Sxx + Syy + Szz, Syz - Szy, Szx - Sxz, Sxy - Syx},
-                     {Syz - Szy, Sxx - Syy - Szz, Sxy + Syx, Szx + Sxz},
-                     {Szx - Sxz, Sxy + Syx, -Sxx + Syy - Szz, Syz + Szy},
-                     {Sxy - Syx, Szx + Sxz, Syz + Szy, -Sxx - Syy + Szz}};
-    float gmin = 0.f;
-    for (int i = 0; i < 4; ++i) {
-        const float rad = (fabsf(N[i][0]) + fabsf(N[i][1]) + fabsf(N[i][2]) + fabsf(N[i][3])) -
-                          fabsf(N[i][i]);
-        const float g = N[i][i] - rad;
-        gmin = (i == 0) ? g : fminf(gmin, g);
-    }
-    const float shift = fmaxf(-gmin, 0.f);
-    for (int i = 0; i < 4; ++i) N[i][i] += shift;
-    float v[4] = {1.f, 1.f, 1.f, 1.f};
-    for (int it = 0; it < 100; ++it) {
-        float u[4];
-        for (int i = 0; i < 4; ++i) u[i] = N[i][0] * v[0] + N[i][1] * v[1] + N[i][2] * v[2] + N[i][3] * v[3];
-        const float nrm = fmaxf(sqrtf(u[0] * u[0] + u[1] * u[1] + u[2] * u[2] + u[3] * u[3]), 1e-12f);
-        const float mine = (i4 == 0 ? u[0] : i4 == 1 ? u[1] : i4 == 2 ? u[2] : u[3]) / nrm;
-        for (int i = 0; i < 4; ++i) v[i] = __shfl_sync(mask, mine, base + i);
-    }
+        for (int j = 0; j < 3; ++j)
+            M[3 * i + j] = q2[0][i] * q1[0][j] + q2[1][i] * q1[1][j] + q2[2][i] * q1[2][j];
+    float v[4];
+    horn_quat<ArithFast>(M, ShuffledDiv{mask, base, i4}, v);
     r_from_quat(v, R);
     if (fix_scale) {
         s = 1.f;
@@ -884,7 +930,132 @@ __global__ void __launch_bounds__(PNP_THREADS, 1) pnp_ransac_kernel(PnpArgs a) {
     if (tid == 0) stamp(stamps, 5);
 }
 
+// Weighted Horn (horn_sim3 with weights w [K], the server's alignment of
+// a sub-map on its PnP consensus pairs): one CTA of HORN_THREADS. Every sum
+// over the K pairs is a fixed-order block reduction that the plain version
+// (sim3_solver.horn_weighted_plain) repeats: thread i adds the terms of
+// pairs i, i + 256, ... in turn from 0, then a shared-memory tree halves
+// the 256 partials (stride 128 down to 1). Products and sums are written
+// with __fmul_rn / __fadd_rn so nothing is contracted into an FMA. Thread 0
+// then runs horn3's tail (horn_quat: N, its Gershgorin shift, the 100 power
+// iterations) rounded at every step, in the plain version's order; the
+// scale's two sums are block reductions again.
+constexpr int HORN_THREADS = 256;
+constexpr int HORN_SUMS = 9;  // the most sums reduced at once (M)
+
+// Reduce v[j] (j < n) of every thread: the results in red[j][0].
+__device__ void horn_block_sums(float (*red)[HORN_THREADS], const float* v, int n) {
+    const int tid = threadIdx.x;
+    for (int j = 0; j < n; ++j) red[j][tid] = v[j];
+    __syncthreads();
+    for (int st = HORN_THREADS / 2; st > 0; st >>= 1) {
+        if (tid < st)
+            for (int j = 0; j < n; ++j) red[j][tid] = __fadd_rn(red[j][tid], red[j][tid + st]);
+        __syncthreads();
+    }
+}
+
+__global__ void __launch_bounds__(HORN_THREADS, 1)
+    horn_weighted_kernel(const float* p1, const float* p2, const float* w, int K, int fix_scale,
+                         float* out) {
+    __shared__ float red[HORN_SUMS][HORN_THREADS];
+    __shared__ float sh[32];  // den, c1 (3), c2 (3), R (9), s
+    const int tid = threadIdx.x;
+    float acc[HORN_SUMS];
+    // 1. sum of the weights
+    acc[0] = 0.f;
+    for (int k = tid; k < K; k += HORN_THREADS) acc[0] = __fadd_rn(acc[0], w[k]);
+    horn_block_sums(red, acc, 1);
+    if (tid == 0) sh[0] = fmaxf(red[0][0], 1e-12f);
+    __syncthreads();
+    const float den = sh[0];
+    // 2. weighted centroids
+    for (int j = 0; j < 6; ++j) acc[j] = 0.f;
+    for (int k = tid; k < K; k += HORN_THREADS) {
+        const float wn = __fdiv_rn(w[k], den);
+        for (int j = 0; j < 3; ++j) {
+            acc[j] = __fadd_rn(acc[j], __fmul_rn(p1[3 * k + j], wn));
+            acc[3 + j] = __fadd_rn(acc[3 + j], __fmul_rn(p2[3 * k + j], wn));
+        }
+    }
+    __syncthreads();
+    horn_block_sums(red, acc, 6);
+    if (tid < 6) sh[1 + tid] = red[tid][0];
+    __syncthreads();
+    float c1[3], c2[3];
+    for (int j = 0; j < 3; ++j) {
+        c1[j] = sh[1 + j];
+        c2[j] = sh[4 + j];
+    }
+    // 3. M = q2^T q1 over the pairs, q = (p - c) sqrt(wn)
+    for (int j = 0; j < 9; ++j) acc[j] = 0.f;
+    for (int k = tid; k < K; k += HORN_THREADS) {
+        const float sw = sqrtf(__fdiv_rn(w[k], den));
+        float q1[3], q2[3];
+        for (int j = 0; j < 3; ++j) {
+            q1[j] = __fmul_rn(__fsub_rn(p1[3 * k + j], c1[j]), sw);
+            q2[j] = __fmul_rn(__fsub_rn(p2[3 * k + j], c2[j]), sw);
+        }
+        for (int i = 0; i < 3; ++i)
+            for (int j = 0; j < 3; ++j) acc[3 * i + j] = __fadd_rn(acc[3 * i + j], __fmul_rn(q2[i], q1[j]));
+    }
+    __syncthreads();
+    horn_block_sums(red, acc, 9);
+    if (tid == 0) {
+        float M[9], v[4];
+        for (int j = 0; j < 9; ++j) M[j] = red[j][0];
+        horn_quat<ArithRn>(M, RoundedDiv{}, v);
+        r_from_quat(v, sh + 7);
+    }
+    __syncthreads();
+    float R[9];
+    for (int j = 0; j < 9; ++j) R[j] = sh[7 + j];
+    float s = 1.f;
+    if (!fix_scale) {
+        // 4. the scale: sum q1 . (R q2) over sum |R q2|^2
+        acc[0] = acc[1] = 0.f;
+        for (int k = tid; k < K; k += HORN_THREADS) {
+            const float sw = sqrtf(__fdiv_rn(w[k], den));
+            float q1[3], q2[3], r[3];
+            for (int j = 0; j < 3; ++j) {
+                q1[j] = __fmul_rn(__fsub_rn(p1[3 * k + j], c1[j]), sw);
+                q2[j] = __fmul_rn(__fsub_rn(p2[3 * k + j], c2[j]), sw);
+            }
+            for (int i = 0; i < 3; ++i)
+                r[i] = __fadd_rn(__fadd_rn(__fmul_rn(R[3 * i], q2[0]), __fmul_rn(R[3 * i + 1], q2[1])),
+                                 __fmul_rn(R[3 * i + 2], q2[2]));
+            const float num_k = __fadd_rn(__fadd_rn(__fmul_rn(q1[0], r[0]), __fmul_rn(q1[1], r[1])),
+                                          __fmul_rn(q1[2], r[2]));
+            const float den_k = __fadd_rn(__fadd_rn(__fmul_rn(r[0], r[0]), __fmul_rn(r[1], r[1])),
+                                          __fmul_rn(r[2], r[2]));
+            acc[0] = __fadd_rn(acc[0], num_k);
+            acc[1] = __fadd_rn(acc[1], den_k);
+        }
+        __syncthreads();
+        horn_block_sums(red, acc, 2);
+        s = __fdiv_rn(red[0][0], fmaxf(red[1][0], 1e-12f));
+    }
+    if (tid == 0) {
+        for (int j = 0; j < 9; ++j) out[j] = R[j];
+        for (int i = 0; i < 3; ++i) {
+            const float rc = __fadd_rn(__fadd_rn(__fmul_rn(R[3 * i], c2[0]), __fmul_rn(R[3 * i + 1], c2[1])),
+                                       __fmul_rn(R[3 * i + 2], c2[2]));
+            out[9 + i] = __fsub_rn(c1[i], __fmul_rn(s, rc));
+        }
+        out[12] = s;
+    }
+}
+
 }  // namespace
+
+// Weighted Horn of K pairs (p1 ~ s R p2 + t, weights w [K]) in one launch of
+// one CTA: out = R (9, row-major), t (3), s.
+C_ENTRY int horn_weighted(const float* p1, const float* p2, const float* w, int K, int fix_scale,
+                          float* out, cudaStream_t stream) {
+    if (K < 0) return (int)cudaErrorInvalidValue;
+    horn_weighted_kernel<<<1, HORN_THREADS, 0, stream>>>(p1, p2, w, K, fix_scale, out);
+    return (int)cudaGetLastError();
+}
 
 // One Sim3 attempt on N <= 4096 matches: with SIM3_RANSAC (mode bit 1) the
 // H hypotheses of draw idx [H, 3] (2 a CTA), the first maximum and the

@@ -18,10 +18,12 @@
 // across the warp by shuffles; then each chosen group's child block is
 // scanned in that order for its first minimum (jnp.argmin, padded children
 // at 1 << 20), a later group replacing the best only when strictly nearer.
-// Without a tree the lanes stride all W words. `vocab_hist` is one CTA:
-// zero the [W] row (a database row, written in place), add 1 per valid
-// feature with float atomics (integer counts, exact in any order), scale by
-// idf and divide by the L1 norm from a fixed-order block reduction.
+// Without a tree the lanes stride all W words. `vocab_hist` is one CTA a
+// keyframe row (one for `transform`, B for `transform_batch`, whose B x F
+// descriptors went through one `vocab_assign` launch): zero the [W] row (a
+// database row, written in place), add 1 per valid feature with float
+// atomics (integer counts, exact in any order), scale by idf and divide by
+// the L1 norm from a fixed-order block reduction.
 // `vocab_sparse` is one CTA that ranks the F words in shared memory (rank =
 // smaller words + equal words before it: the stable sort), counts each
 // run and writes the first of each run. `vocab_l1_scores` gives each
@@ -138,6 +140,9 @@ __device__ float block_sum(float v, float* sh) {
 __global__ void hist_kernel(const int* word, const bool* valid, int F, const float* idf, int W,
                             float* out) {
     __shared__ float sh[33];
+    word += (size_t)blockIdx.x * F;  // this CTA's keyframe row
+    valid += (size_t)blockIdx.x * F;
+    out += (size_t)blockIdx.x * W;
     for (int i = threadIdx.x; i < W; i += blockDim.x) out[i] = 0.f;
     __syncthreads();
     for (int f = threadIdx.x; f < F; f += blockDim.x)
@@ -223,10 +228,11 @@ C_ENTRY int vocab_assign(const uint8_t* desc, int F, const uint8_t* words, int W
     return (int)cudaGetLastError();
 }
 
-// L1-normalized tf-idf histogram [W] of the valid features' words into out.
-C_ENTRY int vocab_hist(const int* word, const bool* valid, int F, const float* idf, int W,
+// L1-normalized tf-idf histograms of B keyframe rows: words and valid
+// [B, F] -> out [B, W], a CTA a row.
+C_ENTRY int vocab_hist(const int* word, const bool* valid, int B, int F, const float* idf, int W,
                        float* out, cudaStream_t stream) {
-    hist_kernel<<<1, HIST_THREADS, 0, stream>>>(word, valid, F, idf, W, out);
+    if (B > 0) hist_kernel<<<B, HIST_THREADS, 0, stream>>>(word, valid, F, idf, W, out);
     return (int)cudaGetLastError();
 }
 

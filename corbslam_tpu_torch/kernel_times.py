@@ -1,9 +1,10 @@
 """K4's finishing entry and K13's, K14's and B17's, K10's and K12's, K3's and
 K10's, K1's and K4's, K2's and K6's, K5's and K11's, K7's and K8's calls and
-launches, timed on the card.
+launches, timed on the card; K10's weighted Horn hashed and timed; the
+collaboration runner's alignment over server seeds.
 
     python -m corbslam_tpu_torch.kernel_times [--out PATH]
-        [--parts k4rk13,k14b17,k10k12,k3k10,k1k4,k6k2,k6sweep,k11k5,k7k8]
+        [--parts k4rk13,k14b17,k10k12,k3k10,k1k4,k6k2,k6sweep,k11k5,k7k8,horn,collab_seeds]
 
 Run from the root of a checkout (it drives the phases of `chip_smoke.py`
 there for its inputs): the tracking path (frame 12's K5 and K6 calls and
@@ -101,7 +102,13 @@ beside the tracker). `--parts` picks what to time (default all). Then:
   key beside them;
 - K8 (`ba_dense.optimize`) with CUDA events around back-to-back calls: call
   a of the first local BA and a 2-iteration chunk of the first GBA problem,
-  and `build_point_major` of each as a replayed graph.
+  and `build_point_major` of each as a replayed graph;
+- K10's weighted Horn and a Sim3 attempt (horn3 inside) on seeded inputs
+  (`horn_inputs`): hashes of the outputs, to hold a tree against its
+  parent, and the weighted Horn at K 2048 as a replayed graph (horn);
+- `apps.run_collab` with 2 and 4 clients for server seeds 0-7: each fused
+  client's alignment error, as `chip_smoke.py` gates it (collab_seeds).
+  Neither of these two parts is in the default.
 
 Prints one JSON object (with the card's `nvidia-smi` name and power limit)
 and writes it to `--out`. `recorded_launches` is also how `chip_smoke.py`
@@ -1192,6 +1199,76 @@ def time_k14_b17(cs) -> dict:
     return out
 
 
+def horn_inputs(dev="cuda") -> dict:
+    """Seeded camera-frame matches under four known Sim3s (N 400, 120 of
+    them outliers, 5 % invalid), each with a draw of 128 triples, and
+    weighted pair sets of K 1, 3, 300 and 2048 with 30 % of the weights 0."""
+    out = {}
+    for seed in range(4):
+        rng = np.random.default_rng(seed)
+        N = 400
+        X = np.stack([rng.uniform(-4, 4, N), rng.uniform(-3, 3, N), rng.uniform(4, 14, N)], -1)
+        S = sim3.exp(torch.tensor([0.2, -0.1, 0.3, 0.05, -0.08, 0.03, 0.02]) * (seed + 1))
+        X = torch.from_numpy(X.astype(np.float32))
+        p1 = sim3.transform(S, X) + torch.from_numpy(
+            rng.normal(size=(N, 3)).astype(np.float32)) * 0.01
+        p1[:120] = X[:120].flip(0)
+        valid = torch.from_numpy(rng.random(N) < 0.95)
+        s2 = torch.from_numpy((1.44 ** rng.integers(0, 4, N)).astype(np.float32))
+        idx = torch.from_numpy(rng.integers(0, N, (128, 3)).astype(np.int32))
+        for fix in (False, True):
+            out[f"sim3_{seed}_{fix}"] = ("sim3", tuple(
+                t.to(dev) for t in (p1, X, valid, s2, s2, idx)), fix)
+            for K in (1, 3, 300, 2048):
+                w = torch.from_numpy((rng.random(K) > 0.3).astype(np.float32))
+                rep = -(-K // N)
+                out[f"horn_{seed}_{fix}_{K}"] = ("horn", tuple(
+                    t.to(dev) for t in (p1.repeat(rep, 1)[:K], X.repeat(rep, 1)[:K], w)), fix)
+    return out
+
+
+def time_horn(cs) -> dict:
+    """K10's weighted Horn (`sim3_solver.horn_sim3` with weights) and a Sim3
+    attempt (`solve_and_refine_sim3`, horn3 inside) on `horn_inputs`: a
+    hash of each call's outputs (to hold a tree against its parent) and the
+    weighted Horn at K 2048 as a replayed graph."""
+    from .geometry import camera
+
+    cam = camera.Intrinsics.create(fx=320.0, fy=320.0, cx=160.0, cy=120.0, bf=160.0,
+                                   width=320, height=240)
+    hashes = {}
+    for name, (kind, t, fix) in horn_inputs().items():
+        if kind == "horn":
+            r = sim3_solver.horn_sim3(t[0], t[1], fix, w=t[2])
+        else:
+            a = sim3_solver.solve_and_refine_sim3(cam, cam, *t[:5], idx=t[5], fix_scale=fix)
+            r = [x for y in a for x in (y if isinstance(y, tuple) else (y,))
+                 if isinstance(x, torch.Tensor)]
+        hashes[name] = digest(*[torch.as_tensor(x) for x in r])
+    _, (p1, p2, w), _ = horn_inputs()["horn_0_True_2048"]
+    call = lambda: sim3_solver.horn_sim3(p1, p2, True, w=w)  # noqa: E731
+    return dict(horn=dict(hashes=hashes, ms_k2048=cs.graph_ms(call),
+                          launches=cs.launches_of(call, "horn")))
+
+
+def collab_seeds(cs, seeds=range(8)) -> dict:
+    """`apps.run_collab` with 2 and 4 clients over chip_smoke's 30 frames for
+    each server seed: fusions and each fused client's alignment error
+    (`chip_smoke.alignment_errors`: rotation, translation, the median
+    error of its own map points and that error with no alignment)."""
+    from .apps import run_collab
+
+    rows = []
+    for n in (2, 4):
+        for seed in seeds:
+            cr = run_collab.setup(n, "cuda")
+            cr.server.generator.manual_seed(seed)
+            run_collab.run(cr, cs.COLLAB_FRAMES)
+            rows.append(dict(clients=n, seed=seed, fusions=cr.server.stats["fusions"],
+                             errors=cs.alignment_errors(cr.server, cr.clients)))
+    return dict(collab_seeds=rows)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join("chiprun_out", "kernel_times.json"))
@@ -1208,7 +1285,10 @@ def main() -> None:
                          "k1k4: K1 and K4 on the entry pair and the tracker's device time; "
                          "k6k2: K6 and K2 on the tracking path; k6sweep: K6 by observations "
                          "and iterations; k11k5: K5 on the tracking path, K11, the tracker's "
-                         "device time and the loop closures; k7k8: K7, K8 and the tracker")
+                         "device time and the loop closures; k7k8: K7, K8 and the tracker; "
+                         "horn: K10's weighted Horn and a Sim3 attempt on seeded inputs "
+                         "(output hashes); collab_seeds: run_collab's alignment errors over "
+                         "server seeds 0-7 (neither in the default)")
     args = ap.parse_args()
     parts = set(args.parts.split(","))
     if not torch.cuda.is_available():
@@ -1229,6 +1309,10 @@ def main() -> None:
         out.update(time_k3_k10(cs))
     if "k1k4" in parts:
         out.update(time_k1_k4(cs))
+    if "horn" in parts:
+        out.update(time_horn(cs))
+    if "collab_seeds" in parts:
+        out.update(collab_seeds(cs))
     if not parts & {"k6k2", "k6sweep", "k11k5", "k7k8"}:
         return finish(out, args.out)
     te = cs.track_entry("cuda")

@@ -43,12 +43,13 @@ NVCC_FLAGS = [
 # "finish_keypoints"; K5's area-window mode (mono initialization) as
 # "match_area" and its epipolar-band mode (triangulation) as "match_band"; K12's as
 # "two_view", K13's as "triangulate"; K14's as "kmajority"; K8's launches
-# of global BA as "ba_dense_gba".
+# of global BA as "ba_dense_gba"; K9's two launches of a `transform_batch`
+# (a block of keyframes) as "vocab_batch"; K10's weighted Horn as "horn".
 LAUNCHES = {"pyramid": 0, "fast_cells": 0, "orb_describe": 0, "stereo_match": 0,
             "finish_keypoints": 0, "match_masked": 0, "match_area": 0, "match_band": 0,
             "pose_opt": 0, "local_map": 0, "covisibility": 0, "ba_dense": 0, "vocab": 0,
             "sim3": 0, "pnp": 0, "pose_graph": 0, "covis_matrix": 0, "two_view": 0,
-            "triangulate": 0, "kmajority": 0, "ba_dense_gba": 0}
+            "triangulate": 0, "kmajority": 0, "ba_dense_gba": 0, "vocab_batch": 0, "horn": 0}
 
 _lib = None
 BUILD_INFO: dict = {}
@@ -89,12 +90,13 @@ _SIGNATURES = {
     "ba_optimize": [VP] * 11 + [I32] * 7 + [F32] * 5 + [VP, I32] + [VP] * 6 + [VP],
     # vocab.cu
     "vocab_assign": [VP, I32, VP, I32, VP, I32, VP, I32, I32, VP] + [VP],
-    "vocab_hist": [VP, VP, I32, VP, I32, VP] + [VP],
+    "vocab_hist": [VP, VP, I32, I32, VP, I32, VP] + [VP],
     "vocab_sparse": [VP, VP, I32, VP, I32, VP, VP] + [VP],
     "vocab_l1_scores": [VP, I32, VP, I32, I32, VP] + [VP],
     # ransac.cu
     "sim3_attempt": [VP] * 5 + [I32, VP, I32] + [VP] * 3 + [I32] * 4 + [F32] * 8 + [VP] * 7 + [VP],
     "pnp_ransac": [VP] * 4 + [I32, VP, I32, I32] + [F32] * 5 + [VP] * 6 + [VP],
+    "horn_weighted": [VP] * 3 + [I32, I32, VP] + [VP],
     # pose_graph.cu
     "pg_linearize": [VP] * 8 + [I32] + [VP] * 2 + [VP],
     "pg_optimize": ([VP] * 4 + [I32] + [VP] * 6 + [I32] + [VP] * 2 + [I32] * 2 + [F32]

@@ -1,6 +1,7 @@
 """Keyframe database: BoW retrieval for loop detection and relocalization
 (port of `corbslam_tpu/place/database.py`: `BowDatabase`,
-`detect_loop_candidates`, `detect_relocalization_candidates`).
+`detect_loop_candidates`, `detect_relocalization_candidates`,
+`detect_map_fusion_candidates`, `detect_map_fusion_pairs`).
 
 The database is a dense [N, W] f32 BoW matrix aligned with the keyframe rows
 (256 MB at 2048 x 32768 on the card); rows are written in place where the
@@ -109,3 +110,28 @@ def detect_relocalization_candidates(db: BowDatabase, m: MapState, query_bow: to
     key = torch.where(db.valid & m.kf.valid, scores, torch.full_like(scores, float("-inf")))
     vals, rows = covis.topk_stable(key, k)
     return rows.to(torch.int32), torch.isfinite(vals) & (vals >= 0.75 * vals[0])
+
+
+def detect_map_fusion_candidates(db: BowDatabase, m: MapState, query_bow: torch.Tensor,
+                                 k: int = 8):
+    """Server-side inter-map overlap candidates (DetectMapFusionCandidatesFromDB,
+    KeyFrameDatabase.cc:189): a relocalization-style query against another
+    client's map."""
+    return detect_relocalization_candidates(db, m, query_bow, k)
+
+
+FUSION_PAIRS = 16  # (query, row) pairs returned by detect_map_fusion_pairs
+
+
+def detect_map_fusion_pairs(db: BowDatabase, db_kf_valid: torch.Tensor, bows: torch.Tensor,
+                            q_ok: torch.Tensor):
+    """Every query of a sub-map block (bows [Q, W], q_ok [Q]) scored against
+    the whole database in one K9 launch; the 16 best (query, row) pairs of the
+    flattened [Q N] scores, best first and the lower flat index first on
+    ties (`lax.top_k`). Returns (q_idx [16], rows [16], scores [16], ok [16])."""
+    scores = vocab_mod.l1_scores_batch(bows, db.bow)
+    eligible = (db.valid & db_kf_valid)[None, :] & q_ok[:, None]
+    flat = torch.where(eligible, scores, torch.full_like(scores, float("-inf"))).reshape(-1)
+    vals, idx = covis.topk_stable(flat, FUSION_PAIRS)
+    N = db.bow.shape[0]
+    return idx // N, idx % N, vals, torch.isfinite(vals)

@@ -1,7 +1,8 @@
 """Bag-of-binary-words vocabulary (port of `corbslam_tpu/place/vocab.py`:
 `Vocabulary`, `load` / `load_any` / `save` / `default_artifact_path` /
 `load_default`, `_assign`, `_assign_tree`, `transform`, `transform_sparse`,
-`densify_bow`, `l1_scores`, `l1_scores_batch`, and the training:
+`transform_batch`, `transform_many`, `densify_bow`, `l1_scores`,
+`l1_scores_batch`, and the training:
 `_kmajority` as `kmajority`, `train`, `train_chunked`, `train_hierarchical`,
 `build_tree`).
 
@@ -213,8 +214,9 @@ def _check_voc(voc: Vocabulary, dev) -> None:
                       dev)
 
 
-def assign(voc: Vocabulary, desc: torch.Tensor) -> torch.Tensor:
-    """Word id [F] i32 of each packed descriptor [F, 32]."""
+def assign(voc: Vocabulary, desc: torch.Tensor, counter: str = "vocab") -> torch.Tensor:
+    """Word id [F] i32 of each packed descriptor [F, 32]; a launch counts as
+    `counter`."""
     if not _on_cuda(desc):
         return assign_plain(voc, desc)
     dev, F = desc.device, desc.shape[0]
@@ -224,7 +226,7 @@ def assign(voc: Vocabulary, desc: torch.Tensor) -> torch.Tensor:
     p = kernels.ptr
     tree = voc.child_idx is not None
     G, C = (voc.groups.shape[0], voc.child_idx.shape[1]) if tree else (0, 0)
-    kernels.launch("vocab", "vocab_assign", p(desc), F, p(voc.words), voc.n_words,
+    kernels.launch(counter, "vocab_assign", p(desc), F, p(voc.words), voc.n_words,
                    p(voc.groups) if tree else None, G, p(voc.child_idx) if tree else None, C,
                    min(TREE_TOP_G, G), p(out))
     return out
@@ -244,7 +246,7 @@ def transform(voc: Vocabulary, desc: torch.Tensor, valid: torch.Tensor,
         out = torch.empty(W, dtype=torch.float32, device=dev)
     kernels.check(out, "out", torch.float32, (W,), dev)
     p = kernels.ptr
-    kernels.launch("vocab", "vocab_hist", p(word), p(valid), F, p(voc.idf), W, p(out))
+    kernels.launch("vocab", "vocab_hist", p(word), p(valid), 1, F, p(voc.idf), W, p(out))
     return out
 
 
@@ -263,6 +265,41 @@ def transform_sparse(voc: Vocabulary, desc: torch.Tensor, valid: torch.Tensor):
     kernels.launch("vocab", "vocab_sparse", p(word), p(valid), F, p(voc.idf), voc.n_words,
                    p(ids), p(vals))
     return ids, vals
+
+
+def transform_batch_plain(voc: Vocabulary, desc: torch.Tensor, valid: torch.Tensor):
+    """Plain version of `transform_batch`: one assignment of the B x F
+    descriptors, then each row's histogram in turn."""
+    B, F = desc.shape[0], desc.shape[1]
+    if B == 0:
+        return torch.zeros(0, voc.n_words, dtype=torch.float32, device=desc.device)
+    word = assign_plain(voc, desc.reshape(B * F, 32)).view(B, F)
+    return torch.stack([histogram_plain(voc, w, v) for w, v in zip(word, valid)])
+
+
+def transform_batch(voc: Vocabulary, desc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Descriptors [B, F, 32] of B keyframes -> their BoW vectors [B, W] (the
+    reference's vmap of `transform`). On the card two K9 launches a call,
+    counted as "vocab_batch": one assignment over the B x F descriptors and
+    one histogram launch of a CTA a row."""
+    if not _on_cuda(desc):
+        return transform_batch_plain(voc, desc, valid)
+    dev, W = desc.device, voc.n_words
+    B, F = desc.shape[0], desc.shape[1]
+    kernels.check(desc, "desc", torch.uint8, (B, F, 32), dev)
+    kernels.check(valid, "valid", torch.bool, (B, F), dev)
+    word = assign(voc, desc.view(B * F, 32), counter="vocab_batch")
+    out = torch.empty(B, W, dtype=torch.float32, device=dev)
+    p = kernels.ptr
+    kernels.launch("vocab_batch", "vocab_hist", p(word), p(valid), B, F, p(voc.idf), W, p(out))
+    return out
+
+
+def transform_many(voc: Vocabulary, desc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """[B, F, 32] -> [B, W]: the reference bounds its memory here with a
+    sequential map over the rows; on the card the batched path never holds a
+    [B, F, W] tensor, so this is `transform_batch`."""
+    return transform_batch(voc, desc, valid)
 
 
 def densify_bow(n_words: int, ids: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:

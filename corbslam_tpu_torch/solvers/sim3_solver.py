@@ -14,7 +14,8 @@ the refinement and `compute_sim3`'s combine of the two run on kernel K10
 (`csrc/ransac.cu`), one launch an attempt (`solve_and_refine_sim3`), or the
 RANSAC or the refinement alone (`solve_sim3_ransac`,
 `refine_sim3_iterative`) on the same kernel; on CPU tensors the plain
-versions below.
+versions below. `horn_sim3` on one weighted set of pairs (the server's
+sub-map alignment) is K10's weighted-Horn launch on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -61,9 +62,11 @@ def sample_indices(valid: torch.Tensor, n_hyp: int, k: int,
     return idx.view(n_hyp, k).to(torch.int32)
 
 
-def horn_sim3(p1: torch.Tensor, p2: torch.Tensor, fix_scale: bool = False,
-              w: Optional[torch.Tensor] = None):
-    """Closed-form similarity p1 ~ s R p2 + t from matched sets [..., K, 3]."""
+def horn_sim3_batched(p1: torch.Tensor, p2: torch.Tensor, fix_scale: bool = False,
+                      w: Optional[torch.Tensor] = None):
+    """Closed-form similarity p1 ~ s R p2 + t from matched sets [..., K, 3],
+    batched over the leading dims in PyTorch (the RANSAC's plain version
+    solves its hypotheses with it)."""
     if w is None:
         w = torch.ones(p1.shape[:-1], dtype=p1.dtype, device=p1.device)
     wn = w / w.sum(dim=-1, keepdim=True).clamp_min(1e-12)
@@ -98,6 +101,99 @@ def horn_sim3(p1: torch.Tensor, p2: torch.Tensor, fix_scale: bool = False,
     return R, t, s
 
 
+HORN_THREADS = 256  # the weighted-Horn kernel's CTA: its sums' order
+
+
+def _block_sum(x: torch.Tensor) -> torch.Tensor:
+    """[K, C] -> [C], summed in the weighted-Horn kernel's order: partial i
+    adds rows i, i + 256, ... in turn from 0, then the 256 partials are
+    halved as a tree (stride 128 down to 1)."""
+    T = HORN_THREADS
+    K, C = x.shape
+    n = max(-(-K // T), 1)
+    xs = torch.cat([x, x.new_zeros(n * T - K, C)]).view(n, T, C)
+    acc = x.new_zeros(T, C)
+    for r in range(n):
+        acc = acc + xs[r]
+    st = T // 2
+    while st >= 1:
+        acc = acc[:st] + acc[st:2 * st]
+        st //= 2
+    return acc[0]
+
+
+def _sum3(a: torch.Tensor) -> torch.Tensor:
+    """(a0 + a1) + a2 along the last axis."""
+    return (a[..., 0] + a[..., 1]) + a[..., 2]
+
+
+def horn_weighted_plain(p1: torch.Tensor, p2: torch.Tensor, w: torch.Tensor,
+                        fix_scale: bool = False):
+    """Plain version of the weighted-Horn kernel: `horn_sim3` on one set of
+    K pairs with weights w [K], every sum over the pairs in the kernel's
+    block order (`_block_sum`) and every other sum left to right, as the
+    kernel does."""
+    den = _block_sum(w[:, None])[0].clamp_min(1e-12)
+    wn = w / den
+    c = _block_sum(torch.cat([p1 * wn[:, None], p2 * wn[:, None]], dim=1))
+    c1, c2 = c[:3], c[3:]
+    sw = torch.sqrt(wn)[:, None]
+    q1, q2 = (p1 - c1) * sw, (p2 - c2) * sw
+    M = _block_sum((q2[:, :, None] * q1[:, None, :]).reshape(-1, 9)).view(3, 3)
+    (Sxx, Sxy, Sxz), (Syx, Syy, Syz), (Szx, Szy, Szz) = M
+    N = torch.stack([
+        torch.stack([(Sxx + Syy) + Szz, Syz - Szy, Szx - Sxz, Sxy - Syx]),
+        torch.stack([Syz - Szy, (Sxx - Syy) - Szz, Sxy + Syx, Szx + Sxz]),
+        torch.stack([Szx - Sxz, Sxy + Syx, (-Sxx + Syy) - Szz, Syz + Szy]),
+        torch.stack([Sxy - Syx, Szx + Sxz, Syz + Szy, (-Sxx - Syy) + Szz]),
+    ])
+    a = N.abs()
+    diag = torch.diagonal(N)
+    g = diag - (((a[:, 0] + a[:, 1]) + a[:, 2]) + a[:, 3] - diag.abs())
+    Ns = N + g.min().neg().clamp_min(0.0) * torch.eye(4, dtype=N.dtype, device=N.device)
+    v = torch.ones(4, dtype=N.dtype, device=N.device)
+    for _ in range(100):
+        u = ((Ns[:, 0] * v[0] + Ns[:, 1] * v[1]) + Ns[:, 2] * v[2]) + Ns[:, 3] * v[3]
+        uu = u * u
+        v = u / torch.sqrt(((uu[0] + uu[1]) + uu[2]) + uu[3]).clamp_min(1e-12)
+    R = se3.R_from_quat(v)
+    if fix_scale:
+        s = torch.ones((), dtype=p1.dtype, device=p1.device)
+    else:
+        r = _sum3(R[None] * q2[:, None, :])                  # [K, 3] = R q2
+        sums = _block_sum(torch.stack([_sum3(q1 * r), _sum3(r * r)], dim=1))
+        s = sums[0] / sums[1].clamp_min(1e-12)
+    t = c1 - s * _sum3(R * c2)
+    return R, t, s
+
+
+def horn_sim3(p1: torch.Tensor, p2: torch.Tensor, fix_scale: bool = False,
+              w: Optional[torch.Tensor] = None):
+    """Closed-form similarity p1 ~ s R p2 + t from matched sets [..., K, 3],
+    optionally weighted by w [..., K]. One set of pairs ([K, 3], the
+    server's alignment) runs on the weighted-Horn kernel of K10 on CUDA
+    tensors (one launch, counted as "horn") and on `horn_weighted_plain` on
+    CPU tensors; batched sets on `horn_sim3_batched`."""
+    if p1.dim() != 2:
+        if p1.is_cuda:
+            raise ValueError("horn_sim3: the kernel takes one set of pairs [K, 3]")
+        return horn_sim3_batched(p1, p2, fix_scale, w)
+    K = p1.shape[0]
+    if w is None:
+        w = torch.ones(K, dtype=p1.dtype, device=p1.device)
+    if not p1.is_cuda:
+        if p1.device.type != "cpu":
+            raise ValueError(f"unsupported device {p1.device}")
+        return horn_weighted_plain(p1, p2, w, fix_scale)
+    dev = p1.device
+    for name, t, shape in (("p1", p1, (K, 3)), ("p2", p2, (K, 3)), ("w", w, (K,))):
+        kernels.check(t, name, torch.float32, shape, dev)
+    out = torch.empty(13, dtype=torch.float32, device=dev)
+    kernels.launch("horn", "horn_weighted", kernels.ptr(p1), kernels.ptr(p2), kernels.ptr(w), K,
+                   int(bool(fix_scale)), kernels.ptr(out))
+    return out[:9].view(3, 3), out[9:12], out[12]
+
+
 def _sim3_chi2(cam1, cam2, p1_cam, p2_cam, R, t, s):
     """Per-correspondence squared reprojection error of a Sim3 in both
     cameras, and the cheirality mask. R, t, s may carry a leading batch."""
@@ -117,7 +213,7 @@ def _inliers(cam1, cam2, p1, p2, valid, s2_1, s2_2, R, t, s):
 def solve_sim3_ransac_plain(cam1, cam2, p1, p2, valid, s2_1, s2_2, idx, min_inliers: int = 20,
                             fix_scale: bool = False) -> Sim3RansacResult:
     i = idx.long()
-    R, t, s = horn_sim3(p1[i], p2[i], fix_scale)
+    R, t, s = horn_sim3_batched(p1[i], p2[i], fix_scale)
     inl = _inliers(cam1, cam2, p1, p2, valid, s2_1, s2_2, R, t, s)
     counts = inl.sum(dim=1, dtype=torch.int32)
     best = torch.argmax(counts)

@@ -1,12 +1,14 @@
 """Top-level client facade (port of `corbslam_tpu/system.py`: the
 `CorbslamClient` constructor, `track_stereo`, `track_rgbd`,
-`track_monocular`, the per-frame metrics lines, `shutdown` and `state`).
+`track_monocular`, the per-frame metrics lines and sync cadence, `shutdown`
+and `state`).
 
-One object wiring the tracker (`frontend/tracking.StereoTracker`) and the
+One object wiring the tracker (`frontend/tracking.StereoTracker`), the
 loop closer (`loop/loop_closing.LoopCloser`, with global BA when `run_gba`)
-on `device` ("cuda" unless the caller asks for "cpu"). A mono client's loop
-closer estimates the Sim3's scale (`fix_scale=False`). The collaboration
-layer (`transport=`) and the trajectory and map files are not ported yet.
+and, with `transport=`, the collaboration cache (`collab/client_cache`,
+uplink on a worker thread) on `device` ("cuda" unless the caller asks for
+"cpu"). A mono client's loop closer estimates the Sim3's scale
+(`fix_scale=False`). The trajectory and map files are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,15 +28,13 @@ from .place import vocab as vocab_mod
 
 
 class CorbslamClient:
-    """One SLAM client: tracking + local mapping + loop closing + global BA."""
+    """One SLAM client: tracking + local mapping + loop closing + global BA
+    + (optionally) collaboration with a fusion server."""
 
     def __init__(self, cam: cam_mod.Intrinsics, cfg: SlamConfig, sensor: str = "stereo",
                  client_id: int = 1, voc: Optional[vocab_mod.Vocabulary] = None, transport=None,
                  enable_loop_closing: bool = True, run_gba: bool = True,
                  metrics_path: Optional[str] = None, device="cuda"):
-        if transport is not None:
-            raise NotImplementedError("CorbslamClient(transport=...): the collaboration layer "
-                                      "(collab/: client cache, server, transports) is not ported")
         dev = kernels.resolve_device(device)
         self.cam = cam
         self.cfg = cfg
@@ -49,6 +49,20 @@ class CorbslamClient:
                                           run_gba=run_gba, seed=client_id)
         self.tracker = StereoTracker(cam, cfg, client=client_id, loop_closer=self.loop_closer,
                                      device=dev)
+        self.cache = None
+        if transport is not None:
+            from .collab.client_cache import ClientCache
+
+            # The cache registers its compaction and reset hooks with the
+            # tracker, so compaction stays on under collaboration.
+            self.cache = ClientCache(self.tracker, transport, client_id, cfg,
+                                     loop_closer=self.loop_closer)
+            self.cache.start_async_uplink()
+        # Sync cadence in frames (the reference syncs on wall-clock: 6 s
+        # uplink Cache.cc:370, 2 s downlink poll; at the 10 fps replay rate
+        # that is 60 / 20 frames).
+        self.uplink_every = 60
+        self.downlink_every = 20
         self._metrics = open(metrics_path, "a") if metrics_path else None
 
     # ------------------------------------------------------------------
@@ -74,11 +88,19 @@ class CorbslamClient:
         return pose
 
     def _after_frame(self, t0: float, timestamp: float):
-        """One JSON line of metrics per frame to `metrics_path`, if given (the
-        state read flushes the tracker's pipeline)."""
+        """The sync cadence (downlink, then an uplink handed to the worker:
+        tracking never waits for the server's ACK), then one JSON line of
+        metrics per frame to `metrics_path`, if given (the state read
+        flushes the tracker's pipeline)."""
+        tr = self.tracker
+        if self.cache is not None:
+            n = tr.stats.n_frames
+            if n % self.downlink_every == 0:
+                self.cache.downlink_step()
+            if n % self.uplink_every == 0:
+                self.cache.request_uplink()
         if self._metrics is None:
             return
-        tr = self.tracker
         rec = {
             "t": timestamp,
             "frame": tr.stats.n_frames,
@@ -92,9 +114,19 @@ class CorbslamClient:
 
     # ------------------------------------------------------------------
     def shutdown(self):
-        """Flush the tracker, wait for a running global BA and merge it
+        """Flush the tracker, drain the uplink worker and make the final
+        push and pull, wait for a running global BA and merge it
         (System::Shutdown)."""
         self.tracker.flush()
+        if self.cache is not None:
+            self.cache.stop_async_uplink()
+            # The final push must land: the server may be busy fusing, so
+            # retry with a growing pause until it is acknowledged.
+            for attempt in range(5):
+                if self.cache.uplink_step():
+                    break
+                time.sleep(0.5 * (attempt + 1))
+            self.cache.downlink_step()
         lc = self.loop_closer
         if lc is not None and lc.gba_runner is not None:
             lc.gba_runner.wait()

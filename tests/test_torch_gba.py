@@ -246,7 +246,13 @@ def test_the_client_on_the_cpu_runs_global_ba_and_merges_at_shutdown(tmp_path):
     assert set(lines[0]) == {"t", "frame", "state", "track_ms", "n_kf", "n_mp", "inliers"}
     T = tr.map.kf.Tcw[tr.map.kf.valid]
     assert bool(torch.isfinite(T).all()) and float((T - before.kf.Tcw[tr.map.kf.valid]).abs().max()) > 0
-    with pytest.raises(NotImplementedError, match="collab"):
-        CorbslamClient(CAM, CFG, voc=c.voc, transport=object(), device="cpu")
+    from corbslam_tpu_torch.collab.client_cache import ClientCache
+    from corbslam_tpu_torch.collab.transport import InProcTransport
+
+    collab = CorbslamClient(CAM, CFG, voc=c.voc, transport=InProcTransport(), device="cpu")
+    assert isinstance(collab.cache, ClientCache) and collab.cache.tracker is collab.tracker
+    assert collab.tracker.on_compact == [collab.cache.remap_rows]
+    assert collab.tracker.on_reset == [collab.cache.handle_reset]
+    collab.shutdown()
     mono = CorbslamClient(ee.cam, ee.cfg, sensor="mono", voc=c.voc, device="cpu")
     assert mono.loop_closer.fix_scale is False

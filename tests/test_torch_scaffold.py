@@ -71,7 +71,9 @@ def test_import_leaves_out_jax_and_the_reference():
                 "geometry.sim3", "place.vocab", "place.database", "solvers.sim3_solver",
                 "solvers.pnp", "optim.pose_graph", "loop.loop_closing", "frontend.reloc",
                 "geometry.linalg3", "solvers.initializer", "mapping.triangulation",
-                "loop.gba", "system"):
+                "loop.gba", "system", "collab.server", "collab.client_cache",
+                "collab.fusion_ops", "collab.wire", "collab.transport", "collab.socket_transport",
+                "collab.shm_ring", "collab.shm_transport", "apps.run_collab"):
         assert f"corbslam_tpu_torch.{sub}" in MODULES
 
 
@@ -89,7 +91,7 @@ def _tiny_inputs():
 
 @pytest.mark.parametrize("call", ["extract", "stereo", "mono", "rgbd", "entry", "track_entry",
                                   "tracker_entry", "loop_entry", "sensor_entry", "e2e_entry",
-                                  "client", "vocab_load"])
+                                  "client", "vocab_load", "server", "run_collab"])
 def test_entry_points_default_to_cuda_and_raise_without_it(call):
     assert not torch.cuda.is_available()
     img, cam = _tiny_inputs()
@@ -117,6 +119,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it(call):
             system.CorbslamClient(cam, config.SlamConfig())
         elif call == "vocab_load":
             vocab.load_default()
+        elif call == "server":
+            from corbslam_tpu_torch.collab.server import MapFusionServer
+            from corbslam_tpu_torch.collab.transport import InProcTransport
+
+            MapFusionServer(cam, config.SlamConfig(), None, InProcTransport())
+        elif call == "run_collab":
+            from corbslam_tpu_torch.apps import run_collab
+
+            run_collab.main(["--clients", "1", "--frames", "1"])
         else:
             fwd, imgs = entry.entry()
             fwd(*imgs)
@@ -313,7 +324,8 @@ def test_chip_smoke_fails_without_cuda():
                                      "sim3_ransac", "sim3_refine", "sim3_attempt", "pnp_ransac",
                                      "pose_graph",
                                      "covis_matrix", "finish_keypoints", "two_view", "band_search",
-                                     "triangulate", "kmajority", "km_idf", "assign_flat"])
+                                     "triangulate", "kmajority", "km_idf", "assign_flat",
+                                     "transform_batch", "horn"])
 def test_wrappers_refuse_devices_other_than_cpu_and_cuda(wrapper):
     """A wrapper takes its plain version only for a CPU tensor; a tensor on
     another device is refused, never silently moved."""
@@ -357,6 +369,13 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda(wrapper):
         elif wrapper == "vocab_assign":
             voc = vocab.Vocabulary(torch.empty(8, 32, dtype=torch.uint8, device="meta"), meta)
             vocab.assign(voc, torch.empty(4, 32, dtype=torch.uint8, device="meta"))
+        elif wrapper == "transform_batch":
+            voc = vocab.Vocabulary(torch.empty(8, 32, dtype=torch.uint8, device="meta"), meta)
+            vocab.transform_batch(voc, torch.empty(2, 4, 32, dtype=torch.uint8, device="meta"),
+                                  torch.empty(2, 4, dtype=torch.bool, device="meta"))
+        elif wrapper == "horn":
+            p3 = torch.empty(8, 3, device="meta")
+            sim3_solver.horn_sim3(p3, p3, w=torch.empty(8, device="meta"))
         elif wrapper == "l1_scores":
             vocab.l1_scores(torch.empty(8, device="meta"), torch.empty(2, 8, device="meta"))
         elif wrapper in ("sim3_ransac", "sim3_refine", "sim3_attempt", "pnp_ransac"):
@@ -455,6 +474,37 @@ def test_k11_and_k5_make_one_launch_that_fits_their_c_entry(wrapper, monkeypatch
     counter, fn, args = calls[0]
     assert counter in kernels.LAUNCHES
     assert len(args) + 1 == len(kernels._SIGNATURES[fn])  # + the stream
+
+
+@pytest.mark.parametrize("wrapper", ["transform_batch", "horn"])
+def test_k9_batch_and_weighted_horn_launches_fit_their_c_entries(wrapper, monkeypatch):
+    """K9's `transform_batch` makes two launches, `vocab_assign` over the B x
+    F descriptors and `vocab_hist` of B rows, both counted as
+    "vocab_batch"; the weighted Horn one `horn_weighted` launch, counted as
+    "horn". Each argument list fits its C entry's ctypes signature. Run here
+    on CPU tensors with the launches recorded instead of made."""
+    calls = []
+    monkeypatch.setattr(kernels, "launch", lambda counter, fn, *a: calls.append((counter, fn, a)))
+    monkeypatch.setattr(kernels, "ptr", lambda t: 0)
+    monkeypatch.setattr(kernels, "check", lambda *a, **k: None)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    if wrapper == "transform_batch":
+        B, F, W = 3, 7, 16
+        voc = vocab.Vocabulary(torch.zeros(W, 32, dtype=torch.uint8), torch.ones(W))
+        out = vocab.transform_batch(voc, torch.zeros(B, F, 32, dtype=torch.uint8),
+                                    torch.ones(B, F, dtype=torch.bool))
+        assert [c[:2] for c in calls] == [("vocab_batch", "vocab_assign"),
+                                          ("vocab_batch", "vocab_hist")]
+        assert calls[0][2][1] == B * F and calls[1][2][2:4] == (B, F) and out.shape == (B, W)
+    else:
+        K = 9
+        R, t, s = sim3_solver.horn_sim3(torch.zeros(K, 3), torch.zeros(K, 3), True,
+                                        w=torch.ones(K))
+        assert [c[:2] for c in calls] == [("horn", "horn_weighted")]
+        assert calls[0][2][3:5] == (K, 1) and R.shape == (3, 3) and t.shape == (3,)
+    for counter, fn, args in calls:
+        assert counter in kernels.LAUNCHES
+        assert len(args) + 1 == len(kernels._SIGNATURES[fn])  # + the stream
 
 
 @pytest.mark.parametrize("wrapper", ["kmajority", "kmajority_level2", "assign_flat",

@@ -177,7 +177,45 @@
    Last, batched K9 (word ids exact, BoW 1e-6) and the weighted Horn (R and
    s 1e-5, t 1e-4 m) against their plain versions on both runs' inputs and
    at their edges, and their timed rows;
-12. writes every measurement (per-frame times and counts, nvcc's full
+12. drives the endurance run (`entry.endurance_entry` / `run_endurance`:
+   the bench's 1050 frames, ~8.3 laps of the occluded, shaded SceneWorld
+   room rendered on the card, a 256-row keyframe table the run overflows,
+   a 1024-word vocabulary trained by K14 from three frames, loop closing
+   and asynchronous global BA), all counters reset just before the
+   training, fed as the bench feeds it: frames 1.. OK but at most 1 % LOST
+   frames that relocalize, no reset, a compaction, a compaction that meets
+   a running global BA (if none comes naturally, one is forced on the final
+   map: the GBA launched with its first chunk held, then a compaction while
+   it is busy) counted as aborted with nothing merged, the loop edges,
+   database rows and last loop live after every compaction, >= 4 loops
+   within 3 of the JAX CPU yardstick's count on the same words, a finished
+   GBA run, finite orthonormal keyframe poses, no GBA thread alive after
+   the shutdown, keyframe ATE <= 2 x the yardstick's, every kernel of the
+   path launched; prints fps (frames 100..1049, rendering included), frame
+   p50 / p90 / max, the loops' rows, GBA runs, compactions, the launches
+   over the run, and writes the trained vocabulary to
+   chiprun_out/endurance_vocab.npz. The loop count turns on the words, the
+   draws and the frame a GBA result lands on, in JAX as in the port (the
+   port's loop closer makes the reference's decisions on the reference's
+   maps: tests/yardstick_endurance.py --lockstep), so each yardstick is
+   the JAX run on the words the port's run used, tied to them by their
+   hash: the entry's words against JAX's run on them, then a second run of
+   the same frames on the bench's own words
+   (assets/endurance_bench_words.npz) against the bench's run (its loop,
+   ATE, reset and frame gates).
+   Then the checkpoint: `save_map` of the final map (tables bit-equal),
+   20 further frames of the original client under torch.profiler (device
+   time, idle share and launches a frame), `load_map` into a fresh client
+   with the same vocabulary (tables bit-equal), which must relocalize
+   within 3 frames (K9, K10's PnP, K6), stay OK, and track frames
+   1050..1059 within 0.05 m / 0.01 rad of the original client. Then the
+   apps: `run_client` over 30 synthetic flagship frames with loop closing
+   (30 x 12 KITTI rows, 30 metrics lines, every frame OK), `train_vocab`
+   on three small worlds, SceneWorld among them, through K14's
+   hierarchical path (its artifact read back equal), and `run_stream`'s
+   publisher (a thread) and node on loopback for 10 frames (every tracked
+   frame OK);
+13. writes every measurement (per-frame times and counts, nvcc's full
    -Xptxas -v log) to chiprun_out/chip_smoke_report.json in the checkout,
    and prints the kernels' JSON line, the nvidia-smi line, and as the last
    line {"ok": true, "device": {...}}.
@@ -188,6 +226,7 @@ Without CUDA it exits non-zero before printing anything of a result.
 
 from __future__ import annotations
 
+import argparse
 import copy
 import dataclasses
 import json
@@ -195,6 +234,8 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -213,8 +254,9 @@ from corbslam_tpu_torch.config import CapacityConfig  # noqa: E402
 from corbslam_tpu_torch.entry import (  # noqa: E402
     BENCH_FRAMES, BENCH_WARM, BENCH_WINDOW, CAM, CFG, E2E_RADIUS, E2E_TRAIN_ITERS, E2E_WORDS,
     LOOP_FRAMES, MONO_FRAMES, RGBD_FRAMES, TrackState, add_keyframe, bench_config, center_error,
-    e2e_entry, entry, gt_pose, loop_config, loop_entry, orbit_pose, run_bench_schedule, run_e2e,
-    run_sensor, seed_map, sensor_entry, stereo_pair, track_entry, track_step, tracker_entry)
+    e2e_entry, endurance_entry, endurance_frame, entry, gt_pose, live_rows_ok, loop_config,
+    loop_entry, orbit_pose, run_bench_schedule, run_e2e, run_endurance, run_sensor, seed_map,
+    sensor_entry, stereo_pair, track_entry, track_step, tracker_entry)
 from corbslam_tpu_torch.frontend import frame as frame_mod  # noqa: E402
 from corbslam_tpu_torch.frontend import reloc, track_ops  # noqa: E402
 from corbslam_tpu_torch.frontend.tracking import StereoTracker  # noqa: E402
@@ -235,6 +277,7 @@ from corbslam_tpu_torch.ops.orb import Features  # noqa: E402
 from corbslam_tpu_torch.optim import ba_dense, pose_graph, pose_opt, reproj  # noqa: E402
 from corbslam_tpu_torch.place import database, vocab  # noqa: E402
 from corbslam_tpu_torch.solvers import initializer, pnp, sim3_solver  # noqa: E402
+from corbslam_tpu_torch.system import CorbslamClient  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, f32 and f64 rates outside
 # the tensor cores, and the dense int8 tensor-core rate (K14's inner
@@ -2854,6 +2897,17 @@ E2E_GATES = dict(stereo=dict(kf_ate_m=0.12, vs_frames=1.4), laps=dict(kf_ate_m=0
                  mono=dict(kf_ate_m=0.9, s=(0.7, 1.4)))
 
 
+def orthonormal_error(m) -> float:
+    """The largest |R R^T - I| over the live keyframes (inf if any pose is
+    not finite)."""
+    T = m.kf.Tcw[m.kf.valid]
+    if not bool(torch.isfinite(T).all()):
+        return float("inf")
+    R = T[:, :3, :3].double()
+    return float((R @ R.transpose(1, 2) - torch.eye(3, dtype=R.dtype, device=R.device))
+                 .abs().max())
+
+
 def e2e_ates(tr, ee, with_scale: bool) -> tuple:
     """(frame ATE, keyframe ATE): the aligned ATE of every frame's camera
     centre and of the live keyframes' against their frames' truth
@@ -2941,10 +2995,7 @@ def run_e2e_phase(sensor: str, laps: bool = False, client_id: int = 1) -> dict:
     states = [x.name for x in tr.frame_states]
     ate_f, ate_k = e2e_ates(tr, ee, sensor == "mono")
     m = tr.map
-    T = m.kf.Tcw[m.kf.valid]
-    R = T[:, :3, :3].double()
-    ortho = float((R @ R.transpose(1, 2) - torch.eye(3, dtype=R.dtype, device=R.device))
-                  .abs().max()) if bool(torch.isfinite(T).all()) else float("inf")
+    ortho = orthonormal_error(m)
     s_acc = lc_.loops.s[lc_.loops.valid].tolist()
     out = dict(client=client, ee=ee, kept=kept, run=name, frames=ee.n_frames,
                corpus=ee.corpus.shape[0], train_s=train_s, train_launches=train_launches,
@@ -4013,6 +4064,363 @@ def time_rows(rows: list) -> None:
                                                if library_fn else (None, None))
 
 
+# The JAX package's endurance run on a CPU (tests/yardstick_endurance.py,
+# JAX 0.9.0 on an "Intel(R) Xeon(R) Processor"), each on the words the
+# port's run uses, which `words` (kernel_times.digest of the words and
+# their idf as the port loads them) ties to it: the bench's own run
+# (bench.py:118-206: its words trained with seed 0, shipped as
+# assets/endurance_bench_words.npz) and the run on the words the entry
+# trains on the card (--load-vocab of the chiprun_out/endurance_vocab.npz
+# this phase writes). A change to K14, the corpus or the training seed
+# changes the entry's hash; the yardstick is then run again on the new words.
+JAX_ENDURANCE_BENCH = dict(loops=9, ate_kf_m=0.045, words="e4cb202555628e20")
+JAX_ENDURANCE_ENTRY_WORDS = dict(loops=7, ate_kf_m=0.0582, words="4ff61c0a41042b56")
+BENCH_WORDS = os.path.join(ROOT, "assets", "endurance_bench_words.npz")
+# The TPU record of older code (VERDICT.md:20): an outcome, quoted beside the
+# run, never a gate.
+TPU_ENDURANCE_RECORD = dict(loops=8, gba_runs=8, compactions=1, keyframes_created=339,
+                            keyframes_live=89, ate_kf_m=0.063)
+ENDURANCE_KERNELS = TRACKING_KERNELS + ("covisibility", "ba_dense", "vocab", "sim3", "pose_graph",
+                                        "covis_matrix", "kmajority", "ba_dense_gba")
+CHECKPOINT_FRAMES, PROFILE_FRAMES = 10, 20
+
+
+def force_compaction_during_gba(client) -> dict:
+    """A compaction that meets a running global BA, on the client's final
+    map: the GBA is launched with its first chunk held until the abort flag
+    is raised, then the tracker compacts while `busy()`. Under half a full
+    keyframe table `_compact_map` would only resync its cursor, so for this
+    one call the tracker's table is taken as full at its cursor."""
+    tr, lc = client.tracker, client.loop_closer
+    g = lc.gba_runner
+    started, chunk, cfg = threading.Event(), g._chunk, tr.cfg
+
+    def held_chunk(prob, k):
+        started.set()
+        g._abort.wait(60)
+        return chunk(prob, k)
+
+    g._chunk = held_chunk
+    try:
+        g.launch(tr.map)
+        require(started.wait(60) and g.busy(), "forced compaction: the GBA is not running")
+        n_kf = int(tr.map.n_kf)
+        if n_kf < int(0.5 * cfg.capacity.max_keyframes):
+            tr.cfg = cfg.replace(capacity=dataclasses.replace(cfg.capacity, max_keyframes=n_kf))
+        aborted, n0 = g.runs_aborted, tr.stats.n_compactions
+        tr._compact_map()
+        out = dict(frame=tr.frame_id, n_kf_before=n_kf, n_kf_after=int(tr.map.n_kf),
+                   gba_busy=True, gba_unmerged=False, aborts_added=g.runs_aborted - aborted,
+                   result_left=g._result is not None, rows_live=live_rows_ok(client),
+                   compacted=tr.stats.n_compactions - n0)
+    finally:
+        tr.cfg = cfg
+        del g._chunk
+    m = tr.map
+    out["merged_nothing"] = lc.try_merge_gba(m) is m
+    return out
+
+
+def frames_ok(states: list, relocalizations: int) -> bool:
+    """Frames 1.. OK or LOST, at most 1 % LOST, the last OK, and a LOST frame
+    only where the run relocalized."""
+    n = len(states)
+    lost = [i for i in range(1, n) if states[i] != "OK"]
+    return (all(states[i] in ("OK", "LOST") for i in range(1, n)) and len(lost) <= 0.01 * (n - 1)
+            and states[-1] == "OK" and (not lost or relocalizations >= 1))
+
+
+def loops_near(out: dict, yardstick: dict) -> bool:
+    """At least 4 loops, and no more than 3 away from the yardstick's count."""
+    n = out["endurance_loops_closed"]
+    return n >= 4 and abs(n - yardstick["loops"]) <= 3
+
+
+def run_on_bench_words(ee) -> dict:
+    """The endurance run again, the same frames and client, on the bench's
+    own words (the vocabulary bench.py trains with seed 0, in the artifact
+    format): `run_endurance`'s outcome with `words` (their hash) and
+    `gba_alive` (a GBA thread alive after the shutdown)."""
+    voc = vocab.load(BENCH_WORDS, "cuda")
+    words = digest(voc.words, voc.idf)
+    require(words == JAX_ENDURANCE_BENCH["words"],
+            f"endurance: {BENCH_WORDS} holds other words (hash {words}) than the bench's run")
+    client = CorbslamClient(ee.cam, ee.cfg, sensor="stereo", client_id=1, voc=voc,
+                            enable_loop_closing=True, run_gba=True, device="cuda")
+    t0 = time.perf_counter()
+    out = run_endurance(client, ee)
+    g = client.loop_closer.gba_runner
+    out.update(words=words, wall_s=time.perf_counter() - t0,
+               gba_alive=g._thread is not None and g._thread.is_alive())
+    return out
+
+
+def run_endurance_phase() -> dict:
+    """The endurance run (`entry.endurance_entry` / `run_endurance`: 1050
+    frames, ~8.3 laps of the occluded, shaded room, a 256-row keyframe table
+    that the run overflows, loop closing and asynchronous global BA), all
+    counters reset just before the vocabulary's training, held to the JAX
+    CPU yardstick's outcome. The frames are fed as the bench feeds them (no
+    sync a frame); a frame's time is the host's time in `track_stereo`."""
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    client, ee = endurance_entry("cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    # The vocabulary it trained, for the reference's run on the same words
+    # (tests/yardstick_endurance.py --load-vocab), and its hash.
+    os.makedirs(os.path.dirname(REPORT), exist_ok=True)
+    vocab.save(client.voc, os.path.join(os.path.dirname(REPORT), "endurance_vocab.npz"))
+    voc_hash = digest(client.voc.words, client.voc.idf)
+    require(voc_hash == JAX_ENDURANCE_ENTRY_WORDS["words"],
+            f"endurance: the entry's words changed (hash {voc_hash}, the yardstick's "
+            f"{JAX_ENDURANCE_ENTRY_WORDS['words']}): run tests/yardstick_endurance.py "
+            "--load-vocab chiprun_out/endurance_vocab.npz for a new yardstick")
+    tr, lc_ = client.tracker, client.loop_closer
+    g = lc_.gba_runner
+    log = []
+    compact = tr._compact_map
+
+    def logged_compact():  # each compaction: cursors, the GBA it met, the rows after it
+        before, mp_before, n0 = int(tr.map.n_kf), int(tr.map.n_mp), tr.stats.n_compactions
+        busy, unmerged, aborted = g.busy(), g._result is not None, g.runs_aborted
+        compact()
+        if tr.stats.n_compactions > n0:
+            log.append(dict(frame=tr.frame_id, n_kf_before=before, n_kf_after=int(tr.map.n_kf),
+                            n_mp_before=mp_before, n_mp_after=int(tr.map.n_mp),
+                            gba_busy=busy, gba_unmerged=unmerged and not busy,
+                            aborts_added=g.runs_aborted - aborted,
+                            result_left=g._result is not None, rows_live=live_rows_ok(client)))
+
+    tr._compact_map = logged_compact
+    t0 = time.perf_counter()
+    try:
+        out = run_endurance(client, ee)
+    finally:
+        del tr._compact_map
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    gba_alive = g._thread is not None and g._thread.is_alive()
+    natural = [c for c in log if c["gba_busy"]]
+    forced = None if natural else force_compaction_during_gba(client)
+    met = natural + ([forced] if forced else [])
+    states = out["states"]
+    lost = [i for i, x in enumerate(states) if x != "OK"]
+    fs = np.asarray(out["frame_s"]) * 1e3
+    ep = dict(client=client, ee=ee, train_s=train_s, wall_s=wall_s, launches=launches,
+              vocab_hash=voc_hash, corpus=ee.corpus.shape[0],
+              frame_ms_p50=float(np.percentile(fs, 50)), frame_ms_p90=float(np.percentile(fs, 90)),
+              frame_ms_max=float(fs.max()), not_ok=[(i, states[i]) for i in lost],
+              forced=forced, ortho_err=orthonormal_error(tr.map), gba_alive=gba_alive,
+              compaction_log=log,
+              **{k: v for k, v in out.items() if k not in ("frame_s", "states")})
+    n = out["endurance_frames"]
+    gates = dict(
+        frames_ok=frames_ok(states, out["relocalizations"]),
+        no_reset=out["endurance_resets"] == 0,
+        compacted=out["endurance_compactions"] >= 1,
+        compactions_counted=out["endurance_compactions"] == len(log),
+        compaction_met_gba=bool(met) and all(c["aborts_added"] >= 1 and not c["result_left"]
+                                              for c in met)
+        and (forced is None or (forced["compacted"] == 1 and forced["merged_nothing"])),
+        rows_live=all(c["rows_live"] for c in log + ([forced] if forced else [])),
+        loops=loops_near(out, JAX_ENDURANCE_ENTRY_WORDS),
+        gba_finished=out["gba_finished"] >= 1,
+        finite_orthonormal=ep["ortho_err"] < 1e-3,
+        no_gba_thread=not gba_alive,
+        keyframe_ate=out["endurance_ate_kf"] <= 2 * JAX_ENDURANCE_ENTRY_WORDS["ate_kf_m"],
+        **{f"launched_{k}": launches[k] > 0 for k in ENDURANCE_KERNELS})
+    ep["bench_words"] = bw = run_on_bench_words(ee)
+    gates.update(bench_words_frames_ok=frames_ok(bw["states"], bw["relocalizations"]),
+                 bench_words_no_reset=bw["endurance_resets"] == 0,
+                 bench_words_loops=loops_near(bw, JAX_ENDURANCE_BENCH),
+                 bench_words_keyframe_ate=(bw["endurance_ate_kf"]
+                                           <= 2 * JAX_ENDURANCE_BENCH["ate_kf_m"]),
+                 bench_words_no_gba_thread=not bw["gba_alive"])
+    ep["gates"] = gates
+    shown = {k: v for k, v in ep.items() if k not in ("client", "ee")}
+    shown["bench_words"] = {k: v for k, v in bw.items() if k not in ("frame_s", "states")}
+    print("endurance (before the checks): " + json.dumps(shown, default=str), flush=True)
+    for name, ok in gates.items():
+        require(ok, f"endurance: gate {name} failed ({json.dumps(gates)})")
+    return ep
+
+
+def same_tables(path: str, m, db) -> dict:
+    """Every table of the saved npz bit-equal to the map / database given."""
+    data = np.load(path)
+    tables = {f"kf_{k}": v for k, v in m.kf._asdict().items()}
+    tables.update({f"mp_{k}": v for k, v in m.mp._asdict().items()},
+                  n_kf=m.n_kf, n_mp=m.n_mp, db_bow=db.bow, db_valid=db.valid)
+    for k, v in tables.items():
+        a = v.cpu().numpy()
+        require(a.dtype == data[k].dtype and a.shape == data[k].shape
+                and a.tobytes() == data[k].tobytes(), f"checkpoint: table {k} differs")
+    return dict(tables=len(tables), keys=len(data.files))
+
+
+def pose_gap(Ta, Tb) -> tuple:
+    """(camera-centre distance m, rotation angle rad) between two Tcw (numpy)."""
+    Ta, Tb = np.asarray(Ta, np.float64), np.asarray(Tb, np.float64)
+    c = np.clip((np.trace(Ta[:3, :3] @ Tb[:3, :3].T) - 1.0) / 2.0, -1.0, 1.0)
+    return center_distance(torch.from_numpy(Ta), torch.from_numpy(Tb)), float(np.arccos(c))
+
+
+def device_time(events) -> tuple:
+    """(the profiler's CUDA events' device time summed, the union of their
+    intervals, their count); times in ms. The union counts once what kernels
+    on two streams (the tracker's and the global BA's) run at the same time."""
+    dev_ms, spans = 0.0, []
+    for ev in events:
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            dev_ms += ev.device_time_total / 1e3
+            spans.append((ev.time_range.start, ev.time_range.end))
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return dev_ms, busy_us / 1e3, len(spans)
+
+
+def run_checkpoint_phase(ep: dict) -> dict:
+    """Save the endurance client's final map; 20 further frames of the
+    original client under torch.profiler (the endurance frame's device time,
+    idle share and launches); load the map into a fresh client (the same
+    vocabulary, loop closing on), which must relocalize within 3 frames
+    (K9, K10's PnP, K6) and track frames 1050..1059 within 0.05 m / 0.01 rad
+    of the original client's poses."""
+    from torch.profiler import ProfilerActivity, profile
+
+    client, ee = ep["client"], ep["ee"]
+    n0 = ee.n_frames
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "endurance_map.npz")
+        t0 = time.perf_counter()
+        client.save_map(path)
+        out["save_s"] = time.perf_counter() - t0
+        out["saved"] = same_tables(path, client.tracker.map, client.loop_closer.db)
+        out["npz_mb"] = os.path.getsize(path) / 2 ** 20
+        frames = [endurance_frame(ee, i) for i in range(n0, n0 + PROFILE_FRAMES)]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for k, (left, right) in enumerate(frames):
+                client.track_stereo(left, right, (n0 + k) * 0.1)
+            client.tracker.flush()
+            torch.cuda.current_stream().synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_FRAMES
+        client.shutdown()
+        dev_ms, busy_ms, n_dev = device_time(prof.events())
+        idle = 1.0 - busy_ms / PROFILE_FRAMES / wall_ms
+        require(0.0 <= idle <= 1.0, f"profile: idle share {idle} from {busy_ms} ms busy")
+        out["profile"] = dict(frames=PROFILE_FRAMES, wall_ms_per_frame=wall_ms,
+                              device_ms_per_frame=dev_ms / PROFILE_FRAMES,
+                              device_busy_ms_per_frame=busy_ms / PROFILE_FRAMES,
+                              device_idle_share=idle,
+                              device_launches_per_frame=n_dev / PROFILE_FRAMES,
+                              port_launches=dict(kernels.LAUNCHES))
+        ref_states = [x.name for x in client.tracker.frame_states][n0:n0 + CHECKPOINT_FRAMES]
+        ref = [T for _, T in client.tracker.trajectory[n0:n0 + CHECKPOINT_FRAMES]]
+        fresh = CorbslamClient(ee.cam, ee.cfg, sensor="stereo", client_id=1, voc=client.voc,
+                               enable_loop_closing=True, run_gba=True, device="cuda")
+        t0 = time.perf_counter()
+        fresh.load_map(path)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        out["loaded"] = same_tables(path, fresh.tracker.map, fresh.loop_closer.db)
+    tr = fresh.tracker
+    out["after_load"] = dict(state=tr._state.name, ref_kf=tr.ref_kf,
+                             ref_kf_dev=int(tr._ref_kf_dev), cursor=tr._kf_cursor_est)
+    kernels.reset_launches()
+    frame_ms = []
+    for k in range(CHECKPOINT_FRAMES):
+        left, right = frames[k]
+        t1 = time.perf_counter()
+        fresh.track_stereo(left, right, (n0 + k) * 0.1)
+        torch.cuda.current_stream().synchronize()
+        frame_ms.append((time.perf_counter() - t1) * 1e3)
+    fresh.shutdown()
+    out["launches"] = dict(kernels.LAUNCHES)
+    states = [x.name for x in tr.frame_states]
+    gaps = [pose_gap(T, ref[k]) if states[k] == "OK" else None
+            for k, (_, T) in enumerate(tr.trajectory)]
+    first_ok = states.index("OK") if "OK" in states else None
+    out.update(states=states, ref_states=ref_states, first_ok=first_ok, frame_ms=frame_ms,
+               relocalizations=tr.stats.n_relocalizations, gaps=gaps)
+    print("checkpoint (before the checks): " + json.dumps(out, default=str), flush=True)
+    require(first_ok is not None and first_ok <= 2 and all(x == "OK" for x in states[first_ok:]),
+            f"checkpoint: no relocalization within 3 frames, or lost again ({states})")
+    require(all(x == "OK" for x in ref_states), f"checkpoint: the original client lost "
+            f"frames {ref_states}")
+    require(all(g_ is None or (g_[0] <= 0.05 and g_[1] <= 0.01) for g_ in gaps),
+            f"checkpoint: poses differ from the original client's ({gaps})")
+    for k in ("vocab", "pnp", "pose_opt"):
+        require(out["launches"][k] > 0, f"checkpoint: {k} was not launched")
+    require(out["profile"]["device_ms_per_frame"] > 0, "endurance profile: no device time")
+    return out
+
+
+def run_apps_phase() -> dict:
+    """The client apps on the card: run_client over 30 synthetic flagship
+    frames with loop closing (the shipped vocabulary), train_vocab on three
+    small synthetic worlds (SceneWorld among them) through K14's
+    hierarchical path, and run_stream's publisher (a thread) and node on
+    loopback for 10 frames, every wait with a deadline."""
+    from corbslam_tpu_torch.apps import run_client, run_stream, train_vocab
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        traj, metrics = os.path.join(tmp, "traj.txt"), os.path.join(tmp, "metrics.jsonl")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        c = run_client.main(["--dataset", "synthetic", "--n-frames", "30", "--device", "cuda",
+                             "--out", traj, "--metrics", metrics])
+        torch.cuda.synchronize()
+        states = [x.name for x in c.tracker.frame_states]
+        with open(metrics) as fh:
+            lines = [json.loads(x) for x in fh]
+        out["run_client"] = dict(s=time.perf_counter() - t0, rows=list(np.loadtxt(traj).shape),
+                                 metrics_lines=len(lines), states_ok=states.count("OK"),
+                                 loop_closer=c.loop_closer is not None,
+                                 keyframes=c.tracker.stats.n_keyframes,
+                                 launches={k: v for k, v in kernels.LAUNCHES.items() if v})
+        voc_path = os.path.join(tmp, "voc.npz")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        voc = train_vocab.main(["--out", voc_path, "--n-words", "1024", "--n-iters", "4",
+                                "--n-worlds", "3", "--frames-per-world", "2", "--device", "cuda"])
+        back = vocab.load(voc_path, "cuda")
+        out["train_vocab"] = dict(
+            s=time.perf_counter() - t0, words=voc.n_words,
+            equal=all(torch.equal(getattr(back, f), getattr(voc, f)) for f in
+                      ("words", "idf", "groups", "child_idx")),
+            launches={k: v for k, v in kernels.LAUNCHES.items() if v})
+        sargs = argparse.Namespace(portfile=os.path.join(tmp, "port"), fps=10.0, frames=10,
+                                   out="", device="cuda", idle_timeout=20.0)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        pub = threading.Thread(target=run_stream.run_publisher, args=(sargs,), daemon=True)
+        pub.start()
+        node = run_stream.run_node(sargs)
+        pub.join(60)
+        out["run_stream"] = dict(node, s=time.perf_counter() - t0, publisher_alive=pub.is_alive(),
+                                 launches={k: v for k, v in kernels.LAUNCHES.items() if v})
+    print("apps (before the checks): " + json.dumps(out), flush=True)
+    rc, tv, st = out["run_client"], out["train_vocab"], out["run_stream"]
+    require(rc["rows"] == [30, 12] and rc["metrics_lines"] == 30 and rc["states_ok"] == 30
+            and rc["loop_closer"], f"apps: run_client {rc}")
+    require(tv["equal"] and tv["launches"].get("kmajority", 0) > 0, f"apps: train_vocab {tv}")
+    require(st["frames_streamed"] == 10 and st["frames_tracked"] >= 1 and not st["publisher_alive"]
+            and st["states"] == {"OK": st["frames_tracked"]}, f"apps: run_stream {st}")
+    return out
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         raise SystemExit(f"usage: python3 chip_smoke.py (no arguments), got {sys.argv[1:]}")
@@ -4183,6 +4591,62 @@ def main() -> int:
           f"{fz['gba_runs']}; times (host ms, event ms) {json.dumps(fz['times'])}; launches "
           f"{json.dumps({k: v for k, v in fz['launches'].items() if v})}", flush=True)
     phase("collab")
+    en = run_endurance_phase()
+    la = en["launches"]
+    case = ("natural: " + json.dumps([c for c in en["compaction_log"] if c["gba_busy"]])
+            if en["forced"] is None else "forced on the final map: " + json.dumps(en["forced"]))
+    print(f"endurance: {en['endurance_frames']} frames, fps {en['endurance_fps']:.2f} over frames "
+          f"100..{en['endurance_frames'] - 1} (rendering included, as the bench); frame (host "
+          f"time in track_stereo) p50 {en['frame_ms_p50']:.3f} ms p90 {en['frame_ms_p90']:.3f} ms "
+          f"max {en['frame_ms_max']:.3f} ms; vocabulary in {en['train_s']:.2f} s; keyframes "
+          f"created {en['endurance_keyframes_created']}, live {en['endurance_keyframes_live']}; "
+          f"words {en['vocab_hash']}; loops {en['endurance_loops_closed']} (JAX on the same "
+          f"words {JAX_ENDURANCE_ENTRY_WORDS['loops']}) rows "
+          f"{json.dumps(en['loops'])}; GBA runs started / finished / aborted "
+          f"{en['gba_started']} / {en['gba_finished']} / {en['gba_aborted']}; compactions "
+          f"{en['endurance_compactions']}, with a busy GBA {en['compactions_gba_busy']} "
+          f"({case}); resets {en['endurance_resets']}; not OK {en['not_ok']}; relocalizations "
+          f"{en['relocalizations']}; keyframe ATE {en['endurance_ate_kf']:.4f} m (JAX "
+          f"{JAX_ENDURANCE_ENTRY_WORDS['ate_kf_m']} m on the same words; "
+          f"the TPU record of older code, an outcome only: "
+          f"{json.dumps(TPU_ENDURANCE_RECORD)}); wall {en['wall_s']:.1f} s", flush=True)
+    print("endurance compactions: " + json.dumps(en["compaction_log"]), flush=True)
+    bw = en["bench_words"]
+    print(f"endurance on the bench's words {bw['words']}: loops {bw['endurance_loops_closed']} "
+          f"(the bench's run on them {JAX_ENDURANCE_BENCH['loops']}) rows {json.dumps(bw['loops'])}; "
+          f"keyframe ATE {bw['endurance_ate_kf']:.4f} m (the bench's "
+          f"{JAX_ENDURANCE_BENCH['ate_kf_m']} m); keyframes created "
+          f"{bw['endurance_keyframes_created']}, live {bw['endurance_keyframes_live']}; GBA runs "
+          f"started / finished / aborted {bw['gba_started']} / {bw['gba_finished']} / "
+          f"{bw['gba_aborted']}; compactions {bw['endurance_compactions']}; resets "
+          f"{bw['endurance_resets']}; not OK "
+          f"{[i for i, x in enumerate(bw['states']) if x != 'OK']}; fps "
+          f"{bw['endurance_fps']:.2f}; wall {bw['wall_s']:.1f} s", flush=True)
+    print("endurance launches over the run: " + json.dumps({k: v for k, v in la.items() if v})
+          + f" ({sum(la.values()) / en['endurance_frames']:.2f} port launches a frame)",
+          flush=True)
+    phase("endurance")
+    ck = run_checkpoint_phase(en)
+    pf = ck["profile"]
+    print(f"endurance profile, {pf['frames']} further frames: wall {pf['wall_ms_per_frame']:.3f} "
+          f"ms a frame, device {pf['device_ms_per_frame']:.3f} ms a frame summed over kernels, "
+          f"{pf['device_busy_ms_per_frame']:.3f} ms busy (their union), idle share "
+          f"{pf['device_idle_share']:.3f}, {pf['device_launches_per_frame']:.1f} device "
+          f"launches a frame; port launches {json.dumps(pf['port_launches'])}", flush=True)
+    print(f"checkpoint: {ck['saved']['tables']} tables bit-equal after save and load "
+          f"({ck['npz_mb']:.1f} MB npz, save {ck['save_s']:.2f} s, load {ck['load_s']:.2f} s); "
+          f"after load {json.dumps(ck['after_load'])}; frames {en['endurance_frames']}.."
+          f"{en['endurance_frames'] + CHECKPOINT_FRAMES - 1}: states "
+          f"{ck['states']} (first OK {ck['first_ok']}, relocalizations {ck['relocalizations']}); "
+          f"pose gaps to the original client (m, rad) {json.dumps(ck['gaps'])}; frame ms "
+          f"{[round(v, 3) for v in ck['frame_ms']]}; launches "
+          f"{json.dumps({k: v for k, v in ck['launches'].items() if v})}", flush=True)
+    phase("checkpoint")
+    apps = run_apps_phase()
+    print(f"apps: run_client {json.dumps(apps['run_client'])}; train_vocab "
+          f"{json.dumps(apps['train_vocab'])}; run_stream {json.dumps(apps['run_stream'])}",
+          flush=True)
+    phase("apps")
 
     cmp = compare_frames(mp.pop("entry_frame"),
                          frame_mod.build_frame_stereo(*entry_imgs, CAM, CFG, device="cpu"))
@@ -4319,6 +4783,8 @@ def main() -> int:
     for d in cp.values():
         for k in ("k9_inputs", "horn_inputs"):
             d.pop(k)
+    for k in ("client", "ee"):
+        en.pop(k)
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)
     with open(REPORT, "w") as fh:
         json.dump(dict(nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
@@ -4329,7 +4795,7 @@ def main() -> int:
                        loop=lp, flagship_loop_closer=fl, loop_checks=linfo, full_width=finfo,
                        mono=mono, rgbd=rgbd, sensor_checks=sinfo, e2e=e2e, e2e_checks=einfo,
                        full_width_training=binfo, bench_gba=ginfo, collab=cp,
-                       collab_checks=cinfo,
+                       collab_checks=cinfo, endurance=en, checkpoint=ck, apps=apps,
                        texture_s=texture_s), fh, indent=1)
     print(json.dumps(kernels_line))
     print(smi)

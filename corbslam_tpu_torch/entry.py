@@ -50,11 +50,25 @@ frames 0, N/3 and 2N/3 (left images through `build_frame_mono`), and a
 `e2e_entry(laps=True)` is its 2.5-lap variant (0.1 rad a frame, 158 frames,
 global BA asynchronous); `run_e2e` feeds a client every frame, frame i
 rendered with `frame=i` at timestamp 0.1 i, and shuts it down.
+
+`endurance_entry()` is the reference's endurance run (`bench.py:118-206`):
+the same camera and config (a 256-row keyframe table that the run
+overflows, so the map is compacted), the occluded, shaded room
+`SceneWorld.room_with_boxes(half 14, height 3, 5 boxes on a ring of 8 m,
+seed 3)` rendered on `device`, the orbit of radius 6 m at 0.05 rad a frame
+for 1050 frames (~8.3 laps), a 1024-word vocabulary trained (6 iterations)
+on the valid descriptors of frames 0, 150 and 300, and a
+`system.CorbslamClient` on client 1 with loop closing and asynchronous
+global BA. `run_endurance` feeds it every frame and shuts it down; it
+returns the bench's `endurance_*` fields with the frame times, the loops,
+the global BA runs and every compaction (with whether a global BA was
+running when it came).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -68,6 +82,7 @@ from .frontend import track_ops
 from .frontend.tracking import StereoTracker
 from .geometry import camera, se3
 from .io import synthetic
+from .io import trajectory as traj_mod
 from .loop.loop_closing import LoopCloser
 from .mapstate import mapstate as ms
 from .place import vocab
@@ -365,3 +380,127 @@ def run_e2e(client: CorbslamClient, ee: E2EEntry, step=None, n: int | None = Non
         else:
             step(i, lambda: client.track_stereo(left, right, i * 0.1))
     step(None, client.shutdown)
+
+
+ENDURANCE_STEP, ENDURANCE_RADIUS, ENDURANCE_FRAMES = 0.05, 6.0, 1050  # ~8.3 laps
+ENDURANCE_WARM = 100  # the timed region starts at this frame, with a flush
+ENDURANCE_WORLD = dict(half=14.0, height=3.0, n_boxes=5, box_ring=8.0, seed=3)
+
+
+class EnduranceEntry(NamedTuple):
+    cam: camera.Intrinsics
+    cfg: SlamConfig
+    world: synthetic.SceneWorld
+    step: float            # rad a frame
+    radius: float
+    n_frames: int
+    corpus: torch.Tensor   # [N, 32] u8 the vocabulary's training descriptors
+
+
+def endurance_frame(ee: EnduranceEntry, i: int):
+    """(left, right) of endurance frame i, with that frame's exposure and noise."""
+    return ee.world.render_stereo(orbit_pose(i, ee.step, ee.radius), frame=i)
+
+
+def endurance_entry(device="cuda", noise_std: float = 2.0):
+    """(CorbslamClient on `device`, EnduranceEntry): the endurance run's setup
+    (see the module docstring), its vocabulary trained on `device`."""
+    dev = kernels.resolve_device(device)
+    cfg = loop_config()
+    world = synthetic.SceneWorld.room_with_boxes(LOOP_CAM, noise_std=noise_std, device=dev,
+                                                 **ENDURANCE_WORLD)
+    ee = EnduranceEntry(LOOP_CAM, cfg, world, ENDURANCE_STEP, ENDURANCE_RADIUS,
+                        ENDURANCE_FRAMES, torch.empty(0, 32, dtype=torch.uint8))
+    descs = []
+    for i in (0, ENDURANCE_FRAMES // 7, 2 * ENDURANCE_FRAMES // 7):
+        f = frame_mod.build_frame_mono(endurance_frame(ee, i)[0], LOOP_CAM, cfg.orb, device=dev)
+        descs.append(f.desc[f.fvalid])
+    ee = ee._replace(corpus=torch.cat(descs).contiguous())
+    voc = vocab.train(ee.corpus, n_words=E2E_WORDS, n_iters=E2E_TRAIN_ITERS)
+    client = CorbslamClient(LOOP_CAM, cfg, sensor="stereo", client_id=1, voc=voc,
+                            enable_loop_closing=True, run_gba=True, device=dev)
+    return client, ee
+
+
+def live_rows_ok(client: CorbslamClient) -> bool:
+    """Whether the loop closer's row references all point at live keyframes:
+    every valid loop edge's two rows, every valid database row, and the last
+    loop's keyframe (when there is one)."""
+    lc, kf_valid = client.loop_closer, client.tracker.map.kf.valid
+    le = lc.loops
+    edges = torch.cat([le.i[le.valid], le.j[le.valid]]).long()
+    return (bool(kf_valid[edges].all()) and bool(kf_valid[lc.db.valid].all())
+            and (lc.last_loop_kf < 0 or bool(kf_valid[lc.last_loop_kf])))
+
+
+def run_endurance(client: CorbslamClient, ee: EnduranceEntry, step=None,
+                  n: int | None = None) -> dict:
+    """Frames 0 .. n-1 (default all) through `track_stereo` at timestamp
+    0.1 i, then `shutdown`; `step(i, fn)` runs frame i's call (fn()) and,
+    with i None, the shutdown. As the bench, the tracker is flushed at frame
+    100 and the time from there to the end of the shutdown (rendering
+    included) gives fps over frames 100 .. n-1.
+
+    Returns the bench's `endurance_*` fields and: `frame_s` (each frame's
+    host time in its `step`: rendering excluded, the pipelined frame it
+    retires included), `states`, `relocalizations`, `loops` (frame and rows
+    of each closure as it closed), `gba_started` / `gba_finished` /
+    `gba_aborted`, and `compactions_gba_busy`: how many compactions met a
+    running global BA (`gba_runner.busy()` as the loop closer follows the
+    compaction's new rows, just before it aborts that BA)."""
+    if step is None:
+        def step(_, fn):
+            fn()
+
+    n = ee.n_frames if n is None else n
+    tr, lc = client.tracker, client.loop_closer
+    g = lc.gba_runner
+    busy_at_compaction, loops, frame_s = [], [], []
+    remap = lc.remap_rows
+
+    def remap_rows(res):
+        busy_at_compaction.append(g.busy())
+        remap(res)
+
+    lc.remap_rows = remap_rows
+    t_mark = time.perf_counter()
+    try:
+        for i in range(n):
+            if i == ENDURANCE_WARM:
+                tr.flush()
+                t_mark = time.perf_counter()
+            left, right = endurance_frame(ee, i)
+            n_loops = lc.stats.n_loops_closed
+            t0 = time.perf_counter()
+            step(i, lambda: client.track_stereo(left, right, i * 0.1))
+            frame_s.append(time.perf_counter() - t0)
+            if lc.stats.n_loops_closed > n_loops:
+                loops.append(dict(frame=i, rows=list(lc.stats.last_loop)))
+        step(None, client.shutdown)
+    finally:
+        del lc.remap_rows
+    dt = time.perf_counter() - t_mark
+    m = tr.map
+    rows = torch.nonzero(m.kf.valid).flatten()
+    fid = m.kf.frame_id[rows].cpu().numpy()
+    sel = fid < ee.n_frames
+    est = np.linalg.inv(m.kf.Tcw[rows].double().cpu().numpy()[sel])
+    gt = np.asarray([np.linalg.inv(orbit_pose(int(i), ee.step, ee.radius).double().numpy())
+                     for i in fid[sel]])
+    ate_kf = traj_mod.ate_rmse(est, gt, align=True) if sel.sum() >= 3 else float("nan")
+    st = tr.stats
+    return dict(
+        endurance_frames=n,
+        endurance_fps=(n - ENDURANCE_WARM) / dt if n > ENDURANCE_WARM else float("nan"),
+        endurance_keyframes_live=int(rows.numel()),
+        endurance_keyframes_created=st.n_keyframes,
+        endurance_loops_closed=lc.stats.n_loops_closed,
+        endurance_gba_runs=g.runs_finished,
+        endurance_gba_aborts=g.runs_aborted,
+        endurance_compactions=st.n_compactions,
+        endurance_resets=st.n_resets,
+        endurance_ate_kf=float(ate_kf),
+        frame_s=frame_s, states=[x.name for x in tr.frame_states],
+        relocalizations=st.n_relocalizations, loops=loops,
+        gba_started=g.runs_started, gba_finished=g.runs_finished, gba_aborted=g.runs_aborted,
+        compactions_gba_busy=sum(busy_at_compaction))

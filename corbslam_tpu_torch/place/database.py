@@ -1,7 +1,8 @@
 """Keyframe database: BoW retrieval for loop detection and relocalization
 (port of `corbslam_tpu/place/database.py`: `BowDatabase`,
 `detect_loop_candidates`, `detect_relocalization_candidates`,
-`detect_map_fusion_candidates`, `detect_map_fusion_pairs`).
+`detect_map_fusion_candidates`, `detect_map_fusion_pairs`,
+`count_mutual_matches`).
 
 The database is a dense [N, W] f32 BoW matrix aligned with the keyframe rows
 (256 MB at 2048 x 32768 on the card); rows are written in place where the
@@ -15,11 +16,14 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import math
+
 import torch
 
 from ..mapping.local_mapping import last_wins
 from ..mapstate import covisibility as covis
 from ..mapstate.mapstate import MapState
+from ..matching import matcher
 from . import vocab as vocab_mod
 
 
@@ -135,3 +139,18 @@ def detect_map_fusion_pairs(db: BowDatabase, db_kf_valid: torch.Tensor, bows: to
     vals, idx = covis.topk_stable(flat, FUSION_PAIRS)
     N = db.bow.shape[0]
     return idx // N, idx % N, vals, torch.isfinite(vals)
+
+
+def count_mutual_matches(q_desc: torch.Tensor, q_valid: torch.Tensor, c_desc: torch.Tensor,
+                         c_valid: torch.Tensor, max_dist: float = 50.0,
+                         ratio: float = 0.9) -> torch.Tensor:
+    """Mutual-nearest-neighbour descriptor matches between two frames ([F, 32]
+    packed descriptors and [F] validity each): a query's best valid candidate
+    below `max_dist` (strict), under `ratio` x its second best (strict), whose
+    own best query it is. This is K5's mutual best match (`match_select`
+    without a window; distances are integers, so `< max_dist` is
+    `<= ceil(max_dist) - 1`). Returns the count, an int32 scalar on the
+    descriptors' device."""
+    res = matcher.match_select(q_desc, c_desc, q_valid, c_valid, math.ceil(max_dist) - 1,
+                               ratio, mutual=True)
+    return res.ok.sum(dtype=torch.int32)

@@ -73,7 +73,10 @@ def test_import_leaves_out_jax_and_the_reference():
                 "geometry.linalg3", "solvers.initializer", "mapping.triangulation",
                 "loop.gba", "system", "collab.server", "collab.client_cache",
                 "collab.fusion_ops", "collab.wire", "collab.transport", "collab.socket_transport",
-                "collab.shm_ring", "collab.shm_transport", "apps.run_collab"):
+                "collab.shm_ring", "collab.shm_transport", "apps.run_collab",
+                "geometry.rectify", "io.stream", "io.datasets", "io.synthetic",
+                "apps.train_vocab", "apps.run_client", "apps.run_stream", "apps.frame_drawer",
+                "apps.render_map", "apps.live_viewer"):
         assert f"corbslam_tpu_torch.{sub}" in MODULES
 
 
@@ -91,7 +94,8 @@ def _tiny_inputs():
 
 @pytest.mark.parametrize("call", ["extract", "stereo", "mono", "rgbd", "entry", "track_entry",
                                   "tracker_entry", "loop_entry", "sensor_entry", "e2e_entry",
-                                  "client", "vocab_load", "server", "run_collab"])
+                                  "client", "vocab_load", "server", "run_collab",
+                                  "endurance_entry", "run_client", "train_vocab", "run_stream"])
 def test_entry_points_default_to_cuda_and_raise_without_it(call):
     assert not torch.cuda.is_available()
     img, cam = _tiny_inputs()
@@ -128,6 +132,20 @@ def test_entry_points_default_to_cuda_and_raise_without_it(call):
             from corbslam_tpu_torch.apps import run_collab
 
             run_collab.main(["--clients", "1", "--frames", "1"])
+        elif call == "endurance_entry":
+            entry.endurance_entry()
+        elif call == "run_client":
+            from corbslam_tpu_torch.apps import run_client
+
+            run_client.main(["--n-frames", "1"])
+        elif call == "train_vocab":
+            from corbslam_tpu_torch.apps import train_vocab
+
+            train_vocab.main(["--out", "unused.npz", "--n-worlds", "1"])
+        elif call == "run_stream":
+            from corbslam_tpu_torch.apps import run_stream
+
+            run_stream.main(["--role", "node", "--portfile", "unused"])
         else:
             fwd, imgs = entry.entry()
             fwd(*imgs)

@@ -3635,9 +3635,9 @@ def run_collab_clients(n: int) -> dict:
     levels, 256 keyframes, 32768 points, the shipped vocab32k), every
     counter reset just before; each client frame, server step, uplink and
     downlink timed. Checks: every client's keyframes reach the server, gids
-    unique on every map, poses and points finite, one K9 assignment and one
-    histogram launch a `transform_batch` (a query block of up to 256
-    keyframes or an inserted chunk), one weighted-Horn launch a `detect_overlap`, and no
+    unique on every map, poses and points finite, one batched K9 launch a
+    `transform_batch` (a query block of up to 256 keyframes or an inserted
+    chunk), one weighted-Horn launch a `detect_overlap`, and no
     plain version of a kernel on the server path."""
     t_setup = time.perf_counter()
     cr = run_collab.setup(n, "cuda")
@@ -3686,7 +3686,7 @@ def run_collab_clients(n: int) -> dict:
     plain = {k: v for k, v in calls.n.items() if k.endswith(("_plain", "_batched")) and v}
     require(not plain, f"collab {n} clients: plain versions ran on the card: {plain}")
     n_tb, n_do = calls.n["vocab.transform_batch"], calls.n["fusion_ops.detect_overlap"]
-    require(launches["vocab_batch"] == 2 * n_tb > 0,
+    require(launches["vocab_batch"] == n_tb > 0,
             f"collab {n}: {launches['vocab_batch']} batched K9 launches for {n_tb} transform_batch")
     require(launches["horn"] == n_do == calls.n["sim3_solver.horn_sim3"],
             f"collab {n}: {launches['horn']} weighted-Horn launches for {n_do} detect_overlap")
@@ -3849,7 +3849,7 @@ def flagship_fusion(m_flag, cam, cfg) -> dict:
             f"flagship fusion: client 1 received {len(rows)} keyframes of client 2's {n_kf2}")
     require(finite_map(g) and finite_map(m), "flagship fusion: a map is not finite")
     require(launches["horn"] == calls.n["fusion_ops.detect_overlap"]
-            and launches["vocab_batch"] == 2 * calls.n["vocab.transform_batch"],
+            and launches["vocab_batch"] == calls.n["vocab.transform_batch"],
             f"flagship fusion: launches {launches} for {calls.n}")
     return dict(err_R=err_R, err_t_m=err_t, err_s=err_s, points_before=n_before,
                 points_sub2=n_sub2, points_after=n_after, keyframes_sub2=n_kf2,
@@ -3889,13 +3889,24 @@ def same_horn(p1, p2, fix_scale, w, name: str) -> dict:
 def horn_edges(dev) -> dict:
     """The weighted Horn at its edges: K 1, every weight 0, fix_scale both
     ways on a noisy Sim3 with 30 % of the pairs weighted out, K past the
-    CTA's 256 threads many times."""
+    CTA's 256 threads many times (past the 8 pairs a thread keeps in
+    registers), a small eigengap (points near a line: 100 power iterations
+    leave the second eigenvector a share above 1e-3) both ways, and points
+    about 100 m from the origin."""
     g = torch.Generator(device="cpu").manual_seed(3)
     out = {}
     for name, K, fix, wmode in (("k1", 1, False, "ones"), ("zero_weights", 64, False, "zero"),
                                 ("fixed_scale", 2048, True, "mask"),
-                                ("free_scale", 2048, False, "mask"), ("k5000", 5000, False, "ones")):
+                                ("free_scale", 2048, False, "mask"), ("k5000", 5000, False, "ones"),
+                                ("small_gap_fixed", 64, True, "ones"),
+                                ("small_gap_free", 64, False, "ones"),
+                                ("far", 2048, False, "mask")):
         p2 = torch.randn(K, 3, generator=g) * 4
+        if name.startswith("small_gap"):
+            p2 = torch.outer(torch.rand(K, generator=g) * 10 - 5, torch.tensor([0.6, 0.8, 0.0])) \
+                + torch.randn(K, 3, generator=g) * 0.3
+        if name == "far":
+            p2 = p2 + torch.tensor([60.0, -70.0, 40.0])
         S = sim3.exp(torch.randn(7, generator=g) * 0.3)
         p1 = sim3.transform(S, p2) + torch.randn(K, 3, generator=g) * 0.01
         w = {"ones": torch.ones(K), "zero": torch.zeros(K),
@@ -3905,11 +3916,11 @@ def horn_edges(dev) -> dict:
 
 
 def same_vocab_batch(voc, desc, valid, name: str) -> dict:
-    """Batched K9 against its plain version: word ids exact, BoW 1e-6."""
+    """Batched K9 against its plain version: the launch's word ids exact
+    (-1 where invalid), BoW 1e-6."""
     B, F = desc.shape[:2]
-    wk = vocab.assign(voc, desc.reshape(B * F, 32).contiguous())
-    wp = vocab.assign_plain(voc, desc.reshape(B * F, 32))
-    bk = vocab.transform_batch(voc, desc, valid)
+    bk, wk = vocab.transform_batch_words(voc, desc, valid)
+    wp = vocab.batch_words_plain(voc, desc, valid)
     bp = vocab.transform_batch_plain(voc, desc, valid)
     d = dict(words_equal=bool(torch.equal(wk, wp)), bow=float((bk - bp).abs().max()) if B else 0.0,
              B=B, F=F, valid=int(valid.sum()))
@@ -3917,18 +3928,60 @@ def same_vocab_batch(voc, desc, valid, name: str) -> dict:
     return d
 
 
+def flat_vocabs(voc, dev, g) -> dict:
+    """Two flat vocabularies for the batched K9's flat branch: 4096 words
+    trained on the card (`vocab.train`, K14) over the tree's 32768 words,
+    and 65536 seeded random words (a word id filling the key's 16 bits)."""
+    trained = vocab.train(voc.words, n_words=4096, n_iters=4, seed=0)
+    W = vocab.TB_MAX_W
+    words = torch.randint(0, 256, (W, 32), generator=g, dtype=torch.uint8)
+    wide = vocab.Vocabulary(words.to(dev), (torch.rand(W, generator=g) + 0.1).to(dev))
+    return {"flat_trained": trained, "flat_w65536": wide}
+
+
 def vocab_batch_edges(voc, dev) -> dict:
     """Batched K9 at its edges: one row, a row with no valid feature, F off
-    every tile width, and no row at all."""
+    every tile width, no row at all, a 256-row block (the server's largest
+    query block), F 2048 all valid, every row invalid, and every descriptor
+    equal (one word takes every count); then its flat branch (`flat_vocabs`)
+    on descriptors near that vocabulary's words (3 bits flipped; on the
+    65536 words, the last 1024 of them and word 65535 itself)."""
     g = torch.Generator(device="cpu").manual_seed(5)
     out = {}
     for name, B, F in (("one_row", 1, 512), ("no_valid_row", 3, 512), ("f37", 4, 37),
-                       ("empty", 0, 64)):
+                       ("empty", 0, 64), ("b256", 256, 512), ("f2048_all_valid", 4, 2048),
+                       ("all_invalid", 3, 512), ("all_equal", 2, 2048)):
         desc = torch.randint(0, 256, (B, F, 32), generator=g, dtype=torch.uint8)
         valid = torch.rand(B, F, generator=g) < 0.8
         if name == "no_valid_row":
             valid[1] = False
+        if name == "f2048_all_valid":
+            valid[:] = True
+        if name == "all_invalid":
+            valid[:] = False
+        if name == "all_equal":
+            desc[:] = desc[0, 0]
         out[name] = same_vocab_batch(voc, desc.to(dev), valid.to(dev), name)
+    for name, fv in flat_vocabs(voc, dev, g).items():
+        W = fv.n_words
+        B, F = 2, 512
+        lo = W - 1024 if W == vocab.TB_MAX_W else 0
+        idx = torch.randint(lo, W, (B * F,), generator=g)
+        idx[-1] = W - 1
+        desc = fv.words.cpu()[idx].view(B, F, 32).clone()
+        for _ in range(3):
+            byte = torch.randint(0, 32, (B * F,), generator=g)
+            bit = torch.randint(0, 8, (B * F,), generator=g).to(torch.uint8)
+            desc.view(-1, 32)[torch.arange(B * F), byte] ^= (1 << bit).to(torch.uint8)
+        desc.view(-1, 32)[-1] = fv.words.cpu()[W - 1]
+        valid = torch.rand(B, F, generator=g) < 0.8
+        valid[-1, -1] = True
+        d = same_vocab_batch(fv, desc.to(dev), valid.to(dev), name)
+        wk = vocab.transform_batch_words(fv, desc.to(dev), valid.to(dev))[1]
+        d.update(W=W, max_word=int(wk.max()))
+        require(W < vocab.TB_MAX_W or d["max_word"] == W - 1,
+                f"batched K9 ({name}): word {W - 1} not assigned to itself: {d}")
+        out[name] = d
     return out
 
 
@@ -3954,14 +4007,15 @@ def check_collab_kernels(cp: dict) -> tuple:
     nv = int(valid.sum())
     # Bound: the assignment's operations and the histogram's bytes
     # (descriptors and flags read, the centres, child table and idf read
-    # once, the [B, W] BoW written). Each descriptor-centre distance (the G
-    # group centres and the two chosen child blocks) counts as the int8
-    # product the reference computes it by (256 multiply-adds, 512
-    # operations) on the tensor cores, as K14's bound does; the histogram's
-    # adds on the CUDA cores. `bound_cuda_cores` keeps the count with every
-    # distance on the CUDA cores (24 operations), the kernel's own way.
+    # once, the [B, W] BoW written). Each descriptor-centre distance that
+    # this run's data needs (a valid descriptor's G group centres and its
+    # two chosen child blocks) counts as the int8 product the reference
+    # computes it by (256 multiply-adds, 512 operations) on the tensor
+    # cores, as K14's bound does; the finish's adds on the CUDA cores.
+    # `bound_cuda_cores` keeps the count with every distance on the CUDA
+    # cores (24 operations: XOR and popcount of 8 words, their sum).
     vb_bytes = B * F * 33 + (G + W) * 32 + G * C * 4 + W * 4 + B * W * 4
-    vb_dist = B * F * (G + 2 * C)
+    vb_dist = nv * (G + 2 * C)
     info["vocab_batch_bound_cuda_cores"] = bound_ms(vb_bytes, vb_dist * 24 + B * 3 * W + nv)
     rows.append(dict(name="vocab_batch", max_abs_err=info["vocab_batch_flagship"]["bow"],
                      bound=bound_ms(vb_bytes, B * 3 * W + nv, n_int8_ops=vb_dist * 512),
@@ -3972,10 +4026,10 @@ def check_collab_kernels(cp: dict) -> tuple:
     K = p1.shape[0]
     # Bound: its reads (the pairs and weights once, the model written); ops
     # per pair ~46 (the weight sum, centroids and M) plus ~50 for the free
-    # scale, and ~4200 serial ones on one thread (100 power iterations):
-    # in practice the chain's latency, not either rate.
+    # scale, and the tail's 6 squarings and 3 mat-vecs of 4 x 4 (~900): in
+    # practice the dependent steps' latency, not either rate.
     h_bytes = K * (12 + 12 + 4) + 13 * 4
-    h_ops = K * (46 + (0 if fix else 50)) + 4200
+    h_ops = K * (46 + (0 if fix else 50)) + 6 * 112 + 3 * 28
     rows.append(dict(name="horn", max_abs_err=max(info["horn_flagship"]["R"],
                                                   info["horn_flagship"]["t"]),
                      bound=bound_ms(h_bytes, h_ops),

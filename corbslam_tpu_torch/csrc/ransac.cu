@@ -71,19 +71,13 @@ __device__ void r_from_quat(const float* q0, float* R) {
     R[6] = 2 * (x * z - w * y); R[7] = 2 * (y * z + w * x); R[8] = 1 - 2 * (x * x + y * y);
 }
 
-// The arithmetic of the Horn tail below: as written, where the compiler may
-// contract a product and a sum into an FMA (horn3, whose plain version is
-// the Sim3 RANSAC's), or each step rounded on its own, nothing contracted
-// (the weighted Horn, whose plain version repeats its order).
+// The arithmetic of horn3's tail below: as written, where the compiler may
+// contract a product and a sum into an FMA (its plain version is the Sim3
+// RANSAC's).
 struct ArithFast {
     static __device__ __forceinline__ float add(float a, float b) { return a + b; }
     static __device__ __forceinline__ float sub(float a, float b) { return a - b; }
     static __device__ __forceinline__ float mul(float a, float b) { return a * b; }
-};
-struct ArithRn {
-    static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-    static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-    static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 };
 
 // The power iteration's division v = u / nrm: on a group of 4 lanes (horn3),
@@ -94,12 +88,6 @@ struct ShuffledDiv {
     __device__ __forceinline__ void operator()(const float* u, float nrm, float* v) const {
         const float mine = (i4 == 0 ? u[0] : i4 == 1 ? u[1] : i4 == 2 ? u[2] : u[3]) / nrm;
         for (int i = 0; i < 4; ++i) v[i] = __shfl_sync(mask, mine, base + i);
-    }
-};
-// ... or one thread dividing all four, rounded (the weighted Horn).
-struct RoundedDiv {
-    __device__ __forceinline__ void operator()(const float* u, float nrm, float* v) const {
-        for (int i = 0; i < 4; ++i) v[i] = __fdiv_rn(u[i], nrm);
     }
 };
 
@@ -931,109 +919,246 @@ __global__ void __launch_bounds__(PNP_THREADS, 1) pnp_ransac_kernel(PnpArgs a) {
 }
 
 // Weighted Horn (horn_sim3 with weights w [K], the server's alignment of
-// a sub-map on its PnP consensus pairs): one CTA of HORN_THREADS. Every sum
-// over the K pairs is a fixed-order block reduction that the plain version
-// (sim3_solver.horn_weighted_plain) repeats: thread i adds the terms of
-// pairs i, i + 256, ... in turn from 0, then a shared-memory tree halves
-// the 256 partials (stride 128 down to 1). Products and sums are written
-// with __fmul_rn / __fadd_rn so nothing is contracted into an FMA. Thread 0
-// then runs horn3's tail (horn_quat: N, its Gershgorin shift, the 100 power
-// iterations) rounded at every step, in the plain version's order; the
-// scale's two sums are block reductions again.
+// a sub-map on its PnP consensus pairs): one CTA of HORN_THREADS.
+// - Sums: thread i keeps pairs i, i + 256, ... (up to HORN_REG of them) in
+//   registers, read once; a larger K reads the rest again in each pass.
+//   Every sum over the pairs is fixed-order: thread i adds its pairs' terms
+//   in turn from 0, each warp halves its 32 partials by shfl_down (lane 0
+//   holds the tree), and after one barrier every thread adds the 8 warp
+//   sums as a halving tree (w0 + w4, ..., then + 2, + 1). Four passes: the
+//   weight sum, the centroids, M, the scale. Products and sums are
+//   __fmul_rn / __fadd_rn, nothing contracted into an FMA; the centroids
+//   stay a separate pass (q = p - c before M: the points lie tens of
+//   metres from the origin, where raw second moments would cancel).
+// - Tail: the reference's answer is the truncated power iteration,
+//   v = Ns^100 1 / |Ns^100 1| (Ns: Horn's N after the Gershgorin shift).
+//   Lanes 0..15 of warp 0 hold Ns, one entry each, and square it 6 times
+//   (Ns^2 .. Ns^64: each entry of a product from 8 shuffles, its 4 terms
+//   added in k order). Ns itself and each product are scaled by the power
+//   of 2 that puts their largest diagonal entry in [1, 2): exact, and as Ns
+//   and its powers are positive semidefinite (the shift makes Ns
+//   diagonally dominant), no entry then exceeds 2 and no product 16, so
+//   nothing overflows whatever the points' spread (a diagonal under 2^-126
+//   is scaled by 2^126 only);
+//   then u = Ns^64 (Ns^32 (Ns^4 1)), normalized: 8 dependent products in
+//   place of 100 mat-vecs on one thread. Ns = 0 (every weight 0, or K 1)
+//   gives v = 0 and R the identity through r_from_quat's clamp, as before.
+//   sim3_solver.horn_weighted_plain repeats every sum's order and the tail.
 constexpr int HORN_THREADS = 256;
-constexpr int HORN_SUMS = 9;  // the most sums reduced at once (M)
+constexpr int HORN_WARPS = HORN_THREADS / 32;
+constexpr int HORN_REG = 8;  // pairs a thread keeps in registers (K <= 2048 read once)
 
-// Reduce v[j] (j < n) of every thread: the results in red[j][0].
-__device__ void horn_block_sums(float (*red)[HORN_THREADS], const float* v, int n) {
-    const int tid = threadIdx.x;
-    for (int j = 0; j < n; ++j) red[j][tid] = v[j];
-    __syncthreads();
-    for (int st = HORN_THREADS / 2; st > 0; st >>= 1) {
-        if (tid < st)
-            for (int j = 0; j < n; ++j) red[j][tid] = __fadd_rn(red[j][tid], red[j][tid + st]);
-        __syncthreads();
+struct HornPair {
+    float a[3], b[3], w;  // p1, p2, weight
+};
+
+// The n sums v[0..n) of every thread, reduced over the CTA into every
+// thread's v (red: this pass's own [n][HORN_WARPS]).
+template <int n>
+__device__ __forceinline__ void horn_reduce(float* v, float (*red)[HORN_WARPS]) {
+    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+#pragma unroll
+    for (int j = 0; j < n; ++j) {
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) v[j] = __fadd_rn(v[j], __shfl_down_sync(0xffffffffu, v[j], o));
+        if (lane == 0) red[j][wid] = v[j];
     }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < n; ++j) {
+        float s[HORN_WARPS];
+#pragma unroll
+        for (int w = 0; w < HORN_WARPS; ++w) s[w] = red[j][w];
+#pragma unroll
+        for (int h = HORN_WARPS / 2; h > 0; h >>= 1)
+#pragma unroll
+            for (int w = 0; w < h; ++w) s[w] = __fadd_rn(s[w], s[w + h]);
+        v[j] = s[0];
+    }
+}
+
+// A 4x4 matrix on lanes e = lane & 15 (row e / 4, column e % 4), scaled by
+// 2^(1 - e) where 2^(e - 1) <= its largest diagonal entry < 2^e.
+__device__ __forceinline__ float horn_scale(float C) {
+    const float m = fmaxf(fmaxf(__shfl_sync(0xffffffffu, C, 0), __shfl_sync(0xffffffffu, C, 5)),
+                          fmaxf(__shfl_sync(0xffffffffu, C, 10), __shfl_sync(0xffffffffu, C, 15)));
+    int ex;
+    frexpf(m, &ex);
+    const int sh = min(max(1 - ex, -126), 126);
+    return __fmul_rn(C, __int_as_float((127 + sh) << 23));
+}
+
+// One product of the tail on lanes e = lane & 15: C = A B, then horn_scale.
+__device__ __forceinline__ float horn_product(float A, float B, int r, int c) {
+    float C = 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        const float t = __fmul_rn(__shfl_sync(0xffffffffu, A, 4 * r + k),
+                                  __shfl_sync(0xffffffffu, B, 4 * k + c));
+        C = k == 0 ? t : __fadd_rn(C, t);
+    }
+    return horn_scale(C);
+}
+
+// u' = A u on lanes (r, c) holding A(r, c) and u_c: row r's 4 terms added
+// in column order, then lane (r, c) takes u'_c.
+__device__ __forceinline__ float horn_matvec(float A, float u, int c) {
+    const float x = __fmul_rn(A, u);
+    const int lane = threadIdx.x & 31, row0 = lane & ~3 & 15;
+    float y = __shfl_sync(0xffffffffu, x, row0);
+#pragma unroll
+    for (int k = 1; k < 4; ++k) y = __fadd_rn(y, __shfl_sync(0xffffffffu, x, row0 + k));
+    return __shfl_sync(0xffffffffu, y, 4 * c);
 }
 
 __global__ void __launch_bounds__(HORN_THREADS, 1)
     horn_weighted_kernel(const float* p1, const float* p2, const float* w, int K, int fix_scale,
-                         float* out) {
-    __shared__ float red[HORN_SUMS][HORN_THREADS];
-    __shared__ float sh[32];  // den, c1 (3), c2 (3), R (9), s
-    const int tid = threadIdx.x;
-    float acc[HORN_SUMS];
-    // 1. sum of the weights
+                         float* out, unsigned long long* work) {
+    __shared__ float red_w[1][HORN_WARPS], red_c[6][HORN_WARPS], red_m[9][HORN_WARPS],
+        red_s[2][HORN_WARPS];
+    __shared__ float sh_R[9];
+    const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+    unsigned long long* stamps = work + 8;
+    if (tid == 0) stamp(stamps, 0);
+    float x1[HORN_REG][3], x2[HORN_REG][3], xw[HORN_REG];
+#pragma unroll
+    for (int i = 0; i < HORN_REG; ++i) {
+        const int k = tid + i * HORN_THREADS;
+        const bool ok = k < K;
+        xw[i] = ok ? w[k] : 0.f;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+            x1[i][j] = ok ? p1[3 * k + j] : 0.f;
+            x2[i][j] = ok ? p2[3 * k + j] : 0.f;
+        }
+    }
+    // f(Pair) on each of this thread's pairs in turn (zeros past K among the
+    // registers, as the plain version pads).
+    auto each_pair = [&](auto f) {
+#pragma unroll
+        for (int i = 0; i < HORN_REG; ++i)
+            f(HornPair{x1[i][0], x1[i][1], x1[i][2], x2[i][0], x2[i][1], x2[i][2], xw[i]});
+        for (int k = tid + HORN_REG * HORN_THREADS; k < K; k += HORN_THREADS)
+            f(HornPair{p1[3 * k], p1[3 * k + 1], p1[3 * k + 2], p2[3 * k], p2[3 * k + 1],
+                       p2[3 * k + 2], w[k]});
+    };
+    // 1. the weight sum
+    float acc[9];
     acc[0] = 0.f;
-    for (int k = tid; k < K; k += HORN_THREADS) acc[0] = __fadd_rn(acc[0], w[k]);
-    horn_block_sums(red, acc, 1);
-    if (tid == 0) sh[0] = fmaxf(red[0][0], 1e-12f);
-    __syncthreads();
-    const float den = sh[0];
+    each_pair([&](const HornPair& q) { acc[0] = __fadd_rn(acc[0], q.w); });
+    horn_reduce<1>(acc, red_w);
+    const float den = fmaxf(acc[0], 1e-12f);
     // 2. weighted centroids
+#pragma unroll
     for (int j = 0; j < 6; ++j) acc[j] = 0.f;
-    for (int k = tid; k < K; k += HORN_THREADS) {
-        const float wn = __fdiv_rn(w[k], den);
+    each_pair([&](const HornPair& q) {
+        const float wn = __fdiv_rn(q.w, den);
+#pragma unroll
         for (int j = 0; j < 3; ++j) {
-            acc[j] = __fadd_rn(acc[j], __fmul_rn(p1[3 * k + j], wn));
-            acc[3 + j] = __fadd_rn(acc[3 + j], __fmul_rn(p2[3 * k + j], wn));
+            acc[j] = __fadd_rn(acc[j], __fmul_rn(q.a[j], wn));
+            acc[3 + j] = __fadd_rn(acc[3 + j], __fmul_rn(q.b[j], wn));
         }
-    }
-    __syncthreads();
-    horn_block_sums(red, acc, 6);
-    if (tid < 6) sh[1 + tid] = red[tid][0];
-    __syncthreads();
-    float c1[3], c2[3];
-    for (int j = 0; j < 3; ++j) {
-        c1[j] = sh[1 + j];
-        c2[j] = sh[4 + j];
-    }
+    });
+    horn_reduce<6>(acc, red_c);
+    const float c1[3] = {acc[0], acc[1], acc[2]}, c2[3] = {acc[3], acc[4], acc[5]};
     // 3. M = q2^T q1 over the pairs, q = (p - c) sqrt(wn)
+#pragma unroll
     for (int j = 0; j < 9; ++j) acc[j] = 0.f;
-    for (int k = tid; k < K; k += HORN_THREADS) {
-        const float sw = sqrtf(__fdiv_rn(w[k], den));
+    each_pair([&](const HornPair& q) {
+        const float sw = sqrtf(__fdiv_rn(q.w, den));
         float q1[3], q2[3];
+#pragma unroll
         for (int j = 0; j < 3; ++j) {
-            q1[j] = __fmul_rn(__fsub_rn(p1[3 * k + j], c1[j]), sw);
-            q2[j] = __fmul_rn(__fsub_rn(p2[3 * k + j], c2[j]), sw);
+            q1[j] = __fmul_rn(__fsub_rn(q.a[j], c1[j]), sw);
+            q2[j] = __fmul_rn(__fsub_rn(q.b[j], c2[j]), sw);
         }
+#pragma unroll
         for (int i = 0; i < 3; ++i)
-            for (int j = 0; j < 3; ++j) acc[3 * i + j] = __fadd_rn(acc[3 * i + j], __fmul_rn(q2[i], q1[j]));
-    }
-    __syncthreads();
-    horn_block_sums(red, acc, 9);
-    if (tid == 0) {
-        float M[9], v[4];
-        for (int j = 0; j < 9; ++j) M[j] = red[j][0];
-        horn_quat<ArithRn>(M, RoundedDiv{}, v);
-        r_from_quat(v, sh + 7);
+#pragma unroll
+            for (int j = 0; j < 3; ++j)
+                acc[3 * i + j] = __fadd_rn(acc[3 * i + j], __fmul_rn(q2[i], q1[j]));
+    });
+    horn_reduce<9>(acc, red_m);
+    if (tid == 0) stamp(stamps, 1);
+    if (wid == 0) {
+        // 4. the tail: Horn's N and its Gershgorin shift (every lane alike),
+        // then Ns^100 1 by squaring, lane e = lane & 15 holding entry e.
+        const float Sxx = acc[0], Sxy = acc[1], Sxz = acc[2];
+        const float Syx = acc[3], Syy = acc[4], Syz = acc[5];
+        const float Szx = acc[6], Szy = acc[7], Szz = acc[8];
+        const float N[4][4] = {
+            {__fadd_rn(__fadd_rn(Sxx, Syy), Szz), __fsub_rn(Syz, Szy), __fsub_rn(Szx, Sxz),
+             __fsub_rn(Sxy, Syx)},
+            {__fsub_rn(Syz, Szy), __fsub_rn(__fsub_rn(Sxx, Syy), Szz), __fadd_rn(Sxy, Syx),
+             __fadd_rn(Szx, Sxz)},
+            {__fsub_rn(Szx, Sxz), __fadd_rn(Sxy, Syx), __fsub_rn(__fadd_rn(-Sxx, Syy), Szz),
+             __fadd_rn(Syz, Szy)},
+            {__fsub_rn(Sxy, Syx), __fadd_rn(Szx, Sxz), __fadd_rn(Syz, Szy),
+             __fadd_rn(__fsub_rn(-Sxx, Syy), Szz)}};
+        float gmin = 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const float abs_sum = __fadd_rn(__fadd_rn(__fadd_rn(fabsf(N[i][0]), fabsf(N[i][1])),
+                                                      fabsf(N[i][2])), fabsf(N[i][3]));
+            const float g = __fsub_rn(N[i][i], __fsub_rn(abs_sum, fabsf(N[i][i])));
+            gmin = i == 0 ? g : fminf(gmin, g);
+        }
+        const float shift = fmaxf(-gmin, 0.f);
+        const int e = lane & 15, r = e >> 2, c = e & 3;
+        float A = 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                if (i == r && j == c) A = __fadd_rn(N[i][j], i == j ? shift : 0.f);
+        A = horn_scale(A);
+        float u = 1.f;  // lane (r, c) holds u_c
+#pragma unroll
+        for (int s = 1; s <= 6; ++s) {
+            A = horn_product(A, A, r, c);  // Ns^(2^s)
+            if (s == 2 || s == 5 || s == 6) u = horn_matvec(A, u, c);
+        }
+        const float u0 = __shfl_sync(0xffffffffu, u, 0), u1 = __shfl_sync(0xffffffffu, u, 1);
+        const float u2 = __shfl_sync(0xffffffffu, u, 2), u3 = __shfl_sync(0xffffffffu, u, 3);
+        const float ss = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(u0, u0), __fmul_rn(u1, u1)),
+                                             __fmul_rn(u2, u2)), __fmul_rn(u3, u3));
+        const float nrm = fmaxf(sqrtf(ss), 1e-12f);
+        if (lane == 0) {
+            const float v[4] = {__fdiv_rn(u0, nrm), __fdiv_rn(u1, nrm), __fdiv_rn(u2, nrm),
+                                __fdiv_rn(u3, nrm)};
+            r_from_quat(v, sh_R);
+            stamp(stamps, 2);
+        }
     }
     __syncthreads();
     float R[9];
-    for (int j = 0; j < 9; ++j) R[j] = sh[7 + j];
+#pragma unroll
+    for (int j = 0; j < 9; ++j) R[j] = sh_R[j];
     float s = 1.f;
     if (!fix_scale) {
-        // 4. the scale: sum q1 . (R q2) over sum |R q2|^2
+        // 5. the scale: sum q1 . (R q2) over sum |R q2|^2
         acc[0] = acc[1] = 0.f;
-        for (int k = tid; k < K; k += HORN_THREADS) {
-            const float sw = sqrtf(__fdiv_rn(w[k], den));
-            float q1[3], q2[3], r[3];
+        each_pair([&](const HornPair& q) {
+            const float sw = sqrtf(__fdiv_rn(q.w, den));
+            float q1[3], q2[3], rq[3];
+#pragma unroll
             for (int j = 0; j < 3; ++j) {
-                q1[j] = __fmul_rn(__fsub_rn(p1[3 * k + j], c1[j]), sw);
-                q2[j] = __fmul_rn(__fsub_rn(p2[3 * k + j], c2[j]), sw);
+                q1[j] = __fmul_rn(__fsub_rn(q.a[j], c1[j]), sw);
+                q2[j] = __fmul_rn(__fsub_rn(q.b[j], c2[j]), sw);
             }
+#pragma unroll
             for (int i = 0; i < 3; ++i)
-                r[i] = __fadd_rn(__fadd_rn(__fmul_rn(R[3 * i], q2[0]), __fmul_rn(R[3 * i + 1], q2[1])),
-                                 __fmul_rn(R[3 * i + 2], q2[2]));
-            const float num_k = __fadd_rn(__fadd_rn(__fmul_rn(q1[0], r[0]), __fmul_rn(q1[1], r[1])),
-                                          __fmul_rn(q1[2], r[2]));
-            const float den_k = __fadd_rn(__fadd_rn(__fmul_rn(r[0], r[0]), __fmul_rn(r[1], r[1])),
-                                          __fmul_rn(r[2], r[2]));
+                rq[i] = __fadd_rn(__fadd_rn(__fmul_rn(R[3 * i], q2[0]), __fmul_rn(R[3 * i + 1], q2[1])),
+                                  __fmul_rn(R[3 * i + 2], q2[2]));
+            const float num_k = __fadd_rn(__fadd_rn(__fmul_rn(q1[0], rq[0]), __fmul_rn(q1[1], rq[1])),
+                                          __fmul_rn(q1[2], rq[2]));
+            const float den_k = __fadd_rn(__fadd_rn(__fmul_rn(rq[0], rq[0]), __fmul_rn(rq[1], rq[1])),
+                                          __fmul_rn(rq[2], rq[2]));
             acc[0] = __fadd_rn(acc[0], num_k);
             acc[1] = __fadd_rn(acc[1], den_k);
-        }
-        __syncthreads();
-        horn_block_sums(red, acc, 2);
-        s = __fdiv_rn(red[0][0], fmaxf(red[1][0], 1e-12f));
+        });
+        horn_reduce<2>(acc, red_s);
+        s = __fdiv_rn(acc[0], fmaxf(acc[1], 1e-12f));
     }
     if (tid == 0) {
         for (int j = 0; j < 9; ++j) out[j] = R[j];
@@ -1043,17 +1168,19 @@ __global__ void __launch_bounds__(HORN_THREADS, 1)
             out[9 + i] = __fsub_rn(c1[i], __fmul_rn(s, rc));
         }
         out[12] = s;
+        stamp(stamps, 3);
     }
 }
 
 }  // namespace
 
 // Weighted Horn of K pairs (p1 ~ s R p2 + t, weights w [K]) in one launch of
-// one CTA: out = R (9, row-major), t (3), s.
+// one CTA: out = R (9, row-major), t (3), s. `work` holds the 24 words of a
+// -DKERNEL_STAMPS build's stamps (8..).
 C_ENTRY int horn_weighted(const float* p1, const float* p2, const float* w, int K, int fix_scale,
-                          float* out, cudaStream_t stream) {
+                          float* out, unsigned long long* work, cudaStream_t stream) {
     if (K < 0) return (int)cudaErrorInvalidValue;
-    horn_weighted_kernel<<<1, HORN_THREADS, 0, stream>>>(p1, p2, w, K, fix_scale, out);
+    horn_weighted_kernel<<<1, HORN_THREADS, 0, stream>>>(p1, p2, w, K, fix_scale, out, work);
     return (int)cudaGetLastError();
 }
 

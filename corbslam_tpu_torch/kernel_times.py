@@ -791,7 +791,11 @@ STAMPS = {"pnp": ("dlt", "staged", "counted", "ticket", "end"),
           # K14's are the summed durations of its phases (word 8 stays 0).
           "kmajority": ("prologue", "assign", "scan", "scatter", "tally", "final"),
           "two_view": ("normalized", "hypotheses", "scored", "ticket", "refit_sums",
-                       "refit_solved", "rescored", "candidates", "checked", "end")}
+                       "refit_solved", "rescored", "candidates", "checked", "end"),
+          # The batched K9's are summed durations too; the finish's two over
+          # the rows' last CTAs.
+          "vocab_batch": ("group", "bucket", "child", "words", "counts", "end"),
+          "horn": ("reductions", "tail", "end")}
 
 
 def stamped(calls: dict, reps: int = 5) -> dict:
@@ -1269,6 +1273,147 @@ def collab_seeds(cs, seeds=range(8)) -> dict:
     return dict(collab_seeds=rows)
 
 
+def k9horn_inputs(cs) -> dict:
+    """The batched K9's and the weighted Horn's inputs on the server path:
+    the 2-client run's widest `transform_batch` and its last `horn_sim3`,
+    the flagship fusion's (its query block of 4 keyframes x 2048 features,
+    and K 2048 pairs), and three blocks of 256 rows (a server query block
+    at its largest): the flagship block padded with copies of its row 0
+    (`block256`), with rows of zero descriptors, none valid (`zero256`),
+    and the 2-client run's 1 x 512 block padded with copies of its row 0
+    (`collab256`)."""
+    kp = cs.run_tracker_phase()
+    tr = kp["tracker"]
+    two = cs.run_collab_clients(2)
+    flag = cs.flagship_fusion(tr.map, tr.cam, tr.cfg)
+    out = {}
+    for run, d in (("run_collab", two), ("flagship", flag)):
+        (_, desc, valid), _ = d["k9_inputs"]
+        out[f"k9_{run}"] = (desc.clone(), valid.clone())
+        (p1, p2, fix), kw = d["horn_inputs"]
+        out[f"horn_{run}"] = (p1.clone(), p2.clone(), kw["w"].clone(), bool(fix))
+    for name, base, zero in (("block256", "flagship", False), ("zero256", "flagship", True),
+                             ("collab256", "run_collab", False)):
+        desc, valid = out[f"k9_{base}"]
+        pad = 256 - desc.shape[0]
+        fill_d, fill_v = desc[:1].expand(pad, -1, -1), valid[:1].expand(pad, -1)
+        if zero:
+            fill_d, fill_v = torch.zeros_like(fill_d), torch.zeros_like(fill_v)
+        out[f"k9_{name}"] = (torch.cat([desc, fill_d]), torch.cat([valid, fill_v]))
+    return out
+
+
+def time_k9_horn_on(inputs: str, results: str) -> dict:
+    """Each of `inputs`' calls (`k9horn_inputs`, saved by torch.save) through
+    this package's `vocab.transform_batch` / `sim3_solver.horn_sim3`:
+    replayed graph, host-inclusive CUDA events, torch.profiler's device
+    time, launches a call; the outputs saved to `results`. Loaded into a
+    parent tree's package by `time_k9_horn`, it times that tree's
+    kernels."""
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as cs  # the checkout's own graph_ms and host_ms
+
+    dev = torch.device("cuda")
+    kernels.lib()
+    voc = vocab.load_default(dev)
+    out, saved = {}, {}
+    for name, x in torch.load(inputs).items():
+        if name.startswith("k9"):
+            desc, valid = (t.to(dev) for t in x)
+            call = lambda: vocab.transform_batch(voc, desc, valid)  # noqa: E731
+            counter, size = "vocab_batch", dict(B=desc.shape[0], F=desc.shape[1],
+                                                valid=int(valid.sum()))
+        else:
+            p1, p2, w = (t.to(dev) for t in x[:3])
+            call = lambda: sim3_solver.horn_sim3(p1, p2, x[3], w=w)  # noqa: E731
+            counter, size = "horn", dict(K=p1.shape[0], weighted=int((w > 0).sum()),
+                                         fix_scale=x[3])
+        r = call()
+        saved[name] = [t.cpu() for t in (r if isinstance(r, tuple) else (r,))]
+        prof = device_per_frame(call, 20, top=None)
+        out[name] = dict(size, graph_ms=cs.graph_ms(call), host_ms=cs.host_ms(call),
+                         profiler_ms=prof["device_ms_per_frame"],
+                         profiler_launches=prof["launches_per_frame"],
+                         launches=cs.launches_of(call, counter), hash=digest(*saved[name]))
+    torch.save(saved, results)
+    return out
+
+
+# Runs `time_k9_horn_on` of this file inside the package of the tree at
+# argv[1] (its cwd): its relative imports bind that tree's modules.
+_IN_PARENT = (
+    "import importlib.util, json, sys\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "import corbslam_tpu_torch\n"
+    "spec = importlib.util.spec_from_file_location('corbslam_tpu_torch._kt_probe', sys.argv[2])\n"
+    "mod = importlib.util.module_from_spec(spec)\n"
+    "spec.loader.exec_module(mod)\n"
+    "print(json.dumps(mod.time_k9_horn_on(sys.argv[3], sys.argv[4])))\n")
+
+
+def time_k9_horn(cs, parent: Optional[str]) -> dict:
+    """The batched K9 and the weighted Horn on `k9horn_inputs`, timed by
+    `time_k9_horn_on` in the order parent, tree, tree, parent (the parent
+    a checkout at `parent`, in a process of its own; without one, tree
+    twice); each output's largest difference from the parent's (K9: BoW;
+    Horn: R, t, s); ptxas of the two kernels; then a -DKERNEL_STAMPS build
+    and each call's `%globaltimer` split (`stamped`): K9's phases summed
+    over the CTAs (the finish's over the rows), the Horn's stamps from its
+    start. Inputs and outputs pass through files under build/, removed
+    after."""
+    import subprocess
+    import tempfile
+
+    inp = k9horn_inputs(cs)
+    kernels.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=kernels.BUILD_ROOT)
+    inputs = os.path.join(tmp.name, "inputs.pt")
+    torch.save({k: tuple(t.cpu() if isinstance(t, torch.Tensor) else t for t in v)
+                for k, v in inp.items()}, inputs)
+    runs, results = [], []
+    for i, who in enumerate(("parent", "tree", "tree", "parent") if parent else ("tree", "tree")):
+        res = os.path.join(tmp.name, f"results_{i}.pt")
+        if who == "tree":
+            r = time_k9_horn_on(inputs, res)
+        else:
+            p = subprocess.run([sys.executable, "-c", _IN_PARENT, os.path.abspath(parent),
+                                os.path.abspath(__file__), inputs, res], cwd=parent,
+                               capture_output=True, text=True)
+            if p.returncode:
+                raise RuntimeError(f"k9horn in {parent}: {p.stderr[-3000:]}")
+            r = json.loads(p.stdout.strip().splitlines()[-1])
+        runs.append(dict(tree=who, calls=r))
+        results.append(res)
+    diffs = {}
+    if parent:
+        a, b = torch.load(results[1]), torch.load(results[0])
+        for name in a:
+            diffs[name] = [float((x - y).abs().max()) if x.numel() else 0.0
+                           for x, y in zip(a[name], b[name])]
+    tmp.cleanup()
+    log = kernels.BUILD_INFO.get("log", "")
+    ptx = {k: v for k, v in cs.ptxas_summary(log).items()
+           if k in ("transform_batch_kernel", "horn_weighted_kernel")}
+    voc = vocab.load_default(torch.device("cuda"))
+    calls = {}
+    for name, x in inp.items():
+        if name.startswith("k9"):
+            calls[name] = ((lambda d=x[0], v=x[1]: vocab.transform_batch(voc, d, v)), "vocab_batch")
+        else:
+            calls[name] = ((lambda x=x: sim3_solver.horn_sim3(x[0], x[1], x[3], w=x[2])), "horn")
+    for fn, _ in calls.values():
+        fn()  # each workspace at its size before `stamped` takes it
+    st = stamped(calls)
+    for name, s in st.items():
+        if name.startswith("k9"):
+            B, F = inp[name][0].shape[:2]
+            n_cta = B * max(1, -(-F // vocab.batch_chunk(B, F)))
+            s["per_cta_us"] = {k: v / (B if k in ("counts", "end") else n_cta)
+                               for k, v in s.items()}
+            s["ctas"] = n_cta
+    return dict(k9horn=dict(runs=runs, diffs_from_parent=diffs, ptxas=ptx, stamps=st))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join("chiprun_out", "kernel_times.json"))
@@ -1288,7 +1433,11 @@ def main() -> None:
                          "device time and the loop closures; k7k8: K7, K8 and the tracker; "
                          "horn: K10's weighted Horn and a Sim3 attempt on seeded inputs "
                          "(output hashes); collab_seeds: run_collab's alignment errors over "
-                         "server seeds 0-7 (neither in the default)")
+                         "server seeds 0-7; k9horn: the batched K9 and the weighted Horn on the "
+                         "server path's inputs, against --parent (none of these three in the "
+                         "default)")
+    ap.add_argument("--parent", default=None,
+                    help="k9horn: a checkout of the parent commit to time in the same run")
     args = ap.parse_args()
     parts = set(args.parts.split(","))
     if not torch.cuda.is_available():
@@ -1313,6 +1462,8 @@ def main() -> None:
         out.update(time_horn(cs))
     if "collab_seeds" in parts:
         out.update(collab_seeds(cs))
+    if "k9horn" in parts:
+        out.update(time_k9_horn(cs, args.parent))
     if not parts & {"k6k2", "k6sweep", "k11k5", "k7k8"}:
         return finish(out, args.out)
     te = cs.track_entry("cuda")

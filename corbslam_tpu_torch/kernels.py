@@ -43,8 +43,8 @@ NVCC_FLAGS = [
 # "finish_keypoints"; K5's area-window mode (mono initialization) as
 # "match_area" and its epipolar-band mode (triangulation) as "match_band"; K12's as
 # "two_view", K13's as "triangulate"; K14's as "kmajority"; K8's launches
-# of global BA as "ba_dense_gba"; K9's two launches of a `transform_batch`
-# (a block of keyframes) as "vocab_batch"; K10's weighted Horn as "horn".
+# of global BA as "ba_dense_gba"; K9's launch of a `transform_batch` (a block
+# of keyframes) as "vocab_batch"; K10's weighted Horn as "horn".
 LAUNCHES = {"pyramid": 0, "fast_cells": 0, "orb_describe": 0, "stereo_match": 0,
             "finish_keypoints": 0, "match_masked": 0, "match_area": 0, "match_band": 0,
             "pose_opt": 0, "local_map": 0, "covisibility": 0, "ba_dense": 0, "vocab": 0,
@@ -93,10 +93,12 @@ _SIGNATURES = {
     "vocab_hist": [VP, VP, I32, I32, VP, I32, VP] + [VP],
     "vocab_sparse": [VP, VP, I32, VP, I32, VP, VP] + [VP],
     "vocab_l1_scores": [VP, I32, VP, I32, I32, VP] + [VP],
+    "vocab_transform_batch": ([VP, VP, I32, I32, VP, I32, VP, I32, VP, I32, VP, VP, I32, VP]
+                              + [I32] + [VP] * 3 + [VP]),
     # ransac.cu
     "sim3_attempt": [VP] * 5 + [I32, VP, I32] + [VP] * 3 + [I32] * 4 + [F32] * 8 + [VP] * 7 + [VP],
     "pnp_ransac": [VP] * 4 + [I32, VP, I32, I32] + [F32] * 5 + [VP] * 6 + [VP],
-    "horn_weighted": [VP] * 3 + [I32, I32, VP] + [VP],
+    "horn_weighted": [VP] * 3 + [I32, I32, VP, VP] + [VP],
     # pose_graph.cu
     "pg_linearize": [VP] * 8 + [I32] + [VP] * 2 + [VP],
     "pg_optimize": ([VP] * 4 + [I32] + [VP] * 6 + [I32] + [VP] * 2 + [I32] * 2 + [F32]
@@ -219,10 +221,11 @@ def workspace(name: str, device, stream: int = 0, words: int = 2) -> torch.Tenso
     stream (a best-hypothesis key, a CTA ticket, ...): zeros when made, kept
     from call to call, the launch's last CTA setting them back to 0. K10's
     Sim3 attempt ("sim3") and PnP RANSAC ("pnp") and K12 ("two_view") each
-    have their own."""
+    have their own. A call asking for more words than the stream's
+    workspace holds gets a larger one (zeros, made on the current stream)."""
     key = (name, torch.device(device), stream)
     work = _WORK.get(key)
-    if work is None:
+    if work is None or work.numel() < words:
         work = _WORK[key] = torch.zeros(words, dtype=torch.int64, device=device)
     return work
 

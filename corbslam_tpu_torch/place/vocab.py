@@ -13,9 +13,10 @@ centres MSB-first (`np.packbits`, unpacked with `np.unpackbits`); `load`
 unpacks them that way and repacks them LSB-first, so bit position i of a
 word meets bit position i of a descriptor as in the reference.
 
-On a CUDA tensor the assignment, the tf-idf histogram (dense and sparse) and
-the L1 scores run on kernel K9 (`csrc/vocab.cu`); on a CPU tensor their
-plain versions below.
+On a CUDA tensor the assignment, the tf-idf histogram (dense and sparse),
+the batched transform of a block of keyframes (one launch) and the L1
+scores run on kernel K9 (`csrc/vocab.cu`); on a CPU tensor their plain
+versions below.
 
 Training is binary k-majority: each iteration assigns every descriptor to
 its nearest centre (first minimum), tallies per centre the descriptors and
@@ -59,6 +60,11 @@ class Vocabulary(NamedTuple):
     idf: torch.Tensor                  # [W] f32
     groups: Optional[torch.Tensor] = None     # [G, 32] u8 group centres (2-level tree)
     child_idx: Optional[torch.Tensor] = None  # [G, Cmax] i32 word ids, -1 padded
+    # The tree's child blocks group by group for the batched transform's
+    # staging (`with_tree_layout`: the loaders and builders fill them; a
+    # tree made by hand, or given new words, needs it again).
+    child_words: Optional[torch.Tensor] = None  # [G, Cp, 32] u8
+    child_keys: Optional[torch.Tensor] = None   # [G, Cp] i32
 
     @property
     def n_words(self) -> int:
@@ -77,10 +83,10 @@ def from_bits(word_bits, idf, group_bits=None, child_idx=None, device="cuda") ->
     pass device="cpu" for the plain path."""
     dev = kernels.resolve_device(device)
     t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)  # noqa: E731
-    return Vocabulary(
+    return with_tree_layout(Vocabulary(
         t(pack_lsb(word_bits), np.uint8), t(idf, np.float32),
         None if group_bits is None else t(pack_lsb(group_bits), np.uint8),
-        None if child_idx is None else t(child_idx, np.int32))
+        None if child_idx is None else t(child_idx, np.int32)))
 
 
 def load(path: str, device="cuda") -> Vocabulary:
@@ -267,32 +273,150 @@ def transform_sparse(voc: Vocabulary, desc: torch.Tensor, valid: torch.Tensor):
     return ids, vals
 
 
+# The batched launch (`vocab_transform_batch`): a CTA a (keyframe row, chunk
+# of descriptors); its limits are its shared memory's.
+TB_THREADS = 256        # the CTA, whose block_sum order the plain version repeats
+TB_CHUNK_MAX = 1024     # descriptors a CTA, at most
+TB_TARGET_CTAS = 264    # the chunk aims at two CTAs on each of the H100's 132 SMs
+TB_MAX_F, TB_MAX_G, TB_MAX_C, TB_MAX_W = 4096, 4096, 256, 65536
+TB_TICKETS = 24         # workspace words before the row tickets (stamps at 8..)
+
+
+def batch_chunk(B: int, F: int) -> int:
+    """Descriptors a CTA of the batched launch: enough chunks a row to give
+    about TB_TARGET_CTAS CTAs, a multiple of 16 (a tensor-core tile)."""
+    per_row = max(1, -(-TB_TARGET_CTAS // max(B, 1)))
+    chunk = -(-max(F, 1) // per_row)
+    return min(TB_CHUNK_MAX, max(16, -(-chunk // 16) * 16))
+
+
+def check_batch_capacity(voc: Vocabulary, B: int, F: int) -> None:
+    """Raise ValueError for a block the batched launch cannot take."""
+    W = voc.n_words
+    if F > TB_MAX_F or B > 65535 or W > TB_MAX_W:
+        raise ValueError(f"transform_batch: B {B} / F {F} / W {W} beyond the kernel's "
+                         f"65535 / {TB_MAX_F} / {TB_MAX_W}")
+    if voc.child_idx is not None:
+        G, C = voc.child_idx.shape
+        if G > TB_MAX_G or not 1 <= C <= TB_MAX_C:
+            raise ValueError(f"transform_batch: a tree of {G} groups x {C} children is beyond "
+                             f"the kernel's {TB_MAX_G} x 1..{TB_MAX_C}")
+
+
+def tree_layout(voc: Vocabulary):
+    """The tree's child blocks laid out group by group for the batched
+    launch's staging: words [G, Cp, 32] u8, slot j of group g holding word
+    child_idx[g, j] (zeros where padded), and keys [G, Cp] i32, (popc + 256)
+    << 16 | j for a child, 0xFFFF << 16 | j for a padded one (-1), -1 (all
+    ones) past C; Cp is C rounded up to 8 (a tensor-core tile's columns)."""
+    G, C = voc.child_idx.shape
+    Cp = -(-C // 8) * 8
+    kid = torch.full((G, Cp), -2, dtype=torch.int64, device=voc.words.device)
+    kid[:, :C] = voc.child_idx.long()
+    real = kid >= 0
+    words = torch.where(real[..., None], voc.words[kid.clamp_min(0)],
+                        torch.zeros((), dtype=torch.uint8, device=kid.device)).contiguous()
+    j = torch.arange(Cp, dtype=torch.int64, device=kid.device).expand(G, Cp)
+    keys = torch.where(real, ((D.popcount_desc(words).long() + 256) << 16) | j,
+                       torch.where(kid == -2, torch.full_like(j, 0xFFFFFFFF), (0xFFFF << 16) | j))
+    keys = keys.where(keys < (1 << 31), keys - (1 << 32)).to(torch.int32).contiguous()
+    return words, keys
+
+
+def with_tree_layout(voc: Vocabulary) -> Vocabulary:
+    """`voc` with its `tree_layout` in child_words / child_keys (a flat
+    vocabulary as it is)."""
+    if voc.child_idx is None:
+        return voc._replace(child_words=None, child_keys=None)
+    gw, gk = tree_layout(voc)
+    return voc._replace(child_words=gw, child_keys=gk)
+
+
+def cta_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum of x [n] in the order of the batched kernel's block_sum: thread i
+    of 256 adds x[i], x[i + 256], ... in turn from 0, each warp halves its
+    32 partials to one, and the 8 warp sums are halved to one."""
+    T = TB_THREADS
+    n = max(-(-x.numel() // T), 1)
+    acc = x.new_zeros(T)
+    for r in torch.cat([x, x.new_zeros(n * T - x.numel())]).view(n, T):
+        acc = acc + r
+    acc = acc.view(T // 32, 32)
+    st = 16
+    while st:
+        acc = acc[:, :st] + acc[:, st:2 * st]
+        st //= 2
+    acc = acc[:, 0]
+    st = T // 64
+    while st:
+        acc = acc[:st] + acc[st:2 * st]
+        st //= 2
+    return acc[0]
+
+
+def batch_words_plain(voc: Vocabulary, desc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The batched launch's word ids [B, F]: each descriptor's word, -1 for
+    an invalid feature."""
+    B, F = desc.shape[0], desc.shape[1]
+    word = assign_plain(voc, desc.reshape(B * F, 32)).view(B, F)
+    return torch.where(valid, word, torch.full_like(word, -1))
+
+
 def transform_batch_plain(voc: Vocabulary, desc: torch.Tensor, valid: torch.Tensor):
     """Plain version of `transform_batch`: one assignment of the B x F
-    descriptors, then each row's histogram in turn."""
+    descriptors; then each row's valid words sorted and counted, the L1
+    norm of the nonzeros summed in the kernel's order (`cta_sum` over the
+    runs in word order) and the nonzeros divided by it."""
+    out = torch.zeros(desc.shape[0], voc.n_words, dtype=torch.float32, device=desc.device)
+    for row, w in zip(out, batch_words_plain(voc, desc, valid)):
+        ids, counts = torch.unique(w[w >= 0], sorted=True, return_counts=True)
+        v = counts.to(torch.float32) * voc.idf[ids.long()]
+        row[ids.long()] = v / cta_sum(v.abs()).clamp_min(1e-9)
+    return out
+
+
+def transform_batch_words(voc: Vocabulary, desc: torch.Tensor, valid: torch.Tensor):
+    """`transform_batch` with its word ids: (BoW [B, W], words [B, F], -1 for
+    an invalid feature). On the card one launch (`vocab_transform_batch`,
+    counted as "vocab_batch") of a CTA a (row, `batch_chunk` descriptors),
+    a tree's child blocks staged from its child_words / child_keys. Raises
+    ValueError for a block the kernel cannot take (`check_batch_capacity`)
+    and for a tree without that layout."""
+    if not _on_cuda(desc):
+        return transform_batch_plain(voc, desc, valid), batch_words_plain(voc, desc, valid)
+    dev, W = desc.device, voc.n_words
     B, F = desc.shape[0], desc.shape[1]
-    if B == 0:
-        return torch.zeros(0, voc.n_words, dtype=torch.float32, device=desc.device)
-    word = assign_plain(voc, desc.reshape(B * F, 32)).view(B, F)
-    return torch.stack([histogram_plain(voc, w, v) for w, v in zip(word, valid)])
+    _check_voc(voc, dev)
+    kernels.check(desc, "desc", torch.uint8, (B, F, 32), dev)
+    kernels.check(valid, "valid", torch.bool, (B, F), dev)
+    check_batch_capacity(voc, B, F)
+    tree = voc.child_idx is not None
+    G, C = (voc.groups.shape[0], voc.child_idx.shape[1]) if tree else (0, 0)
+    gw, gk = voc.child_words, voc.child_keys
+    if tree:
+        if gw is None or gk is None:
+            raise ValueError("transform_batch: a tree Vocabulary without its child_words / "
+                             "child_keys (vocab.with_tree_layout makes them)")
+        Cp = -(-C // 8) * 8
+        kernels.check(gw, "voc.child_words", torch.uint8, (G, Cp, 32), dev)
+        kernels.check(gk, "voc.child_keys", torch.int32, (G, Cp), dev)
+    out = torch.empty(B, W, dtype=torch.float32, device=dev)
+    words = torch.empty(B, F, dtype=torch.int32, device=dev)
+    work = kernels.workspace("vocab_batch", dev, kernels.stream(), TB_TICKETS + B)
+    p = kernels.ptr
+    opt = lambda t: None if t is None else p(t)  # noqa: E731
+    kernels.launch("vocab_batch", "vocab_transform_batch", p(desc), p(valid), B, F,
+                   p(voc.words), W, opt(voc.groups), G, opt(voc.child_idx), C, opt(gw), opt(gk),
+                   min(TREE_TOP_G, G), p(voc.idf), batch_chunk(B, F), p(words), p(out),
+                   p(work))
+    return out, words
 
 
 def transform_batch(voc: Vocabulary, desc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Descriptors [B, F, 32] of B keyframes -> their BoW vectors [B, W] (the
-    reference's vmap of `transform`). On the card two K9 launches a call,
-    counted as "vocab_batch": one assignment over the B x F descriptors and
-    one histogram launch of a CTA a row."""
-    if not _on_cuda(desc):
-        return transform_batch_plain(voc, desc, valid)
-    dev, W = desc.device, voc.n_words
-    B, F = desc.shape[0], desc.shape[1]
-    kernels.check(desc, "desc", torch.uint8, (B, F, 32), dev)
-    kernels.check(valid, "valid", torch.bool, (B, F), dev)
-    word = assign(voc, desc.view(B * F, 32), counter="vocab_batch")
-    out = torch.empty(B, W, dtype=torch.float32, device=dev)
-    p = kernels.ptr
-    kernels.launch("vocab_batch", "vocab_hist", p(word), p(valid), B, F, p(voc.idf), W, p(out))
-    return out
+    reference's vmap of `transform`). On the card one K9 launch a call,
+    counted as "vocab_batch" (`transform_batch_words`)."""
+    return transform_batch_words(voc, desc, valid)[0]
 
 
 def transform_many(voc: Vocabulary, desc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -566,7 +690,7 @@ def train_hierarchical(descriptors: torch.Tensor, n_groups: int = 1024,
     init = level2_init(desc, gb, grp.cpu().numpy(), B, seed)
     words, counts = km(desc, init, n_iters, group=grp, block=B)
     child = torch.arange(G * B, dtype=torch.int32, device=dev).reshape(G, B)
-    return Vocabulary(words, idf_fn(counts), gb, child)
+    return with_tree_layout(Vocabulary(words, idf_fn(counts), gb, child))
 
 
 def build_tree(voc: Vocabulary, n_groups: int = 1024, n_iters: int = 8, seed: int = 0,
@@ -600,4 +724,5 @@ def build_tree(voc: Vocabulary, n_groups: int = 1024, n_iters: int = 8, seed: in
     child = np.full((G, cmax), -1, np.int32)
     for gi, b in enumerate(buckets):
         child[gi, : len(b)] = b
-    return voc._replace(groups=gb, child_idx=torch.from_numpy(child).to(words.device))
+    return with_tree_layout(voc._replace(groups=gb,
+                                         child_idx=torch.from_numpy(child).to(words.device)))

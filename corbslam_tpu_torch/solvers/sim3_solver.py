@@ -102,20 +102,28 @@ def horn_sim3_batched(p1: torch.Tensor, p2: torch.Tensor, fix_scale: bool = Fals
 
 
 HORN_THREADS = 256  # the weighted-Horn kernel's CTA: its sums' order
+HORN_REG = 8        # pairs a kernel thread keeps in registers (its partials add their zeros)
 
 
 def _block_sum(x: torch.Tensor) -> torch.Tensor:
     """[K, C] -> [C], summed in the weighted-Horn kernel's order: partial i
-    adds rows i, i + 256, ... in turn from 0, then the 256 partials are
-    halved as a tree (stride 128 down to 1)."""
+    of 256 adds rows i, i + 256, ... in turn from 0 (zeros past K among its
+    HORN_REG registers), each warp halves its 32 partials to one (shfl_down),
+    and the 8 warp sums are halved to one (w0 + w4, ..., then + 2, + 1)."""
     T = HORN_THREADS
     K, C = x.shape
-    n = max(-(-K // T), 1)
+    n = max(-(-K // T), HORN_REG)
     xs = torch.cat([x, x.new_zeros(n * T - K, C)]).view(n, T, C)
     acc = x.new_zeros(T, C)
     for r in range(n):
         acc = acc + xs[r]
-    st = T // 2
+    acc = acc.view(T // 32, 32, C)
+    st = 16
+    while st >= 1:
+        acc = acc[:, :st] + acc[:, st:2 * st]
+        st //= 2
+    acc = acc[:, 0]
+    st = T // 64
     while st >= 1:
         acc = acc[:st] + acc[st:2 * st]
         st //= 2
@@ -127,12 +135,45 @@ def _sum3(a: torch.Tensor) -> torch.Tensor:
     return (a[..., 0] + a[..., 1]) + a[..., 2]
 
 
+def _scale4(C: torch.Tensor) -> torch.Tensor:
+    """4x4 C scaled exactly by the power of 2 that puts its largest diagonal
+    entry in [1, 2) (the kernel's `horn_scale`)."""
+    ex = int(torch.frexp(torch.diagonal(C).max())[1])
+    return C * torch.tensor(2.0 ** min(max(1 - ex, -126), 126), dtype=C.dtype, device=C.device)
+
+
+def _product4(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """4x4 A B, each entry's 4 terms added in k order, then `_scale4` (the
+    kernel's squaring step)."""
+    return _scale4(((A[:, 0:1] * B[0:1, :] + A[:, 1:2] * B[1:2, :]) + A[:, 2:3] * B[2:3, :])
+                   + A[:, 3:4] * B[3:4, :])
+
+
+def _matvec4(A: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    return ((A[:, 0] * u[0] + A[:, 1] * u[1]) + A[:, 2] * u[2]) + A[:, 3] * u[3]
+
+
+def horn_power_tail(Ns: torch.Tensor) -> torch.Tensor:
+    """The reference's 100 shifted power iterations from the ones vector,
+    v = Ns^100 1 / |Ns^100 1|, as the weighted-Horn kernel computes it: Ns
+    scaled (`_scale4`, so no product overflows) and squared 6 times
+    (`_product4`), u = Ns^64 (Ns^32 (Ns^4 1)), normalized (1e-12 clamp:
+    Ns = 0 gives v = 0)."""
+    A, u = _scale4(Ns), torch.ones(4, dtype=Ns.dtype, device=Ns.device)
+    for s in range(1, 7):
+        A = _product4(A, A)
+        if s in (2, 5, 6):
+            u = _matvec4(A, u)
+    uu = u * u
+    return u / torch.sqrt(((uu[0] + uu[1]) + uu[2]) + uu[3]).clamp_min(1e-12)
+
+
 def horn_weighted_plain(p1: torch.Tensor, p2: torch.Tensor, w: torch.Tensor,
                         fix_scale: bool = False):
     """Plain version of the weighted-Horn kernel: `horn_sim3` on one set of
     K pairs with weights w [K], every sum over the pairs in the kernel's
-    block order (`_block_sum`) and every other sum left to right, as the
-    kernel does."""
+    order (`_block_sum`), every other sum left to right, and the power
+    iteration by the kernel's squaring (`horn_power_tail`)."""
     den = _block_sum(w[:, None])[0].clamp_min(1e-12)
     wn = w / den
     c = _block_sum(torch.cat([p1 * wn[:, None], p2 * wn[:, None]], dim=1))
@@ -151,12 +192,7 @@ def horn_weighted_plain(p1: torch.Tensor, p2: torch.Tensor, w: torch.Tensor,
     diag = torch.diagonal(N)
     g = diag - (((a[:, 0] + a[:, 1]) + a[:, 2]) + a[:, 3] - diag.abs())
     Ns = N + g.min().neg().clamp_min(0.0) * torch.eye(4, dtype=N.dtype, device=N.device)
-    v = torch.ones(4, dtype=N.dtype, device=N.device)
-    for _ in range(100):
-        u = ((Ns[:, 0] * v[0] + Ns[:, 1] * v[1]) + Ns[:, 2] * v[2]) + Ns[:, 3] * v[3]
-        uu = u * u
-        v = u / torch.sqrt(((uu[0] + uu[1]) + uu[2]) + uu[3]).clamp_min(1e-12)
-    R = se3.R_from_quat(v)
+    R = se3.R_from_quat(horn_power_tail(Ns))
     if fix_scale:
         s = torch.ones((), dtype=p1.dtype, device=p1.device)
     else:
@@ -189,8 +225,9 @@ def horn_sim3(p1: torch.Tensor, p2: torch.Tensor, fix_scale: bool = False,
     for name, t, shape in (("p1", p1, (K, 3)), ("p2", p2, (K, 3)), ("w", w, (K,))):
         kernels.check(t, name, torch.float32, shape, dev)
     out = torch.empty(13, dtype=torch.float32, device=dev)
+    work = kernels.workspace("horn", dev, kernels.stream(), kernels.STAMPED_WORDS)
     kernels.launch("horn", "horn_weighted", kernels.ptr(p1), kernels.ptr(p2), kernels.ptr(w), K,
-                   int(bool(fix_scale)), kernels.ptr(out))
+                   int(bool(fix_scale)), kernels.ptr(out), kernels.ptr(work))
     return out[:9].view(3, 3), out[9:12], out[12]
 
 

@@ -496,30 +496,34 @@ def test_k11_and_k5_make_one_launch_that_fits_their_c_entry(wrapper, monkeypatch
 
 @pytest.mark.parametrize("wrapper", ["transform_batch", "horn"])
 def test_k9_batch_and_weighted_horn_launches_fit_their_c_entries(wrapper, monkeypatch):
-    """K9's `transform_batch` makes two launches, `vocab_assign` over the B x
-    F descriptors and `vocab_hist` of B rows, both counted as
-    "vocab_batch"; the weighted Horn one `horn_weighted` launch, counted as
-    "horn". Each argument list fits its C entry's ctypes signature. Run here
-    on CPU tensors with the launches recorded instead of made."""
+    """K9's `transform_batch` makes one launch, `vocab_transform_batch` over
+    the B x F descriptors (a CTA a row and chunk of 16 descriptors here),
+    counted as "vocab_batch", with a workspace of 24 words and a ticket a
+    row; the weighted Horn one `horn_weighted` launch, counted as "horn".
+    Each argument list fits its C entry's ctypes signature. Run here on CPU
+    tensors with the launches recorded instead of made."""
     calls = []
     monkeypatch.setattr(kernels, "launch", lambda counter, fn, *a: calls.append((counter, fn, a)))
-    monkeypatch.setattr(kernels, "ptr", lambda t: 0)
+    monkeypatch.setattr(kernels, "ptr", lambda t: t.numel())
     monkeypatch.setattr(kernels, "check", lambda *a, **k: None)
+    monkeypatch.setattr(kernels, "stream", lambda: 0)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     if wrapper == "transform_batch":
         B, F, W = 3, 7, 16
         voc = vocab.Vocabulary(torch.zeros(W, 32, dtype=torch.uint8), torch.ones(W))
         out = vocab.transform_batch(voc, torch.zeros(B, F, 32, dtype=torch.uint8),
                                     torch.ones(B, F, dtype=torch.bool))
-        assert [c[:2] for c in calls] == [("vocab_batch", "vocab_assign"),
-                                          ("vocab_batch", "vocab_hist")]
-        assert calls[0][2][1] == B * F and calls[1][2][2:4] == (B, F) and out.shape == (B, W)
+        assert [c[:2] for c in calls] == [("vocab_batch", "vocab_transform_batch")]
+        args = calls[0][2]
+        assert args[2:4] == (B, F) and args[14] == 16 and args[-1] >= vocab.TB_TICKETS + B
+        assert args[-3:-1] == (B * F, B * W) and out.shape == (B, W)
     else:
         K = 9
         R, t, s = sim3_solver.horn_sim3(torch.zeros(K, 3), torch.zeros(K, 3), True,
                                         w=torch.ones(K))
         assert [c[:2] for c in calls] == [("horn", "horn_weighted")]
         assert calls[0][2][3:5] == (K, 1) and R.shape == (3, 3) and t.shape == (3,)
+        assert calls[0][2][-1] == kernels.STAMPED_WORDS
     for counter, fn, args in calls:
         assert counter in kernels.LAUNCHES
         assert len(args) + 1 == len(kernels._SIGNATURES[fn])  # + the stream
